@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of the port's serving step goes, on one GPU.
+"""Where the time of the port's serving and training steps goes, on one GPU.
 
-    python3 bench_torch.py [--batch 128] [--seconds 3] [--blocks 17] [--runs 20]
+    python3 bench_torch.py [--batch 128] [--seconds 3] [--blocks 17] [--runs 20] [--train]
 
-For the serving (bf16, fused frontend) and parity (f32, TF32 off) modes of
-``titanet_torch.train.state.embed_step`` on TitaNet-S (random weights from
-seed 0): the median wall time per batch (host clock around synchronized
-calls), then a ``torch.profiler`` trace of 3 calls giving device time per
-kernel, the two hand-written kernels' share, and the device's idle share
-(1 - summed kernel time / wall time of the traced calls). Prints one JSON
-line per mode, with the card's name and power limit.
+Serving (default): for the serving (bf16, fused frontend) and parity (f32,
+TF32 off) modes of ``titanet_torch.train.state.embed_step`` on TitaNet-S
+(random weights from seed 0). ``--train``: ``train_step`` on TitaNet-S
+(bf16, dropout 0.5, fused f32 mel, CE over 251 classes, Adam 1e-3) under
+``TITANET_DW_BWD`` = xla, pallas, pallas, xla in turn, on one fixed batch.
+
+For each mode: the median wall time per call (host clock around
+synchronized calls) with quartiles, then a ``torch.profiler`` trace of 3
+calls giving device time per kernel, the hand-written kernels' times, and
+the device's idle share (1 - summed kernel time / wall time of the traced
+calls); training adds the peak device memory. Prints one JSON line per
+mode, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -24,7 +29,10 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-OWN_KERNELS = ("logmel_kernel", "attn_u_kernel", "attn_stats_kernel")
+OWN_KERNELS = (
+    "logmel_kernel", "attn_u_kernel", "attn_stats_kernel", "attn_de_kernel", "gemm_kernel",
+    "sum_parts_kernel", "dw_bwd_kernel", "dw_reduce_kernel",
+)
 
 
 def card() -> str:
@@ -42,14 +50,10 @@ def short(name: str) -> str:
     return name[:90]
 
 
-def run_mode(label, model, wav, lengths, frontend, runs):
+def run_mode(label, step, runs):
+    """Time ``step`` (one call, any return) and trace 3 calls of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from titanet_torch.train.state import embed_step
-
-    def step():
-        return embed_step(model, wav, lengths, frontend=frontend, device=wav.device)
 
     for _ in range(3):
         step()
@@ -90,6 +94,46 @@ def run_mode(label, model, wav, lengths, frontend, runs):
     }
 
 
+def bench_train(args, dev, n, name) -> int:
+    import numpy as np
+    import torch
+
+    from titanet_torch.losses.heads import build_head
+    from titanet_torch.models import get_titanet
+    from titanet_torch.ops.frontend import FrontendConfig
+    from titanet_torch.train import state as ts
+
+    n_cls = 251
+    rng = np.random.default_rng(0)
+    t = np.arange(n) / 16000.0
+    f0 = rng.uniform(100.0, 2000.0, (args.batch, 1))
+    amp = rng.uniform(0.05, 0.5, (args.batch, 1))
+    wav = amp * np.sin(2 * np.pi * f0 * t) + 0.05 * rng.standard_normal((args.batch, n))
+    wav = torch.from_numpy(wav.astype(np.float32)).to(dev)
+    lengths = torch.full((args.batch,), n, dtype=torch.int32, device=dev)
+    spk = torch.from_numpy(rng.integers(0, n_cls, args.batch)).to(dev)
+    fe = FrontendConfig.from_ms(use_pallas_fused=True)
+    for route in ("xla", "pallas", "pallas", "xla"):
+        os.environ["TITANET_DW_BWD"] = route
+        model = get_titanet(n_mega_blocks=args.blocks, dtype=torch.bfloat16, dropout=0.5, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        head = build_head("ce", 192, n_cls, device=dev, generator=torch.Generator().manual_seed(1))
+        state = ts.create_train_state(model, head, ts.make_optimizer(start_lr=1e-3), seed=0)
+        torch.cuda.reset_peak_memory_stats()
+
+        def step():
+            _, met = ts.train_step(state, wav, lengths, spk, frontend=fe)
+            return met
+
+        res = run_mode(f"bf16 train TITANET_DW_BWD={route}", step, args.runs)
+        res.update(batch=args.batch, seconds=args.seconds, blocks=args.blocks, card=name,
+                   utt_per_s=args.batch / res["median_ms"] * 1e3,
+                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(json.dumps(res))
+        del state, model, head
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -99,6 +143,7 @@ def main() -> int:
     p.add_argument("--seconds", type=float, default=3.0)
     p.add_argument("--blocks", type=int, default=17)
     p.add_argument("--runs", type=int, default=20)
+    p.add_argument("--train", action="store_true", help="time train_step instead of embed_step")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("bench_torch: no CUDA device", file=sys.stderr)
@@ -114,13 +159,17 @@ def main() -> int:
     wav = torch.from_numpy((rng.standard_normal((args.batch, n)) * 0.1).astype(np.float32)).to(dev)
     lengths = torch.full((args.batch,), n, dtype=torch.int32, device=dev)
     name = card()
+    if args.train:
+        return bench_train(args, dev, n, name)
+    from titanet_torch.train.state import embed_step
+
     for label, dtype, fe in (
         ("bf16 serving", torch.bfloat16, FrontendConfig.from_ms(precision="default", use_pallas_fused=True)),
         ("f32 parity", None, FrontendConfig.from_ms(use_pallas_fused=True)),
     ):
         model = get_titanet(n_mega_blocks=args.blocks, dtype=dtype, device=dev,
                             generator=torch.Generator().manual_seed(0))
-        res = run_mode(label, model, wav, lengths, fe, args.runs)
+        res = run_mode(label, lambda: embed_step(model, wav, lengths, frontend=fe, device=dev), args.runs)
         res.update(batch=args.batch, seconds=args.seconds, blocks=args.blocks, card=name)
         print(json.dumps(res))
         del model

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels vs their plain versions, on the card.
+"""The port's CUDA kernels vs their plain versions, and the bf16 training
+route through them, on the card.
 
 Imports neither JAX nor the JAX package, so it also runs where only the
 port is installed:
@@ -13,8 +14,14 @@ import pytest
 import torch
 
 from titanet_torch.ops import frontend as tf
+from titanet_torch.ops.kernels import dwconv
 from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
-from titanet_torch.ops.kernels.pool import attentive_pool_fwd, attentive_pool_fwd_plain
+from titanet_torch.ops.kernels.pool import (
+    attentive_pool_bwd,
+    attentive_pool_bwd_plain,
+    attentive_pool_fwd,
+    attentive_pool_fwd_plain,
+)
 
 
 @pytest.fixture
@@ -94,3 +101,84 @@ def test_small_bf16_embed_step_runs_both_kernels(cuda_device):
     assert emb.shape == (4, 192) and torch.isfinite(emb).all()
     torch.testing.assert_close(torch.linalg.vector_norm(emb, dim=-1), torch.ones(4, device=cuda_device),
                                rtol=0, atol=1e-2)
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 77, 301])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fold", [False, True])
+def test_pool_backward_kernel_matches_plain(cuda_device, dtype, fold, t):
+    """Every gradient within tol of its largest entry (f32 1e-4: sums in
+    another order; bf16 2e-2: dh is bf16 and de, dz round to bf16 before the
+    products). dbb is zero in exact arithmetic: both are noise below tol of
+    max |dWb|."""
+    args = _pool_args(cuda_device, dtype, t=t)
+    g = torch.from_numpy(np.random.default_rng(t).standard_normal((3, 512)).astype(np.float32))
+    g = g.to(cuda_device).to(dtype)
+    before = attentive_pool_bwd.launches
+    got = attentive_pool_bwd(*args, g, 1e-6, fold)
+    torch.cuda.synchronize()
+    assert attentive_pool_bwd.launches == before + 1
+    ref = attentive_pool_bwd_plain(*args, g, 1e-6, fold)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    names = ("dh", "da", "dc", "dwa", "dba", "dwb", "dbb")
+    for name, a, r in zip(names, got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert torch.isfinite(a).all(), name
+        if name in ("da", "dc") and not fold:
+            assert not a.any() and not r.any(), name
+        elif name == "dbb":
+            scale = ref[5].abs().max().item()
+            assert a.abs().max().item() <= tol * scale and r.abs().max().item() <= tol * scale
+        else:
+            assert _rel_err(a, r) <= tol, (name, _rel_err(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_backward_kernel_matches_plain(cuda_device, dtype, k):
+    """dx, dk, db within tol of their largest entry (f32 1e-5, bf16 3e-2:
+    the JAX package's tolerances for its kernel)."""
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((3, 137, 256)).astype(np.float32)).to(cuda_device).to(dtype)
+    dy = torch.from_numpy(rng.standard_normal((3, 137, 256)).astype(np.float32)).to(cuda_device).to(dtype)
+    w = torch.from_numpy((rng.standard_normal((256, 1, k)) * 0.3).astype(np.float32)).to(cuda_device)
+    before = dwconv.dw_bwd.launches
+    got = dwconv.dw_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert dwconv.dw_bwd.launches == before + 1
+    ref = dwconv.dw_bwd_plain(x, w, dy)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    for name, a, r in zip(("dx", "dk", "db"), got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert _rel_err(a, r) <= tol, (name, _rel_err(a, r))
+
+
+@pytest.mark.cuda
+def test_bf16_train_mode_gives_every_parameter_a_gradient(cuda_device, monkeypatch):
+    """A bf16 model on CUDA in train mode pools through the autograd
+    Function: its backward launches the pool-backward kernel once, and every
+    parameter gets a finite, non-zero gradient."""
+    from titanet_torch.models.titanet import TitaNet
+
+    monkeypatch.setenv("TITANET_DW_BWD", "pallas")
+    model = TitaNet(n_mega_blocks=2, encoder_hidden_size=128, encoder_output_size=256,
+                    dtype=torch.bfloat16, dropout=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(cuda_device).train()
+    mel = torch.from_numpy(np.random.default_rng(8).standard_normal((4, 101, 80)).astype(np.float32))
+    attentive_pool_fwd.launches = attentive_pool_bwd.launches = dwconv.dw_bwd.launches = 0
+    emb = model(mel.to(cuda_device))
+    (emb.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert attentive_pool_fwd.launches == 1 and attentive_pool_bwd.launches == 1
+    assert dwconv.dw_bwd.launches == 6
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max() > 0, name

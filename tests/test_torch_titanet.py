@@ -8,7 +8,7 @@ import torch
 
 from tests.torch_port_helpers import cosine, small_titanet_pair
 from titanet_torch.models import titanet as tt
-from titanet_torch.ops.kernels.pool import attentive_pool_fwd
+from titanet_torch.ops.kernels.pool import attentive_pool_fused
 from titanet_torch.ops.norm import BatchNorm as TorchBN
 from titanet_torch.ops.se import SqueezeExcitation as TorchSE
 from titanet_torch.utils.weights import load_jax_variables
@@ -51,9 +51,9 @@ def test_bf16_titanet_routes_through_pool_wrapper(monkeypatch):
 
     def spy(*args, **kw):
         calls.append(1)
-        return attentive_pool_fwd(*args, **kw)
+        return attentive_pool_fused(*args, **kw)
 
-    monkeypatch.setattr("titanet_torch.ops.pooling.attentive_pool_fwd", spy)
+    monkeypatch.setattr("titanet_torch.ops.pooling.attentive_pool_fused", spy)
     _, _, tmodel = small_titanet_pair(torch.bfloat16)
     with torch.no_grad():
         tmodel(torch.from_numpy(_mel(2)))
@@ -135,5 +135,9 @@ def test_weight_bridge_rejects_mismatched_trees():
 
 
 def test_batchnorm_refuses_training_mode():
-    with pytest.raises(NotImplementedError):
-        TorchBN(8).train()(torch.zeros(2, 8))
+    """Training mode is ported (tests/test_torch_train.py); what it refuses
+    is a mask that does not cover the statistics' axes."""
+    bn = TorchBN(8).train()
+    with pytest.raises(ValueError):
+        bn(torch.zeros(2, 5, 8), mask=torch.ones(2, 4))
+    assert bn(torch.zeros(2, 5, 8), mask=torch.ones(2, 5)).shape == (2, 5, 8)

@@ -1,5 +1,6 @@
-"""TitaNet (Koluguri et al., arXiv:2110.04410), inference forward (port of
-``titanet_tpu/models/titanet.py``), channels-last ``[B, T, C]``:
+"""TitaNet (Koluguri et al., arXiv:2110.04410), training and inference
+forward (port of ``titanet_tpu/models/titanet.py``), channels-last
+``[B, T, C]``:
 
   Encoder: prolog ConvBlock(n_mels->H, k=3)
            -> N x MegaBlock(3 depthwise sub-blocks + SE, conv-BN skip)
@@ -14,10 +15,18 @@ other by path. The model takes ``[B, T, n_mels]`` and returns raw
 embeddings ``[B, E]``; ``mask`` (``[B, T]``) makes SE and pooling ignore
 padded frames.
 
-This is the eval-mode forward: dropout is the identity and BatchNorm uses
-its running statistics (training waits for the training port). When the
-model is bf16 and there is no mask, the epilog's BatchNorm apply and relu
-are folded into the fused pooling kernel.
+``model.train()`` selects the training forward: BatchNorm normalizes with
+batch statistics (masked by ``mask`` when given) and publishes its batch
+moments (:func:`titanet_torch.ops.norm.ema_update_batch_stats` folds them
+in), and dropout is active at the JAX package's sites: after each
+sub-block's relu and after each mega-block's ``relu(skip + y)``, none in
+the prolog or the epilog (4 sites a mega-block). Its draws come from the
+``generator`` passed to :meth:`TitaNet.forward`. In eval mode dropout is
+the identity and BatchNorm uses its running statistics.
+
+When the model is bf16 and there is no mask, the epilog's BatchNorm apply
+and relu are folded into the fused pooling kernel, in both modes (in
+training from the batch statistics).
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from titanet_torch._device import resolve_device
 from titanet_torch.ops.conv import DepthwiseSeparableConv1d, SamePadConv1d
 from titanet_torch.ops.dense import Dense
 from titanet_torch.ops.kernels.pool import kernel_supports
-from titanet_torch.ops.norm import BatchNorm
+from titanet_torch.ops.norm import BatchNorm, FastDropout
 from titanet_torch.ops.pooling import AttentiveStatsPooling
 from titanet_torch.ops.se import SqueezeExcitation
 
@@ -39,7 +48,7 @@ TARGET_PARAMS = {"s": 6.4, "m": 13.4, "l": 25.3}
 
 
 class ConvBlock1d(nn.Module):
-    """conv -> BatchNorm -> relu."""
+    """conv -> BatchNorm -> relu -> dropout."""
 
     def __init__(
         self,
@@ -47,26 +56,31 @@ class ConvBlock1d(nn.Module):
         features: int,
         kernel_size: int,
         depthwise: bool = False,
+        dropout: float = 0.0,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         conv_cls = DepthwiseSeparableConv1d if depthwise else SamePadConv1d
         self.conv = conv_cls(in_features, features, kernel_size, dtype=dtype)
         self.norm = BatchNorm(features, dtype=dtype)
+        self.dropout = FastDropout(dropout)
 
-    def forward(self, x: torch.Tensor, defer_apply: bool = False):
-        """With ``defer_apply`` return ``(conv(x), a, c)``: the BatchNorm
-        apply and the relu are left to the consumer as ``relu(a*h + c)``."""
+    def forward(self, x: torch.Tensor, mask=None, defer_apply: bool = False, generator=None):
+        """``mask`` reaches the BatchNorm statistics in training only. With
+        ``defer_apply`` return ``(conv(x), a, c)``: the BatchNorm apply and
+        the relu are left to the consumer as ``relu(a*h + c)``."""
         x = self.conv(x)
         if defer_apply:
-            a, c = self.norm(x, return_scale_shift=True)
+            if self.dropout.rate:
+                raise ValueError("defer_apply needs a block without dropout")
+            a, c = self.norm(x, mask=mask, return_scale_shift=True)
             return x, a, c
-        return torch.relu(self.norm(x))
+        return self.dropout(torch.relu(self.norm(x, mask=mask)), generator)
 
 
 class MegaBlock(nn.Module):
     """3 depthwise ConvBlocks -> SE, summed with a 1x1-conv+BN skip branch,
-    then ReLU."""
+    then ReLU and dropout."""
 
     def __init__(
         self,
@@ -74,6 +88,7 @@ class MegaBlock(nn.Module):
         kernel_size: int,
         n_sub_blocks: int = 3,
         se_reduction: int = 16,
+        dropout: float = 0.5,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
@@ -81,19 +96,21 @@ class MegaBlock(nn.Module):
         for i in range(n_sub_blocks):
             self.add_module(
                 f"sub_block_{i}",
-                ConvBlock1d(features, features, kernel_size, depthwise=True, dtype=dtype),
+                ConvBlock1d(features, features, kernel_size, depthwise=True,
+                            dropout=dropout, dtype=dtype),
             )
         self.se = SqueezeExcitation(features, se_reduction, dtype=dtype)
         self.skip_conv = SamePadConv1d(features, features, 1, dtype=dtype)
         self.skip_norm = BatchNorm(features, dtype=dtype)
+        self.dropout = FastDropout(dropout)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, generator=None) -> torch.Tensor:
         y = x
         for i in range(self.n_sub_blocks):
-            y = getattr(self, f"sub_block_{i}")(y)
+            y = getattr(self, f"sub_block_{i}")(y, mask=mask, generator=generator)
         y = self.se(y, mask=mask)
-        skip = self.skip_norm(self.skip_conv(x))
-        return torch.relu(skip + y)
+        skip = self.skip_norm(self.skip_conv(x), mask=mask)
+        return self.dropout(torch.relu(skip + y), generator)
 
 
 class Encoder(nn.Module):
@@ -110,6 +127,7 @@ class Encoder(nn.Module):
         prolog_kernel_size: int = 3,
         epilog_kernel_size: int = 1,
         se_reduction: int = 16,
+        dropout: float = 0.5,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
@@ -118,15 +136,16 @@ class Encoder(nn.Module):
         for i in range(n_mega_blocks):
             self.add_module(
                 f"mega_block_{i}",
-                MegaBlock(hidden_size, mega_block_kernel_size, n_sub_blocks, se_reduction, dtype),
+                MegaBlock(hidden_size, mega_block_kernel_size, n_sub_blocks, se_reduction,
+                          dropout, dtype),
             )
         self.epilog = ConvBlock1d(hidden_size, output_size, epilog_kernel_size, dtype=dtype)
 
-    def forward(self, x, mask=None, defer_epilog: bool = False):
-        x = self.prolog(x)
+    def forward(self, x, mask=None, defer_epilog: bool = False, generator=None):
+        x = self.prolog(x, mask=mask)
         for i in range(self.n_mega_blocks):
-            x = getattr(self, f"mega_block_{i}")(x, mask=mask)
-        return self.epilog(x, defer_apply=defer_epilog)
+            x = getattr(self, f"mega_block_{i}")(x, mask=mask, generator=generator)
+        return self.epilog(x, mask=mask, defer_apply=defer_epilog)
 
 
 class Decoder(nn.Module):
@@ -167,6 +186,7 @@ class TitaNet(nn.Module):
         epilog_kernel_size: int = 1,
         attention_hidden_size: int = 128,
         se_reduction: int = 16,
+        dropout: float = 0.5,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
@@ -176,7 +196,8 @@ class TitaNet(nn.Module):
         self.dtype = dtype
         self.encoder = Encoder(
             n_mels, n_mega_blocks, n_sub_blocks, encoder_hidden_size, encoder_output_size,
-            mega_block_kernel_size, prolog_kernel_size, epilog_kernel_size, se_reduction, dtype,
+            mega_block_kernel_size, prolog_kernel_size, epilog_kernel_size, se_reduction,
+            dropout, dtype,
         )
         self.decoder = Decoder(encoder_output_size, embedding_size, attention_hidden_size, dtype)
 
@@ -186,14 +207,20 @@ class TitaNet(nn.Module):
             if isinstance(m, (SamePadConv1d, Dense, BatchNorm)):
                 m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """``generator`` feeds the dropout draws in training mode."""
         # Fused-decoder eligibility: the pooling kernel absorbs the epilog
         # BN apply + relu, so the post-BN [B, T, C] activation never exists.
         dt = self.dtype or x.dtype
         fuse = mask is None and kernel_supports(
             self.encoder_output_size, self.attention_hidden_size, x.shape[1], dt
         )
-        enc = self.encoder(x, mask=mask, defer_epilog=fuse)
+        enc = self.encoder(x, mask=mask, defer_epilog=fuse, generator=generator)
         if fuse:
             enc, prescale, preshift = enc
         else:
@@ -214,11 +241,13 @@ def get_titanet(
     n_mega_blocks: Optional[int] = None,
     model_size: str = "s",
     attention_hidden_size: int = 128,
+    dropout: float = 0.5,
     dtype: Optional[torch.dtype] = None,
     device="cuda",
     generator: Optional[torch.Generator] = None,
 ) -> TitaNet:
-    """Size-preset constructor, in eval mode on ``device``. Weights are
+    """Size-preset constructor, in eval mode on ``device`` (``model.train()``
+    selects the training forward). Weights are
     drawn from ``generator`` (default: a generator seeded with 0). If
     ``n_mega_blocks`` is None, picks the count whose parameter total is
     closest to the paper target."""
@@ -235,6 +264,7 @@ def get_titanet(
         n_mega_blocks=n_mega_blocks,
         embedding_size=embedding_size,
         attention_hidden_size=attention_hidden_size,
+        dropout=dropout,
         dtype=dtype,
         **_SIZE_PRESETS[size],
     )

@@ -5,6 +5,13 @@
   formula. The pointwise case (K=1) is a matmul over ``[B*T, C]``.
 - :class:`DepthwiseSeparableConv1d` — grouped K-tap conv + 1x1 pointwise.
 
+A depthwise conv (groups == channels, stride 1) takes the one-pass
+backward kernel (:mod:`titanet_torch.ops.kernels.dwconv`) when
+``TITANET_DW_BWD=pallas`` and the kernel supports its shape (bf16, odd K,
+C % 128 == 0, T <= 4096); the default, ``xla``, keeps the library conv's
+own backward. The switch and its values are the JAX package's
+(``titanet_tpu/ops/conv.py``).
+
 Weights are stored in torch's ``Conv1d`` layout ``[out, in/groups, K]``.
 A K>1 conv runs as a ``conv2d`` over the ``[B, C, 1, T]`` view of the
 channels-last tensor, which is already in channels-last memory format, so
@@ -14,11 +21,20 @@ no transpose copy is made on the way in or out.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from titanet_torch.ops.kernels import dwconv
+
+
+def dw_bwd_mode() -> str:
+    """Depthwise-backward routing: ``xla`` (default: the library conv's
+    backward) or ``pallas`` (the one-pass backward kernel)."""
+    return os.environ.get("TITANET_DW_BWD", "xla")
 
 
 def same_padding(length: int, kernel_size: int, stride: int, dilation: int) -> int:
@@ -96,6 +112,16 @@ class SamePadConv1d(nn.Module):
         b = self.bias.to(x.dtype) if self.bias is not None else None
         if self.kernel_size == 1 and self.stride == 1 and self.groups == 1:
             return F.linear(x, w[:, :, 0], b)
+        ch = x.shape[-1]
+        if (
+            self.groups == ch == self.weight.shape[0]
+            and self.stride == 1
+            and self.dilation == 1
+            and self.bias is not None
+            and dw_bwd_mode() == "pallas"
+            and dwconv.kernel_supports(x.shape[1], ch, self.kernel_size, x.dtype)
+        ):
+            return dwconv.depthwise_conv1d_fused_bwd(x, self.weight, self.bias)
         return conv1d_same(
             x, w, b, stride=self.stride, dilation=self.dilation, groups=self.groups
         )

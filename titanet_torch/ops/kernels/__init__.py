@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
 - :mod:`.melspec` — fused log-mel (``csrc/logmel.cu``).
-- :mod:`.pool` — attentive-statistics pooling forward with the BN fold
-  (``csrc/attn_pool.cu``).
+- :mod:`.pool` — attentive-statistics pooling with the BN fold, forward
+  and backward (``csrc/attn_pool.cu``), and its autograd Function.
+- :mod:`.dwconv` — depthwise-conv backward in one pass (``csrc/dw_bwd.cu``),
+  and its autograd Function.
 
 Every wrapper launches its kernel on a CUDA tensor (or raises), runs the
 plain version on a CPU tensor, and counts its launches in ``.launches``.

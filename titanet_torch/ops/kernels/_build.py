@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("logmel", "attn_pool")
+SOURCES = ("logmel", "attn_pool", "dw_bwd")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

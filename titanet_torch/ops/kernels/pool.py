@@ -1,15 +1,19 @@
-"""Attentive-statistics pooling forward with the BN fold: wrapper, plain
-version and launch count.
+"""Attentive-statistics pooling with the BN fold, forward and backward:
+wrappers, plain versions, launch counts and the autograd Function.
 
-CUDA source: ``titanet_torch/csrc/attn_pool.cu`` (replaces
-``titanet_tpu/ops/pallas/pool.py::_fwd_impl``). Computes, per utterance,
-``h [T, C] -> [mean | std]`` with the attention ``u = tanh(y@Wa+ba)``,
-``e = u@Wb+bb``, an f32 softmax over T, and the optional fold
-``y = relu(a*h + c)`` of the epilog BatchNorm.
+CUDA source: ``titanet_torch/csrc/attn_pool.cu``. The forward replaces
+``titanet_tpu/ops/pallas/pool.py::_fwd_impl``, the backward
+``pool.py::_bwd_impl``. Per utterance, ``h [T, C] -> [mean | std]`` with
+the attention ``u = tanh(y@Wa+ba)``, ``e = u@Wb+bb``, an f32 softmax over
+T, and the optional fold ``y = relu(a*h + c)`` of the epilog BatchNorm. The
+backward recomputes ``y``, ``u``, ``e`` and ``alpha`` from ``h`` and gives
+``dh`` in h's dtype and the f32 gradients of ``a``, ``c``, ``Wa``, ``ba``,
+``Wb`` and ``bb`` summed over the batch.
 
-On a CPU tensor :func:`attentive_pool_fwd` runs
-:func:`attentive_pool_fwd_plain`; on a CUDA tensor it launches the kernel
-or raises.
+:func:`attentive_pool_fused` is the differentiable entry point (a
+``torch.autograd.Function``). On a CPU tensor :func:`attentive_pool_fwd`
+and :func:`attentive_pool_bwd` run their plain versions; on a CUDA tensor
+they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from titanet_torch.ops.kernels import _build
 
 MAX_SMEM = 232448
+_GRAD_NAMES = ("da", "dc", "dwa", "dba", "dwb", "dbb")
 
 
 def kernel_supports(n_channels: int, hidden: int, t: int, dtype: torch.dtype) -> bool:
@@ -49,6 +54,12 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.titanet_attn_pool_fwd_f32, lib.titanet_attn_pool_fwd_bf16):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    bwd_args = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.titanet_attn_pool_bwd_f32, lib.titanet_attn_pool_bwd_bf16):
+        fn.argtypes = bwd_args
+        fn.restype = ctypes.c_int
+    lib.titanet_attn_pool_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.titanet_attn_pool_bwd_workspace_bytes.restype = ctypes.c_longlong
     lib.titanet_attn_pool_error_string.argtypes = [ctypes.c_int]
     lib.titanet_attn_pool_error_string.restype = ctypes.c_char_p
     return lib
@@ -133,3 +144,137 @@ def attentive_pool_fwd(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = 
 
 
 attentive_pool_fwd.launches = 0
+
+
+def attentive_pool_bwd_plain(h, a, c, wa, ba, wb, bb, g, eps: float = 1e-6, fold: bool = False):
+    """Plain torch version of the backward kernel: the TPU kernel's
+    arithmetic, including the rounding of ``u``, ``de`` and ``dz`` to h's
+    dtype before the products (pool.py:151,159,164). Returns
+    ``(dh, da, dc, dwa, dba, dwb, dbb)``: ``dh`` in h's dtype, the rest f32."""
+    dt = h.dtype
+    ch = h.shape[-1]
+    hf = h.float()
+    yf = torch.relu(hf * a + c) if fold else hf
+    y = yf.to(dt).float()
+    waf, wbf = wa.float(), wb.float()
+    u = torch.tanh(y @ waf + ba)
+    uc = u.to(dt).float()
+    e = uc @ wbf + bb
+    alpha = torch.exp(e - e.amax(dim=1, keepdim=True))
+    alpha = alpha / alpha.sum(dim=1, keepdim=True)
+    wy = alpha * yf
+    mean = wy.sum(dim=1)
+    q = (wy * yf).sum(dim=1)
+    resid = q - mean * mean
+    std = torch.sqrt(torch.clamp(resid, min=eps))
+    gf = g.to(dt).float()
+    dm, ds = gf[:, :ch], gf[:, ch:]
+    dresid = torch.where(resid > eps, ds * 0.5 / std, torch.zeros_like(ds))
+    dmt = (dm - 2.0 * mean * dresid)[:, None, :]
+    dresid = dresid[:, None, :]
+    dalpha = yf * dmt + (yf * yf) * dresid
+    t_sum = (alpha * dalpha).sum(dim=1, keepdim=True)
+    de = alpha * (dalpha - t_sum)
+    dbb = de.sum(dim=(0, 1))
+    de_c = de.to(dt).float()
+    dy = alpha * (dmt + 2.0 * yf * dresid)
+    du = de_c @ wbf.t()
+    dwb = torch.einsum("bth,btc->hc", uc, de_c)
+    dz = du * (1.0 - u * u)
+    dz_c = dz.to(dt).float()
+    dba = dz.sum(dim=(0, 1))
+    dy = dy + dz_c @ waf.t()
+    dwa = torch.einsum("btc,bth->ch", y, dz_c)
+    if fold:
+        dpre = torch.where(yf > 0.0, dy, torch.zeros_like(dy))
+        da = (dpre * hf).sum(dim=(0, 1))
+        dc = dpre.sum(dim=(0, 1))
+        dh = (dpre * a).to(dt)
+    else:
+        da = torch.zeros_like(a)
+        dc = torch.zeros_like(c)
+        dh = dy.to(dt)
+    return dh, da, dc, dwa, dba, dwb, dbb
+
+
+def attentive_pool_bwd(h, a, c, wa, ba, wb, bb, g, eps: float = 1e-6, fold: bool = False):
+    """Gradients of :func:`attentive_pool_fwd` for the output gradient
+    ``g [B, 2C]`` (h's dtype): ``(dh, da, dc, dwa, dba, dwb, dbb)``, ``dh``
+    in h's dtype and ``[B, T, C]``, the rest f32 in the inputs' shapes.
+    Inputs as for :func:`attentive_pool_fwd`."""
+    _check(h, a, c, wa, ba, wb, bb)
+    b, t, ch = h.shape
+    if tuple(g.shape) != (b, 2 * ch) or g.dtype != h.dtype or g.device != h.device:
+        raise ValueError(f"g must be [{b}, {2 * ch}] {h.dtype} on {h.device}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+    if h.device.type == "cpu":
+        return attentive_pool_bwd_plain(h, a, c, wa, ba, wb, bb, g, eps, fold)
+    if h.device.type != "cuda":
+        raise RuntimeError(f"no attentive-pool kernel for device {h.device}")
+    hid = wa.shape[1]
+    if ch % 128 or hid % 128 or smem_bytes(hid) > MAX_SMEM:
+        raise ValueError(f"kernel takes C % 128 == 0 and H in {{128, 256}}; got C={ch}, H={hid}")
+    lib = _lib()
+    f32 = dict(device=h.device, dtype=torch.float32)
+    dh = torch.empty_like(h)
+    grads = {"da": torch.empty(ch, **f32), "dc": torch.empty(ch, **f32),
+             "dwa": torch.empty(ch, hid, **f32), "dba": torch.empty(hid, **f32),
+             "dwb": torch.empty(hid, ch, **f32), "dbb": torch.empty(ch, **f32)}
+    nbytes = lib.titanet_attn_pool_bwd_workspace_bytes(b, t, ch, hid, h.element_size())
+    work = torch.empty(nbytes, device=h.device, dtype=torch.uint8)
+    fn = lib.titanet_attn_pool_bwd_f32 if h.dtype == torch.float32 else lib.titanet_attn_pool_bwd_bf16
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        code = fn(
+            h.data_ptr(), a.data_ptr(), c.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+            wb.data_ptr(), bb.data_ptr(), g.data_ptr(), dh.data_ptr(),
+            *(grads[k].data_ptr() for k in _GRAD_NAMES), work.data_ptr(),
+            b, t, ch, hid, float(eps), int(bool(fold)), stream,
+        )
+    if code != 0:
+        raise RuntimeError(
+            f"attentive-pool backward kernel launch failed: "
+            f"{lib.titanet_attn_pool_error_string(code).decode()}"
+        )
+    attentive_pool_bwd.launches += 1
+    return (dh, *(grads[k] for k in _GRAD_NAMES))
+
+
+attentive_pool_bwd.launches = 0
+
+
+class _AttentivePool(torch.autograd.Function):
+    """Forward :func:`attentive_pool_fwd`, backward :func:`attentive_pool_bwd`
+    (the TPU package's ``jax.custom_vjp`` around the two Pallas kernels)."""
+
+    @staticmethod
+    def forward(ctx, h, a, c, wa, ba, wb, bb, eps, fold):
+        dt = h.dtype
+        args = (
+            h.contiguous(), a.float().contiguous(), c.float().contiguous(),
+            wa.to(dt).contiguous(), ba.float().contiguous(),
+            wb.to(dt).contiguous(), bb.float().contiguous(),
+        )
+        ctx.save_for_backward(*args)
+        ctx.eps, ctx.fold = eps, fold
+        ctx.grad_dtypes = tuple(x.dtype for x in (a, c, wa, ba, wb, bb))
+        return attentive_pool_fwd(*args, eps, fold)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        h = ctx.saved_tensors[0]
+        dh, *rest = attentive_pool_bwd(
+            *ctx.saved_tensors, g.to(h.dtype).contiguous(), ctx.eps, ctx.fold
+        )
+        return (dh, *(r.to(d) for r, d in zip(rest, ctx.grad_dtypes)), None, None)
+
+
+def attentive_pool_fused(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = False):
+    """Differentiable fused attentive pooling: ``h [B, T, C] -> [B, 2C]`` in
+    h's dtype. ``a``, ``c`` ``[C]`` fold vectors (ignored unless ``fold``;
+    their gradients are still returned), ``wa [C, H]``, ``ba [H]``,
+    ``wb [H, C]``, ``bb [C]`` in any float dtype: the weights are cast to
+    h's dtype for the kernel and receive f32 gradients (in their own dtype)."""
+    return _AttentivePool.apply(h, a, c, wa, ba, wb, bb, eps, fold)

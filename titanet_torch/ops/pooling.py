@@ -7,8 +7,10 @@
   out      = concat([mean, std])              # [B, 2C]
 
 With no mask, bf16 and aligned widths the whole chain runs in the fused
-kernel (:mod:`titanet_torch.ops.kernels.pool`), including the optional
-``relu(prescale * x + preshift)`` fold of an upstream BatchNorm. Otherwise
+kernels (:func:`titanet_torch.ops.kernels.pool.attentive_pool_fused`, a
+``torch.autograd.Function`` whose forward and backward are CUDA kernels),
+including the optional ``relu(prescale * x + preshift)`` fold of an
+upstream BatchNorm. Otherwise
 the plain path below runs; it is also the masked path. ``mask`` (``[B, T]``,
 1 = valid) keeps padded frames out of the softmax.
 """
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from titanet_torch.ops.dense import Dense
-from titanet_torch.ops.kernels.pool import attentive_pool_fwd, kernel_supports
+from titanet_torch.ops.kernels.pool import attentive_pool_fused, kernel_supports
 
 
 def attentive_stats(
@@ -78,12 +80,11 @@ class AttentiveStatsPooling(nn.Module):
         wb, bb = self.out_linear.weight, self.out_linear.bias
         if use_kernel:
             zeros = torch.zeros(ch, device=x.device, dtype=torch.float32)
-            return attentive_pool_fwd(
-                x.to(dt).contiguous(),
-                prescale.float().contiguous() if fold else zeros,
-                preshift.float().contiguous() if fold else zeros,
-                wa.t().to(dt).contiguous(), ba.float().contiguous(),
-                wb.t().to(dt).contiguous(), bb.float().contiguous(),
+            return attentive_pool_fused(
+                x.to(dt),
+                prescale if fold else zeros,
+                preshift if fold else zeros,
+                wa.t(), ba, wb.t(), bb,
                 self.eps, fold,
             )
         if fold:

@@ -1,2 +1,2 @@
-"""Serving side of the engine: :func:`.state.embed_step` and
-:class:`.extractor.SpeakerEmbedder`."""
+"""Engine of the port: :mod:`.state` (train step, eval step, embed step,
+optimizer, metrics) and :class:`.extractor.SpeakerEmbedder`."""

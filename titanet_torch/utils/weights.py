@@ -8,7 +8,13 @@ module attribute names are the JAX tree's keys.
 - conv kernels, WIO ``[K, in/groups, out]`` -> ``weight [out, in/groups, K]``;
 - Dense kernels ``[in, out]`` -> ``weight [out, in]``;
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and ``mean``/``var``
-  from ``batch_stats`` -> ``running_mean``/``running_var``.
+  from ``batch_stats`` -> ``running_mean``/``running_var``;
+- a parameter held directly by any other module (the angular-margin head's
+  ``weight [E, N*K]``, GE2E's ``w`` and ``b``) -> the leaf of its own name,
+  in the JAX layout.
+
+``load_jax_train_state(model, head, params, batch_stats)`` does the same
+for a train state's ``params = {"backbone", "head"}``.
 
 Every leaf of both trees must be used and every shape must match; it
 raises otherwise.
@@ -77,6 +83,10 @@ def load_jax_variables(
             _assign(mod.running_var, stats["var"], where + "/var")
             used_params += 2
             used_stats += 2
+        else:
+            for pname, param in mod.named_parameters(recurse=False):
+                _assign(param, _node(params, path + [pname]), f"{where}/{pname}")
+                used_params += 1
     if used_params != _count_leaves(params) or used_stats != _count_leaves(batch_stats):
         raise ValueError(
             f"JAX variables do not match the module: used {used_params} of "
@@ -84,3 +94,16 @@ def load_jax_variables(
             f"{_count_leaves(batch_stats)} batch_stats leaves"
         )
     return model
+
+
+def load_jax_train_state(
+    model: nn.Module, head: nn.Module, params: Mapping, batch_stats: Optional[Mapping] = None
+):
+    """Fill ``model`` and ``head`` in place from a JAX train state's
+    ``params = {"backbone": ..., "head": ...}`` and ``batch_stats``;
+    returns ``(model, head)``."""
+    if set(params) != {"backbone", "head"}:
+        raise ValueError(f"params must have keys backbone and head, got {sorted(params)}")
+    load_jax_variables(model, params["backbone"], batch_stats)
+    load_jax_variables(head, params["head"])
+    return model, head
