@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving and training steps goes, on one GPU.
 
-    python3 bench_torch.py [--batch 128] [--seconds 3] [--blocks 17] [--runs 20] [--train]
+    python3 bench_torch.py [--batch 128] [--seconds 3] [--blocks 17] [--runs 20]
+                           [--variant embed|fused|int8|all] [--train]
 
 Serving (default): for the serving (bf16, fused frontend) and parity (f32,
 TF32 off) modes of ``titanet_torch.train.state.embed_step`` on TitaNet-S
-(random weights from seed 0). ``--train``: ``train_step`` on TitaNet-S
+(random weights from seed 0). ``--variant fused`` times the fused serving
+variant instead (wav -> ``log_mel_spectrogram_pallas`` ->
+``titanet_apply_fused`` -> ``l2_normalize``, bf16 and f32), ``int8`` the
+quantized one (``embed_step_quantized`` on the f32 model's tree), ``all``
+the three in turn. ``--train``: ``train_step`` on TitaNet-S
 (bf16, dropout 0.5, fused f32 mel, CE over 251 classes, Adam 1e-3) under
 ``TITANET_DW_BWD`` = xla, pallas, pallas, xla in turn, on one fixed batch.
 
@@ -31,7 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 OWN_KERNELS = (
     "logmel_kernel", "attn_u_kernel", "attn_stats_kernel", "attn_de_kernel", "gemm_kernel",
-    "sum_parts_kernel", "dw_bwd_kernel", "dw_reduce_kernel",
+    "sum_parts_kernel", "dw_bwd_kernel", "dw_reduce_kernel", "megablock_kernel", "mel_frames_kernel",
 )
 
 
@@ -143,6 +148,8 @@ def main() -> int:
     p.add_argument("--seconds", type=float, default=3.0)
     p.add_argument("--blocks", type=int, default=17)
     p.add_argument("--runs", type=int, default=20)
+    p.add_argument("--variant", choices=("embed", "fused", "int8", "all"), default="embed",
+                   help="serving variant: embed_step, the fused path, the int8 path, or all three")
     p.add_argument("--train", action="store_true", help="time train_step instead of embed_step")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -161,18 +168,41 @@ def main() -> int:
     name = card()
     if args.train:
         return bench_train(args, dev, n, name)
-    from titanet_torch.train.state import embed_step
+    from titanet_torch.models import l2_normalize
+    from titanet_torch.models.fused_inference import titanet_apply_fused
+    from titanet_torch.models.quantized import quantize_titanet
+    from titanet_torch.ops.kernels.melspec import log_mel_spectrogram_pallas
+    from titanet_torch.train.state import embed_step, embed_step_quantized
 
-    for label, dtype, fe in (
-        ("bf16 serving", torch.bfloat16, FrontendConfig.from_ms(precision="default", use_pallas_fused=True)),
-        ("f32 parity", None, FrontendConfig.from_ms(use_pallas_fused=True)),
-    ):
-        model = get_titanet(n_mega_blocks=args.blocks, dtype=dtype, device=dev,
-                            generator=torch.Generator().manual_seed(0))
-        res = run_mode(label, lambda: embed_step(model, wav, lengths, frontend=fe, device=dev), args.runs)
-        res.update(batch=args.batch, seconds=args.seconds, blocks=args.blocks, card=name)
-        print(json.dumps(res))
-        del model
+    def embed(model, fe):
+        return lambda: embed_step(model, wav, lengths, frontend=fe, device=dev)
+
+    def fused(model, fe):
+        def step():
+            mel, _ = log_mel_spectrogram_pallas(wav, fe)
+            return l2_normalize(titanet_apply_fused(model, mel))
+
+        return step
+
+    def int8(model, fe):
+        qtree = quantize_titanet(model)
+        return lambda: embed_step_quantized(qtree, wav, lengths, frontend=fe, device=dev)
+
+    bf16 = ("bf16", torch.bfloat16, FrontendConfig.from_ms(precision="default", use_pallas_fused=True))
+    f32 = ("f32", None, FrontendConfig.from_ms(use_pallas_fused=True))
+    modes = {
+        "embed": [("bf16 serving", embed, bf16), ("f32 parity", embed, f32)],
+        "fused": [("fused bf16", fused, bf16), ("fused f32", fused, f32)],
+        "int8": [("int8 (f32 model)", int8, f32)],
+    }
+    for variant in ("embed", "fused", "int8") if args.variant == "all" else (args.variant,):
+        for label, make, (_, dtype, fe) in modes[variant]:
+            model = get_titanet(n_mega_blocks=args.blocks, dtype=dtype, device=dev,
+                                generator=torch.Generator().manual_seed(0))
+            res = run_mode(label, make(model, fe), args.runs)
+            res.update(batch=args.batch, seconds=args.seconds, blocks=args.blocks, card=name)
+            print(json.dumps(res))
+            del model
     return 0
 
 

@@ -27,11 +27,30 @@ Phases (any failure exits non-zero and prints no result):
      gradient finite, the loss falling over 20 steps on one batch, median ms
      per step, utterances/s and peak memory; at dropout 0 from equal weights
      the two routes agree (loss 1e-3, gradient cosine > 0.99), and the bf16
-     step's loss agrees with the f32 step's (5e-2).
+     step's loss agrees with the f32 step's (5e-2);
+  9. frames log-mel kernel vs its plain version on the N = 128 x 301 frames
+     of the phase-2 waveforms, "highest" (atol 1e-4) and "default" (atol
+     5e-2), and vs the fused kernel's output on the same waveforms (1e-4);
+  10. mega-block kernel vs its plain version at B=128, T=301, S=3, (C, k) =
+     (256, 3), (512, 7), (1024, 11), f32 (1e-4 of the largest entry) and
+     bf16 (one bf16 ulp of it), biases of std 0.3 so the edge rows carry
+     real values; edge-row and interior errors apart; the unfused library
+     route (the port's ``MegaBlock`` sub-blocks in eval mode) timed beside;
+  11. the fused serving path on TitaNet-S: wav -> ``log_mel_spectrogram_pallas``
+     -> ``titanet_apply_fused`` -> ``l2_normalize``, bf16 and f32: launches
+     {mel_frames: 1, megablock: 17}, finite unit-norm [128, 192], cosine vs
+     ``embed_step`` of the same model (below 1 through the edge rows of each
+     mega-block), kernel route vs all-plain fused route (f32 > 0.99999),
+     median ms per batch;
+  12. the int8 variant: ``quantize_titanet`` -> ``embed_step_quantized`` at
+     B=128 x 3 s: unit norm, cosine vs the f32 ``embed_step`` > 0.99, median
+     ms, weight bytes; ``SpeakerEmbedder(quantized=True)`` padded == solo
+     (> 0.999).
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
-kernels, the pallas-route training step for the backward kernels), error
+kernels, the pallas-route training step for the backward kernels, the
+fused serving call for the frames and mega-block kernels), error
 vs its plain version, time, plain time, bound and library time. The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -50,6 +69,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # FP32 CUDA cores; bf16 tensor cores
 B, SECONDS, SR = 128, 3, 16000
+# Least cosine of the fused serving path vs embed_step of the same model: the
+# fused kernel's edge rows (the first and last (S-1)*pad rows of every
+# mega-block) differ from the per-conv path by construction. Measured on
+# TitaNet-S at B=128 x 3 s (NVIDIA H100 80GB HBM3, 700 W): 0.9999998 in f32
+# and 0.9999918 in bf16, for the kernel route and the all-plain fused route
+# alike; the limits sit just under.
+FUSED_VS_EMBED_STEP_F32 = 0.99999
+FUSED_VS_EMBED_STEP_BF16 = 0.9999
 
 
 def card() -> str:
@@ -99,8 +126,18 @@ def main() -> int:
         return 1
     from titanet_torch.models import get_titanet
     from titanet_torch.ops import frontend as tf
+    from titanet_torch.models import fused_inference, l2_normalize
+    from titanet_torch.models.quantized import quantize_titanet
+    from titanet_torch.models.titanet import MegaBlock
     from titanet_torch.ops.kernels import _build, dwconv
-    from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
+    from titanet_torch.ops.kernels.megablock import fused_sub_blocks, fused_sub_blocks_plain
+    from titanet_torch.ops.kernels.melspec import (
+        log_mel_frames,
+        log_mel_frames_plain,
+        log_mel_fused,
+        log_mel_fused_plain,
+        log_mel_spectrogram_pallas,
+    )
     from titanet_torch.ops.kernels.pool import (
         attentive_pool_bwd,
         attentive_pool_bwd_plain,
@@ -108,7 +145,7 @@ def main() -> int:
         attentive_pool_fwd_plain,
     )
     from titanet_torch.train.extractor import SpeakerEmbedder
-    from titanet_torch.train.state import embed_step
+    from titanet_torch.train.state import embed_step, embed_step_quantized
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -409,6 +446,175 @@ def main() -> int:
     del gx, gp, g32
     os.environ.pop("TITANET_DW_BWD", None)
 
+    cosine_rows = torch.nn.functional.cosine_similarity
+
+    def median_ms(fn, runs=10, warmup=3):
+        times = []
+        for i in range(warmup + runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), min(times), max(times)
+
+    def check_embeddings(e, tol, what):
+        if e.shape != (B, 192) or not torch.isfinite(e).all():
+            raise AssertionError(f"{what}: embeddings are not finite [B, 192]")
+        norm_err = (torch.linalg.vector_norm(e.float(), dim=-1) - 1).abs().max().item()
+        if norm_err > tol:
+            raise AssertionError(f"{what}: embeddings are not unit norm: {norm_err}")
+
+    # 9. frames log-mel kernel vs plain, and vs the fused kernel
+    frames = tf.frame_signal(wav, 512, 160, lengths=lengths)
+    frames = frames.reshape(B * n_frames, 512).contiguous()
+    buf32, _, _ = tf._framing_buffer(wav, 512, 160, lengths)
+    for cfg, dt, atol in ((cfg32, torch.float32, 1e-4), (cfg16, torch.bfloat16, 5e-2)):
+        _, _, _, basis, fb = tf._constants(cfg, dev, dt)
+        buf = buf32.to(dt).contiguous()
+        run = lambda: log_mel_frames(frames, basis, fb, precision=cfg.precision, win_length=400)  # noqa: E731
+        plain = lambda: log_mel_frames_plain(frames, basis, fb, precision=cfg.precision)  # noqa: E731
+        fused = lambda: log_mel_fused(buf, lengths, basis, fb, n_frames=n_frames, hop=160, win_length=400)  # noqa: E731
+        out, ref, other = run(), plain(), fused().reshape(B * n_frames, 80)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        err_fused = (out - other).abs().max().item()
+        if not torch.isfinite(out).all() or err > atol or err_fused > atol:
+            raise AssertionError(f"mel_frames {cfg.precision}: max abs err {err} vs plain, {err_fused} vs the "
+                                 f"fused kernel > {atol}")
+        ops = 2 * B * n_frames * (400 * 2 * 257 + 257 * 80)
+        nbytes = frames.numel() * 4 + out.numel() * 4 + (basis.numel() + fb.numel()) * basis.element_size()
+        bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
+        ms, pms, fms = cuda_ms(run), cuda_ms(plain, iters=5), cuda_ms(fused)
+        report[("mel_frames", dt)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        print(f"mel_frames {cfg.precision}: N={B * n_frames}; max_abs_err {err:.3e} vs plain, {err_fused:.3e} vs the "
+              f"fused kernel (atol {atol}); kernel {ms:.4f} ms, plain {pms:.4f} ms, fused kernel on the same "
+              f"waveforms {fms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) {tag}")
+    del frames, buf32, buf, out, ref, other
+
+    # 10. mega-block kernel vs plain; the unfused library route beside it
+    n_sub = 3
+    for c_, k_ in ((256, 3), (512, 7), (1024, 11)):
+        pad = (k_ - 1) // 2
+        edge = (n_sub - 1) * pad
+        x32 = torch.from_numpy(rng.standard_normal((B, t_frames, c_)).astype(np.float32)).to(dev)
+        f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+        dw_w = f32(rng.standard_normal((n_sub, k_, c_)) * 0.5)
+        dw_b = f32(rng.standard_normal((n_sub, c_)) * 0.3)
+        pw32 = f32(rng.standard_normal((n_sub, c_, c_)) / np.sqrt(c_))
+        pw_b = f32(rng.standard_normal((n_sub, c_)) * 0.3)
+        bn = f32(np.stack([rng.uniform(0.5, 1.5, (n_sub, c_)), rng.standard_normal((n_sub, c_)) * 0.3], axis=1))
+        for dt in (torch.float32, torch.bfloat16):
+            args = (x32.to(dt), dw_w, dw_b, pw32.to(dt), pw_b, bn)
+            out, ref = fused_sub_blocks(*args, kernel_size=k_), fused_sub_blocks_plain(*args, kernel_size=k_)
+            torch.cuda.synchronize()
+            top = ref.float().abs().max().item()
+            tol = 1e-4 * top if dt == torch.float32 else 2.0 ** (np.floor(np.log2(top)) - 7)
+            per_row = (out.float() - ref.float()).abs().amax(dim=(0, 2))
+            e_edge = max(per_row[:edge].max().item(), per_row[t_frames - edge:].max().item())
+            e_in = per_row[edge:t_frames - edge].max().item()
+            if not torch.isfinite(out).all() or max(e_edge, e_in) > tol:
+                raise AssertionError(f"megablock C={c_} k={k_} {dt}: error edge {e_edge}, interior {e_in} > {tol}")
+            unfused = MegaBlock(c_, k_, n_sub, dtype=None if dt == torch.float32 else dt).to(dev).eval()
+
+            def library_route(x=args[0], mod=unfused):
+                with torch.no_grad():
+                    for i in range(n_sub):
+                        x = getattr(mod, f"sub_block_{i}")(x)
+                return x
+
+            ops = 2 * B * t_frames * n_sub * (c_ * c_ + c_ * k_)
+            nbytes = 2 * args[0].numel() * args[0].element_size() + pw32.numel() * args[0].element_size() \
+                + 4 * (dw_w.numel() + dw_b.numel() + pw_b.numel() + bn.numel())
+            bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
+            iters = 20 if c_ == 256 else 5
+            ms = cuda_ms(lambda: fused_sub_blocks(*args, kernel_size=k_), iters=iters)
+            pms = cuda_ms(lambda: fused_sub_blocks_plain(*args, kernel_size=k_), iters=3)
+            ums = cuda_ms(library_route, iters=iters)
+            report[("megablock", c_, dt)] = dict(max_abs_err=max(e_edge, e_in), ms=ms, plain_ms=pms,
+                                                 bound_ms=bms, bound_by=by)
+            print(f"megablock C={c_} k={k_} {dt}: max abs err first/last {edge} rows {e_edge:.3e}, interior "
+                  f"{e_in:.3e} (tol {tol:.3e}, largest entry {top:.3f}); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"unfused library route {ums:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB) {tag}")
+            del args, out, ref, unfused
+        del x32, pw32
+
+    # 11. fused serving path, TitaNet-S, 17 mega-blocks, B=128 x 3 s
+    def fused_serve(model, cfg):
+        mel, _ = log_mel_spectrogram_pallas(wav, cfg)
+        return l2_normalize(fused_inference.titanet_apply_fused(model, mel))
+
+    fused_launches = {}
+    for label, dt, cfg, tol, min_cos in (("bf16", torch.bfloat16, cfg16, 1e-2, FUSED_VS_EMBED_STEP_BF16),
+                                         ("f32", None, cfg32, 1e-5, FUSED_VS_EMBED_STEP_F32)):
+        model = get_titanet(n_mega_blocks=17, dtype=dt, device=dev, generator=torch.Generator().manual_seed(0))
+        log_mel_frames.launches = fused_sub_blocks.launches = 0
+        emb = fused_serve(model, cfg)
+        torch.cuda.synchronize()
+        counts = {"mel_frames": log_mel_frames.launches, "megablock": fused_sub_blocks.launches}
+        if counts != {"mel_frames": 1, "megablock": 17}:
+            raise AssertionError(f"fused serving {label}: launches {counts}")
+        fused_launches[label] = counts
+        check_embeddings(emb, tol, f"fused serving {label}")
+        ref = embed_step(model, wav, lengths, frontend=cfg, device=dev)
+        cos = cosine_rows(emb.float(), ref.float(), dim=-1).min().item()
+        # the all-plain fused route: both kernels' plain versions on the same tensors
+        fused_inference.fused_sub_blocks = fused_sub_blocks_plain
+        try:
+            mel_plain = log_mel_frames_plain(
+                tf.frame_signal(wav, 512, 160).reshape(B * n_frames, 512).contiguous(),
+                *tf._constants(cfg, dev, torch.float32 if dt is None else torch.bfloat16)[3:],
+                precision=cfg.precision,
+            ).reshape(B, n_frames, 80)
+            plain_emb = l2_normalize(fused_inference.titanet_apply_fused(model, mel_plain))
+        finally:
+            fused_inference.fused_sub_blocks = fused_sub_blocks
+        cos_plain = cosine_rows(emb.float(), plain_emb.float(), dim=-1).min().item()
+        cos_plain_ref = cosine_rows(plain_emb.float(), ref.float(), dim=-1).min().item()
+        if cos < min_cos or cos_plain_ref < min_cos:
+            raise AssertionError(f"fused serving {label}: cosine vs embed_step {cos} (kernel route), "
+                                 f"{cos_plain_ref} (all-plain route) < {min_cos}")
+        if cos_plain <= (0.99999 if dt is None else 0.999):
+            raise AssertionError(f"fused serving {label}: kernel route vs all-plain route cosine {cos_plain}")
+        med, lo, hi = median_ms(lambda: fused_serve(model, cfg))
+        emed, elo, ehi = median_ms(lambda: embed_step(model, wav, lengths, frontend=cfg, device=dev))
+        print(f"fused serving {label}: launches per call {counts}; min cosine vs embed_step {cos:.7f} (all-plain "
+              f"fused route vs embed_step {cos_plain_ref:.7f}; limit {min_cos}); kernel route vs all-plain route "
+              f"{cos_plain:.9f}; median {med:.3f} ms per batch of {B} x {SECONDS} s (min {lo:.3f}, max {hi:.3f}, "
+              f"10 runs); embed_step beside it {emed:.3f} ms (min {elo:.3f}, max {ehi:.3f}) {tag}")
+        del emb, ref, mel_plain, plain_emb
+    m32 = model  # the f32 model of the last pass
+
+    # 12. int8 variant
+    e32 = embed_step(m32, wav, lengths, frontend=cfg32, device=dev)
+    qtree = quantize_titanet(m32)
+    eq = embed_step_quantized(qtree, wav, lengths, frontend=cfg32, device=dev)
+    torch.cuda.synchronize()
+    check_embeddings(eq, 1e-5, "int8 serving")
+    cos_q = cosine_rows(eq, e32, dim=-1).min().item()
+    if cos_q <= 0.99:
+        raise AssertionError(f"int8 vs f32 embedding cosine {cos_q} <= 0.99")
+    quant = [blk.skip for blk in qtree.mega_blocks] + [q for blk in qtree.mega_blocks for q in blk.pw] + [qtree.epilog]
+    int8_bytes = sum(q.w_q.numel() for q in quant)
+    model_bytes = sum(p.numel() * p.element_size() for p in m32.parameters())
+    tree_bytes = model_bytes - 4 * int8_bytes + int8_bytes + sum(q.scale.numel() * 4 for q in quant)
+    med, lo, hi = median_ms(lambda: embed_step_quantized(qtree, wav, lengths, frontend=cfg32, device=dev))
+    print(f"int8 serving: min cosine vs f32 embed_step {cos_q:.7f}; median {med:.3f} ms per batch of {B} x {SECONDS} s "
+          f"(min {lo:.3f}, max {hi:.3f}, 10 runs); int8 weights {int8_bytes / 1e6:.2f} MB in place of "
+          f"{4 * int8_bytes / 1e6:.2f} MB f32; all weights {tree_bytes / 1e6:.2f} MB vs the f32 model's "
+          f"{model_bytes / 1e6:.2f} MB {tag}")
+    embedder = SpeakerEmbedder(m32, cfg32, quantized=True, device=dev)
+    batched = embedder.embed(reqs)
+    solo = np.concatenate([embedder.embed([r]) for r in reqs])
+    cosines = np.sum(batched * solo, -1) / (np.linalg.norm(batched, axis=-1) * np.linalg.norm(solo, axis=-1))
+    if batched.shape != (4, 192) or not np.isfinite(batched).all() or cosines.min() <= 0.999:
+        raise AssertionError(f"quantized SpeakerEmbedder padded vs solo cosines {cosines}")
+    print(f"SpeakerEmbedder(quantized=True): 4 requests (1.2/3/7/40 s); padded vs solo cosines "
+          f"{np.array2string(cosines, precision=7)} {tag}")
+    del embedder, qtree, m32, model
+
     kernels = []
     for key, name_, src, line, path_launches in (
         (("logmel", torch.bfloat16), "logmel_fused", "titanet_torch/csrc/logmel.cu",
@@ -419,6 +625,10 @@ def main() -> int:
          "titanet_tpu/ops/pallas/pool.py:270", train_launches["pallas"]["pool_bwd"]),
         (("dw_bwd", 3), "dw_bwd", "titanet_torch/csrc/dw_bwd.cu",
          "titanet_tpu/ops/pallas/dwconv.py:102", train_launches["pallas"]["dw_bwd"]),
+        (("megablock", 256, torch.bfloat16), "fused_sub_blocks", "titanet_torch/csrc/megablock.cu",
+         "titanet_tpu/ops/pallas/megablock.py:110", fused_launches["bf16"]["megablock"]),
+        (("mel_frames", torch.bfloat16), "log_mel_frames", "titanet_torch/csrc/mel_frames.cu",
+         "titanet_tpu/ops/pallas/melspec.py:109", fused_launches["bf16"]["mel_frames"]),
     ):
         r = report[key]
         kernels.append({

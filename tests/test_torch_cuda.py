@@ -14,8 +14,14 @@ import pytest
 import torch
 
 from titanet_torch.ops import frontend as tf
-from titanet_torch.ops.kernels import dwconv
-from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
+from titanet_torch.ops.kernels import dwconv, megablock
+from titanet_torch.ops.kernels.melspec import (
+    log_mel_frames,
+    log_mel_frames_plain,
+    log_mel_fused,
+    log_mel_fused_plain,
+    log_mel_spectrogram_pallas,
+)
 from titanet_torch.ops.kernels.pool import (
     attentive_pool_bwd,
     attentive_pool_bwd_plain,
@@ -182,3 +188,114 @@ def test_bf16_train_mode_gives_every_parameter_a_gradient(cuda_device, monkeypat
         assert p.grad is not None, name
         assert torch.isfinite(p.grad).all(), name
         assert p.grad.abs().max() > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("geometry", [(512, 400, 160), (512, 512, 80), (256, 200, 159)])
+@pytest.mark.parametrize("n_rows", [1, 64, 453])
+def test_mel_frames_kernel_matches_plain(cuda_device, precision, geometry, n_rows):
+    """f32 operands 1e-4, bf16-rounded operands 5e-2 (a product that lands
+    on the other side of a bf16 rounding moves the dB)."""
+    n_fft, win, hop = geometry
+    cfg = tf.FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop, precision=precision)
+    dtype = torch.float32 if precision == "highest" else torch.bfloat16
+    frames = torch.from_numpy(np.random.default_rng(n_rows).standard_normal((n_rows, n_fft)) * 0.1)
+    frames = frames.float().to(cuda_device)
+    _, _, _, basis, fb = tf._constants(cfg, cuda_device, dtype)
+    before = log_mel_frames.launches
+    out = log_mel_frames(frames, basis, fb, precision=precision, win_length=win)
+    torch.cuda.synchronize()
+    assert log_mel_frames.launches == before + 1
+    ref = log_mel_frames_plain(frames, basis, fb, precision=precision)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 if dtype == torch.float32 else 5e-2)
+    # all taps (no window skip) give the same result
+    full = log_mel_frames(frames, basis, fb, precision=precision)
+    torch.testing.assert_close(full, out, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_frames_route_matches_fused_route(cuda_device):
+    wav = torch.from_numpy(np.random.default_rng(9).standard_normal((3, 24000)) * 0.1).float().to(cuda_device)
+    lengths = torch.tensor([24000, 16000, 9000], dtype=torch.int32, device=cuda_device)
+    cfg = tf.FrontendConfig.from_ms()
+    out, mask = log_mel_spectrogram_pallas(wav, cfg, lengths=lengths)
+    ref, rmask = tf.log_mel_spectrogram(wav, cfg._replace(use_pallas_fused=True), lengths=lengths)
+    assert torch.equal(mask, rmask)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+def _chain_args(device, dtype, b, t, c, k, s=3, seed=11):
+    rng = np.random.default_rng(seed)
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+    bn = np.stack([rng.uniform(0.5, 1.5, (s, c)), rng.standard_normal((s, c)) * 0.3], axis=1)
+    return (
+        f32(rng.standard_normal((b, t, c))).to(dtype),
+        f32(rng.standard_normal((s, k, c)) * 0.5),
+        f32(rng.standard_normal((s, c)) * 0.3),
+        f32(rng.standard_normal((s, c, c)) / np.sqrt(c)).to(dtype),
+        f32(rng.standard_normal((s, c)) * 0.3),
+        f32(bn),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 1, 128, 3, 3), (3, 59, 128, 7, 3), (2, 137, 256, 3, 3), (1, 61, 256, 5, 2),
+     (2, 53, 512, 7, 3), (1, 45, 1024, 11, 3), (2, 301, 256, 3, 1)],
+)
+def test_megablock_kernel_matches_plain(cuda_device, dtype, shape):
+    """Row by row, the edge rows included: f32 within 1e-4 of the largest
+    entry (the product sums in another order), bf16 within one bf16 ulp of
+    it (a depthwise sum on a rounding boundary)."""
+    b, t, c, k, s = shape
+    args = _chain_args(cuda_device, dtype, b, t, c, k, s)
+    before = megablock.fused_sub_blocks.launches
+    out = megablock.fused_sub_blocks(*args, kernel_size=k)
+    torch.cuda.synchronize()
+    assert megablock.fused_sub_blocks.launches == before + 1
+    ref = megablock.fused_sub_blocks_plain(*args, kernel_size=k)
+    assert out.shape == ref.shape and out.dtype == ref.dtype and torch.isfinite(out).all()
+    top = ref.float().abs().max().item()
+    tol = 1e-4 * top if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(top)) - 7)
+    per_row = (out.float() - ref.float()).abs().amax(dim=(0, 2))
+    assert per_row.max().item() <= tol, per_row
+
+
+@pytest.mark.cuda
+def test_megablock_kernel_raises_on_what_it_does_not_take(cuda_device):
+    args = _chain_args(cuda_device, torch.float32, 1, 20, 192, 3)
+    with pytest.raises(ValueError):
+        megablock.fused_sub_blocks(*args, kernel_size=3)  # C=192
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_small_fused_and_quantized_serving_run_on_the_card(cuda_device, dtype):
+    from titanet_torch.models import l2_normalize
+    from titanet_torch.models.fused_inference import titanet_apply_fused
+    from titanet_torch.models.quantized import quantize_titanet
+    from titanet_torch.models.titanet import TitaNet
+    from titanet_torch.train.state import embed_step, embed_step_quantized
+
+    model = TitaNet(n_mega_blocks=2, encoder_hidden_size=128, encoder_output_size=256, dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(cuda_device).eval()
+    wav = np.random.default_rng(7).standard_normal((4, 16000)).astype(np.float32) * 0.1
+    lengths = np.full(4, 16000, np.int32)
+    fe = tf.FrontendConfig.from_ms(precision="highest" if dtype is None else "default")
+    log_mel_frames.launches = megablock.fused_sub_blocks.launches = 0
+    mel, _ = log_mel_spectrogram_pallas(torch.from_numpy(wav).to(cuda_device), fe)
+    emb = l2_normalize(titanet_apply_fused(model, mel)).float()
+    assert log_mel_frames.launches == 1 and megablock.fused_sub_blocks.launches == 2
+    ref = embed_step(model, wav, lengths, frontend=fe, device=cuda_device).float()
+    cos = torch.nn.functional.cosine_similarity(emb, ref, dim=-1)
+    assert emb.shape == (4, 192) and torch.isfinite(emb).all() and cos.min() > 0.99
+    if dtype is None:
+        q = embed_step_quantized(quantize_titanet(model), wav, lengths, frontend=fe, device=cuda_device)
+        assert torch.nn.functional.cosine_similarity(q, ref, dim=-1).min() > 0.99

@@ -6,7 +6,13 @@ import pytest
 import torch
 
 from titanet_torch.ops import frontend as tf
-from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
+from titanet_torch.ops.kernels.melspec import (
+    log_mel_frames,
+    log_mel_frames_plain,
+    log_mel_fused,
+    log_mel_fused_plain,
+    log_mel_spectrogram_pallas,
+)
 from titanet_tpu.ops import frontend as jf
 
 ATOL = 2e-5
@@ -129,3 +135,71 @@ def test_fused_wrapper_checks_inputs_and_counts_no_cpu_launch():
         log_mel_fused(buf.bfloat16(), None, basis, fb, n_frames=10, hop=160)
     with pytest.raises(ValueError):
         log_mel_fused(buf, torch.zeros(2, dtype=torch.int64), basis, fb, n_frames=10, hop=160)
+
+
+@pytest.mark.parametrize("lengths", [None, [24000, 16000]])
+def test_frames_route_matches_pallas_frames_kernel(interpret_mode, lengths):
+    """log_mel_spectrogram_pallas (frames kernel's plain version on CPU) vs
+    the Pallas frames kernel it replaces (interpret mode), f32, with the
+    geometry and the masking of the JAX package's own test."""
+    from titanet_tpu.ops.pallas.melspec import log_mel_spectrogram_pallas as jax_route
+
+    wav = _wavs(7, 2, 24000, lengths)
+    lj = None if lengths is None else jnp.asarray(lengths)
+    lt = None if lengths is None else torch.as_tensor(lengths)
+    ref, rmask = jax_route(jnp.asarray(wav), jf.FrontendConfig.from_ms(), lengths=lj)
+    out, mask = log_mel_spectrogram_pallas(torch.from_numpy(wav), tf.FrontendConfig.from_ms(), lengths=lt)
+    assert out.shape == ref.shape == (2, 151, 80)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+    if lengths is None:
+        assert mask is None and rmask is None
+    else:
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(rmask))
+        assert not out[1, 101:].any()
+
+
+@pytest.mark.parametrize("geometry", [(512, 400, 80), (256, 200, 160)])
+def test_frames_route_nondefault_geometry(interpret_mode, geometry):
+    from titanet_tpu.ops.pallas.melspec import log_mel_spectrogram_pallas as jax_route
+
+    n_fft, win, hop = geometry
+    wav = _wavs(8, 2, 16000)
+    ref, _ = jax_route(jnp.asarray(wav), jf.FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop))
+    out, _ = log_mel_spectrogram_pallas(
+        torch.from_numpy(wav), tf.FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop)
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+
+
+def test_frames_route_default_precision_is_in_the_serving_error_class(interpret_mode):
+    """precision='default': the port rounds the operands of both products
+    to bf16 as the card's kernel does; the JAX kernel on the CPU computes
+    'default' in full f32, so only the ~5e-2 class can be held."""
+    from titanet_tpu.ops.pallas.melspec import log_mel_spectrogram_pallas as jax_route
+
+    wav = _wavs(9, 2, 24000)
+    ref, _ = jax_route(jnp.asarray(wav), jf.FrontendConfig.from_ms(precision="default"))
+    out, _ = log_mel_spectrogram_pallas(torch.from_numpy(wav), tf.FrontendConfig.from_ms(precision="default"))
+    err = np.abs(out.numpy() - np.asarray(ref)).max()
+    assert 0 < err < 5e-2
+    # and it is the same function as the fused route at that precision
+    fused = _port_fused(wav, tf.FrontendConfig.from_ms(precision="default"))
+    np.testing.assert_allclose(out.numpy(), fused, rtol=0, atol=1e-5)
+
+
+def test_frames_wrapper_checks_inputs_and_counts_no_cpu_launch():
+    cfg = tf.FrontendConfig.from_ms()
+    _, _, _, basis, fb = tf._constants(cfg, torch.device("cpu"), torch.float32)
+    frames = torch.from_numpy(_wavs(10, 5, 512))
+    before = log_mel_frames.launches
+    out = log_mel_frames(frames, basis, fb, precision="highest", win_length=400)
+    assert torch.equal(out, log_mel_frames_plain(frames, basis, fb, precision="highest"))
+    assert out.shape == (5, 80) and log_mel_frames.launches == before
+    with pytest.raises(TypeError):
+        log_mel_frames(frames, basis, fb, precision="default")  # wants bf16 basis and fb
+    with pytest.raises(TypeError):
+        log_mel_frames(frames.bfloat16(), basis, fb)
+    with pytest.raises(ValueError):
+        log_mel_frames(frames[:, :400], basis, fb)
+    with pytest.raises(ValueError):
+        log_mel_frames(frames, basis, fb, precision="high")

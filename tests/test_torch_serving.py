@@ -1,6 +1,8 @@
 """Port's serving path (embed_step, SpeakerEmbedder) vs the JAX package,
 and the port's import hygiene (CPU)."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -82,14 +84,25 @@ def test_speaker_embedder_padded_equals_solo_and_matches_jax(dtype):
 
 
 def test_speaker_embedder_refuses_quantized():
+    """The embedder no longer refuses ``quantized=True``: it builds the int8
+    tree once and embeds through it (held against the JAX embedder in
+    tests/test_torch_quantized.py). What it still refuses is CUDA without a
+    card."""
     _, _, tmodel = small_titanet_pair(None)
-    with pytest.raises(NotImplementedError):
-        TorchEmbedder(tmodel, quantized=True, device="cpu")
+    emb = TorchEmbedder(tmodel, buckets=[8000], batch_size=2, quantized=True, device="cpu")
+    assert emb.qtree is not None and emb.qtree.decoder is tmodel.decoder
+    wav = np.random.default_rng(7).standard_normal(6000).astype(np.float32) * 0.1
+    out = emb.embed([wav])
+    full = TorchEmbedder(tmodel, buckets=[8000], batch_size=2, device="cpu").embed([wav])
+    assert out.shape == (1, 192) and cosine(out, full).min() > 0.99
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TorchEmbedder(tmodel, quantized=True)
 
 
 def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
-    """Every module of titanet_torch imports with jax, flax, optax and
-    titanet_tpu blocked; without a card the entry points raise unless
+    """Every module of titanet_torch, chip_smoke.py and bench_torch.py
+    import with jax, flax, optax and titanet_tpu blocked; without a card the entry points raise unless
     device='cpu' is passed."""
     code = textwrap.dedent(
         """
@@ -99,22 +112,33 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
         import importlib, pkgutil
         import numpy as np, torch
         import titanet_torch
-        for m in pkgutil.walk_packages(titanet_torch.__path__, "titanet_torch."):
-            importlib.import_module(m.name)
+        names = [m.name for m in pkgutil.walk_packages(titanet_torch.__path__, "titanet_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        for name in ("models.fused_inference", "models.quantized", "ops.kernels.megablock"):
+            assert "titanet_torch." + name in names, name
+        import bench_torch, chip_smoke
         from titanet_torch.models import get_titanet
         from titanet_torch.ops.frontend import FrontendConfig
         from titanet_torch.train.extractor import SpeakerEmbedder
-        from titanet_torch.train.state import embed_step
+        from titanet_torch.train.state import embed_step, embed_step_quantized
+        from titanet_torch.models.fused_inference import titanet_apply_fused
+        from titanet_torch.models.quantized import quantize_titanet
         model = get_titanet(n_mega_blocks=1, device="cpu")
         fe = FrontendConfig.from_ms()
         wav, lens = np.zeros((1, 8000), np.float32), np.array([8000])
         assert embed_step(model, wav, lens, frontend=fe, device="cpu").shape == (1, 192)
         SpeakerEmbedder(model, device="cpu")
+        qtree = quantize_titanet(model)
+        assert embed_step_quantized(qtree, wav, lens, frontend=fe, device="cpu").shape == (1, 192)
+        assert titanet_apply_fused(model, torch.zeros(1, 51, 80)).shape == (1, 192)
         if not torch.cuda.is_available():
             for call in (
                 lambda: get_titanet(n_mega_blocks=1),
                 lambda: embed_step(model, wav, lens, frontend=fe),
                 lambda: SpeakerEmbedder(model),
+                lambda: SpeakerEmbedder(model, quantized=True),
+                lambda: embed_step_quantized(qtree, wav, lens, frontend=fe),
             ):
                 try:
                     call()
@@ -130,3 +154,25 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), res.stderr[-3000:]
+
+
+def test_port_sources_hold_no_jax_import():
+    """No import statement anywhere in titanet_torch/, chip_smoke.py or
+    bench_torch.py (inside functions too) names jax, flax, optax or the JAX
+    package."""
+    files = glob.glob(os.path.join(REPO, "titanet_torch", "**", "*.py"), recursive=True)
+    files += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
+    assert len(files) > 20
+    banned = ("jax", "flax", "optax", "titanet_tpu")
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path}:{node.lineno} imports {name}"

@@ -46,6 +46,35 @@ def test_small_titanet_masked_matches_jax():
     assert (1.0 - cosine(out, ref)).max() < 1e-5
 
 
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_simple_pool_titanet_matches_jax(dtype, masked):
+    """simple_pool: average pool + Linear(C -> 2C) in place of attentive
+    pooling and its BatchNorm; the weight bridge fills it by path."""
+    jmodel, variables, tmodel = small_titanet_pair(dtype, seed=3, simple_pool=True)
+    assert "pool_norm" not in variables["params"]["decoder"]
+    assert not hasattr(tmodel.decoder, "pool_norm")
+    x = _mel(4)
+    mask = np.ones((2, 57), np.float32)
+    mask[1, 30:] = 0.0
+    mj = jnp.asarray(mask) if masked else None
+    mt = torch.from_numpy(mask) if masked else None
+    ref = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False, mask=mj).astype(jnp.float32))
+    with torch.no_grad():
+        out = tmodel(torch.from_numpy(x), mask=mt).float().numpy()
+    drift = 1.0 - cosine(out, ref)
+    assert drift.max() < (1e-5 if dtype is None else 1e-3), drift
+
+
+def test_simple_pool_param_count_matches_jax():
+    model = tt.TitaNet(n_mega_blocks=3, simple_pool=True)
+    n = sum(p.numel() for p in model.parameters())
+    assert n == jt.titanet_param_count(n_mega_blocks=3, simple_pool=True)
+    assert n == tt.titanet_param_count(n_mega_blocks=3, simple_pool=True)
+    assert tt.find_n_mega_blocks(simple_pool=True) == jt.find_n_mega_blocks(simple_pool=True)
+    assert tt.get_titanet(n_mega_blocks=1, simple_pool=True, device="cpu").simple_pool
+
+
 def test_bf16_titanet_routes_through_pool_wrapper(monkeypatch):
     calls = []
 

@@ -13,13 +13,15 @@ from titanet_tpu.models.titanet import TitaNet as JaxTitaNet
 SMALL = dict(n_mega_blocks=2, encoder_hidden_size=128, encoder_output_size=256)
 
 
-def small_titanet_pair(dtype=None, seed=0):
+def small_titanet_pair(dtype=None, seed=0, **overrides):
     """(jax_model, jax_variables, torch_model) with identical weights; the
     BatchNorm running statistics are drawn from a seeded numpy generator so
-    every BN does real work."""
+    every BN does real work. ``overrides`` are constructor arguments both
+    packages share (``simple_pool``, ``mega_block_kernel_size``, ...)."""
     rng = np.random.default_rng(seed)
     jdt = {None: None, torch.bfloat16: jnp.bfloat16}[dtype]
-    jmodel = JaxTitaNet(dtype=jdt, **SMALL)
+    cfg = {**SMALL, **overrides}
+    jmodel = JaxTitaNet(dtype=jdt, **cfg)
     variables = jmodel.init(jax.random.key(seed), jnp.zeros((1, 16, 80), jnp.float32))
     variables = jax.tree_util.tree_map(np.asarray, dict(variables))
 
@@ -33,7 +35,7 @@ def small_titanet_pair(dtype=None, seed=0):
         return {k: stats(v) for k, v in tree.items()}
 
     variables["batch_stats"] = stats(variables["batch_stats"])
-    tmodel = TorchTitaNet(dtype=dtype, **SMALL).eval()
+    tmodel = TorchTitaNet(dtype=dtype, **cfg).eval()
     load_jax_variables(tmodel, variables["params"], variables["batch_stats"])
     return jmodel, variables, tmodel
 

@@ -8,7 +8,8 @@ hand-written CUDA C++ kernels (``csrc/``) built with ``nvcc`` at first use
 and bound through ``ctypes`` (``ops/kernels/``).
 
 Entry points (``get_titanet``, ``build_head``, ``embed_step``,
-``train_step``, ``SpeakerEmbedder``) run on the card by default and raise
+``embed_step_quantized``, ``train_step``, ``SpeakerEmbedder``) run on the
+card by default and raise
 when no CUDA device exists, unless the caller passes ``device="cpu"``.
 Nothing here imports JAX or ``titanet_tpu``.
 """

@@ -24,110 +24,15 @@
 // f32 mode: f32 operands, f32 accumulation (no TF32). bf16 mode: bf16
 // samples and basis, f32 accumulation, power rounded to bf16 before the bf16
 // filterbank product, as the TPU kernel's MXU passes do.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "logmel_common.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kFramesPerWarp = 8;
-constexpr int kTileFrames = kWarps * kFramesPerWarp;  // 64; ops/kernels/melspec.py::TILE_FRAMES
-constexpr int kBinsPerLane = 4;
-constexpr int kMaxSmem = 232448;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ float round_as(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_as<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 size_t smem_bytes(int hop, int n_fft, int n_mels) {
   const size_t span = (size_t)(kTileFrames - 1) * hop + n_fft;
   const size_t db = (size_t)kTileFrames * n_mels;
   const size_t power = (size_t)kTileFrames * (n_fft / 2 + 1);
   return ((span > db ? span : db) + power) * sizeof(float);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_power(float* pw, int idx, float re, float im) {
-  pw[idx] = round_as<T>(re * re) + round_as<T>(im * im);
-}
-
-// A warp's 8 frames x Q bins per lane: bins j, j+32, ..., j+32*(Q-1).
-// Per tap: 8 shared-memory broadcasts and 2Q L1 loads feed 16Q FMAs.
-template <typename T, int Q>
-__device__ __forceinline__ void dft_pass(const float* __restrict__ x, int hop,
-                                         const T* __restrict__ cos_b,
-                                         const T* __restrict__ sin_b, int n_bins, int j,
-                                         int k_lo, int k_hi, float* __restrict__ pw) {
-  float re[kFramesPerWarp][Q], im[kFramesPerWarp][Q];
-#pragma unroll
-  for (int f = 0; f < kFramesPerWarp; ++f)
-#pragma unroll
-    for (int q = 0; q < Q; ++q) re[f][q] = im[f][q] = 0.f;
-  for (int k = k_lo; k < k_hi; ++k) {
-    float c[Q], s[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const long long at = (long long)k * n_bins + j + 32 * q;
-      c[q] = to_f(cos_b[at]);
-      s[q] = to_f(sin_b[at]);
-    }
-#pragma unroll
-    for (int f = 0; f < kFramesPerWarp; ++f) {
-      const float v = x[f * hop + k];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        re[f][q] = fmaf(v, c[q], re[f][q]);
-        im[f][q] = fmaf(v, s[q], im[f][q]);
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < kFramesPerWarp; ++f)
-#pragma unroll
-    for (int q = 0; q < Q; ++q) store_power<T>(pw, f * n_bins + j + 32 * q, re[f][q], im[f][q]);
-}
-
-// One bin for a warp's 8 frames, the taps split over the 32 lanes and
-// summed with shuffles (so a lone bin does not leave 31 lanes idle).
-template <typename T>
-__device__ __forceinline__ void dft_bin_warp(const float* __restrict__ x, int hop,
-                                             const T* __restrict__ cos_b,
-                                             const T* __restrict__ sin_b, int n_bins, int j,
-                                             int k_lo, int k_hi, float* __restrict__ pw,
-                                             int lane) {
-  float re[kFramesPerWarp], im[kFramesPerWarp];
-#pragma unroll
-  for (int f = 0; f < kFramesPerWarp; ++f) re[f] = im[f] = 0.f;
-  for (int k = k_lo + lane; k < k_hi; k += 32) {
-    const float c = to_f(cos_b[(long long)k * n_bins + j]);
-    const float s = to_f(sin_b[(long long)k * n_bins + j]);
-#pragma unroll
-    for (int f = 0; f < kFramesPerWarp; ++f) {
-      const float v = x[f * hop + k];
-      re[f] = fmaf(v, c, re[f]);
-      im[f] = fmaf(v, s, im[f]);
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < kFramesPerWarp; ++f) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      re[f] += __shfl_xor_sync(0xffffffffu, re[f], o);
-      im[f] += __shfl_xor_sync(0xffffffffu, im[f], o);
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int f = 0; f < kFramesPerWarp; ++f) store_power<T>(pw, f * n_bins + j, re[f], im[f]);
-  }
 }
 
 template <typename T>
@@ -141,7 +46,7 @@ __global__ void __launch_bounds__(kThreads, 2) logmel_kernel(
   extern __shared__ float smem[];
   const int n_bins = n_fft / 2 + 1;
   const int span = (kTileFrames - 1) * hop + n_fft;
-  const int db_len = kTileFrames * n_mels;
+  const int db_len = kTileFrames * n_mels;  // the dB tile reuses the samples' room
   float* samples = smem;  // [span]; holds the dB tile after the DFT
   float* power = smem + (span > db_len ? span : db_len);  // [kTileFrames][n_bins]
 
@@ -171,30 +76,10 @@ __global__ void __launch_bounds__(kThreads, 2) logmel_kernel(
     dft_bin_warp<T>(x, hop, cos_b, sin_b, n_bins, j0, k_lo, k_hi, pw, lane);
   __syncthreads();
 
-  float* db = samples;
-  for (int idx = threadIdx.x; idx < db_len; idx += kThreads) {
-    const int f = idx / n_mels;
-    const int m = idx - f * n_mels;
-    const float* p = power + f * n_bins;
-    float acc = 0.f;
-    for (int j = 0; j < n_bins; ++j) acc = fmaf(p[j], to_f(fb[j * n_mels + m]), acc);
-    db[idx] = 10.f * log10f(fmaxf(acc, 1e-10f));
-  }
-  __syncthreads();
-
   const int valid = lengths ? 1 + lengths[b] / hop : n_frames;
-  for (int f = warp; f < kTileFrames; f += kWarps) {
-    const int t = f0 + f;
-    if (t >= n_frames) break;
-    const float* d = db + f * n_mels;
-    float ss = 0.f;
-    for (int m = lane; m < n_mels; m += 32) ss = fmaf(d[m], d[m], ss);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    const float nrm = fmaxf(sqrtf(ss), 1e-12f);
-    float* o = out + ((long long)b * n_frames + t) * n_mels;
-    for (int m = lane; m < n_mels; m += 32) o[m] = t < valid ? d[m] / nrm : 0.f;
-  }
+  const int rows = n_frames - f0 < kTileFrames ? n_frames - f0 : kTileFrames;
+  mel_db_l2_store<T>(power, samples, fb, n_bins, n_mels,
+                     out + ((long long)b * n_frames + f0) * n_mels, rows, valid - f0);
 }
 
 template <typename T>

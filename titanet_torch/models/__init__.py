@@ -1,4 +1,6 @@
-"""TitaNet S/M/L (the rest of the JAX package's model zoo is not ported yet)."""
+"""TitaNet S/M/L, its fused serving variant (:mod:`.fused_inference`) and its
+int8 one (:mod:`.quantized`); the rest of the JAX package's model zoo is not
+ported yet."""
 
 import torch
 

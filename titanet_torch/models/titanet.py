@@ -41,7 +41,7 @@ from titanet_torch.ops.conv import DepthwiseSeparableConv1d, SamePadConv1d
 from titanet_torch.ops.dense import Dense
 from titanet_torch.ops.kernels.pool import kernel_supports
 from titanet_torch.ops.norm import BatchNorm, FastDropout
-from titanet_torch.ops.pooling import AttentiveStatsPooling
+from titanet_torch.ops.pooling import AttentiveStatsPooling, SimplePooling
 from titanet_torch.ops.se import SqueezeExcitation
 
 TARGET_PARAMS = {"s": 6.4, "m": 13.4, "l": 25.3}
@@ -149,24 +149,36 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Attentive stats pooling -> BN -> Linear -> BN: ``[B, T, C] -> [B, E]``."""
+    """Attentive stats pooling -> BN -> Linear -> BN: ``[B, T, C] -> [B, E]``.
+    With ``simple_pool``: average pool + Linear(C -> 2C) -> Linear -> BN
+    (no ``pool_norm``)."""
 
     def __init__(
         self,
         channels: int = 1536,
         embedding_size: int = 192,
         attention_hidden_size: int = 128,
+        simple_pool: bool = False,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        self.pool = AttentiveStatsPooling(channels, attention_hidden_size, dtype=dtype)
-        self.pool_norm = BatchNorm(2 * channels, dtype=dtype)
+        self.simple_pool = simple_pool
+        if simple_pool:
+            self.pool = SimplePooling(channels, dtype=dtype)
+        else:
+            self.pool = AttentiveStatsPooling(channels, attention_hidden_size, dtype=dtype)
+            self.pool_norm = BatchNorm(2 * channels, dtype=dtype)
         self.linear = Dense(2 * channels, embedding_size, dtype=dtype)
         self.linear_norm = BatchNorm(embedding_size, dtype=dtype)
 
     def forward(self, x, mask=None, prescale=None, preshift=None):
-        pooled = self.pool(x, mask=mask, prescale=prescale, preshift=preshift)
-        return self.linear_norm(self.linear(self.pool_norm(pooled)))
+        if self.simple_pool:
+            pooled = self.pool(x, mask=mask)
+        else:
+            pooled = self.pool_norm(
+                self.pool(x, mask=mask, prescale=prescale, preshift=preshift)
+            )
+        return self.linear_norm(self.linear(pooled))
 
 
 class TitaNet(nn.Module):
@@ -186,10 +198,15 @@ class TitaNet(nn.Module):
         epilog_kernel_size: int = 1,
         attention_hidden_size: int = 128,
         se_reduction: int = 16,
+        simple_pool: bool = False,
         dropout: float = 0.5,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.n_mega_blocks = n_mega_blocks
+        self.n_sub_blocks = n_sub_blocks
+        self.mega_block_kernel_size = mega_block_kernel_size
+        self.simple_pool = simple_pool
         self.embedding_size = embedding_size
         self.encoder_output_size = encoder_output_size
         self.attention_hidden_size = attention_hidden_size
@@ -199,7 +216,9 @@ class TitaNet(nn.Module):
             mega_block_kernel_size, prolog_kernel_size, epilog_kernel_size, se_reduction,
             dropout, dtype,
         )
-        self.decoder = Decoder(encoder_output_size, embedding_size, attention_hidden_size, dtype)
+        self.decoder = Decoder(
+            encoder_output_size, embedding_size, attention_hidden_size, simple_pool, dtype
+        )
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draw every parameter in module order from ``generator``."""
@@ -217,7 +236,7 @@ class TitaNet(nn.Module):
         # Fused-decoder eligibility: the pooling kernel absorbs the epilog
         # BN apply + relu, so the post-BN [B, T, C] activation never exists.
         dt = self.dtype or x.dtype
-        fuse = mask is None and kernel_supports(
+        fuse = not self.simple_pool and mask is None and kernel_supports(
             self.encoder_output_size, self.attention_hidden_size, x.shape[1], dt
         )
         enc = self.encoder(x, mask=mask, defer_epilog=fuse, generator=generator)
@@ -241,6 +260,7 @@ def get_titanet(
     n_mega_blocks: Optional[int] = None,
     model_size: str = "s",
     attention_hidden_size: int = 128,
+    simple_pool: bool = False,
     dropout: float = 0.5,
     dtype: Optional[torch.dtype] = None,
     device="cuda",
@@ -257,13 +277,15 @@ def get_titanet(
     dev = resolve_device(device)
     if n_mega_blocks is None:
         n_mega_blocks = find_n_mega_blocks(
-            embedding_size, n_mels, size, attention_hidden_size=attention_hidden_size
+            embedding_size, n_mels, size, attention_hidden_size=attention_hidden_size,
+            simple_pool=simple_pool,
         )
     model = TitaNet(
         n_mels=n_mels,
         n_mega_blocks=n_mega_blocks,
         embedding_size=embedding_size,
         attention_hidden_size=attention_hidden_size,
+        simple_pool=simple_pool,
         dropout=dropout,
         dtype=dtype,
         **_SIZE_PRESETS[size],
@@ -284,8 +306,9 @@ def titanet_param_count(
     epilog_kernel: int = 1,
     attention_hidden: int = 128,
     se_reduction: int = 16,
+    simple_pool: bool = False,
 ) -> int:
-    """Closed-form parameter count (attentive pooling), exact vs
+    """Closed-form parameter count, exact vs
     ``sum(p.numel() for p in model.parameters())``."""
     h, o, e, a = hidden, output_size, embedding_size, attention_hidden
     prolog = prolog_kernel * n_mels * h + h + 2 * h
@@ -294,7 +317,10 @@ def titanet_param_count(
     skip = h * h + h + 2 * h
     mega = n_sub_blocks * sub + se + skip
     epilog = epilog_kernel * h * o + o + 2 * o
-    pool = (o * a + a) + (a * o + o) + 2 * (2 * o)  # attention + BN(2o)
+    if simple_pool:
+        pool = o * (2 * o) + 2 * o
+    else:
+        pool = (o * a + a) + (a * o + o) + 2 * (2 * o)  # attention + BN(2o)
     decoder = pool + (2 * o * e + e) + 2 * e
     return prolog + n_mega_blocks * mega + epilog + decoder
 
@@ -305,6 +331,7 @@ def find_n_mega_blocks(
     model_size: str = "s",
     trials=None,
     attention_hidden_size: int = 128,
+    simple_pool: bool = False,
 ) -> int:
     """n_mega_blocks whose parameter count is closest to the paper target."""
     trials = trials if trials is not None else range(1, 20)
@@ -319,6 +346,7 @@ def find_n_mega_blocks(
             kernel=preset["mega_block_kernel_size"],
             embedding_size=embedding_size,
             attention_hidden=attention_hidden_size,
+            simple_pool=simple_pool,
         ) / 1e6
         dist = abs(target - params_m)
         if dist < best_dist:

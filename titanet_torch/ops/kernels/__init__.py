@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
-- :mod:`.melspec` — fused log-mel (``csrc/logmel.cu``).
+- :mod:`.melspec` — fused log-mel (``csrc/logmel.cu``) and log-mel of
+  materialized frames (``csrc/mel_frames.cu``).
+- :mod:`.megablock` — a mega-block's fused sub-block chain for inference
+  (``csrc/megablock.cu``).
 - :mod:`.pool` — attentive-statistics pooling with the BN fold, forward
   and backward (``csrc/attn_pool.cu``), and its autograd Function.
 - :mod:`.dwconv` — depthwise-conv backward in one pass (``csrc/dw_bwd.cu``),

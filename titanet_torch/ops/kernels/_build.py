@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled at first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``titanet_torch/_build/lib<name>-<digest>.so`` (git-ignored; the digest
-covers the source and the flags, so an edit rebuilds) and loaded with
-``ctypes``. No PyTorch header is compiled, so a build takes seconds.
+covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edit rebuilds) and loaded with ``ctypes``. No PyTorch header is compiled, so a build takes seconds.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches, and
 its Python wrapper raises on a non-zero code.
@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("logmel", "attn_pool", "dw_bwd")
+SOURCES = ("logmel", "attn_pool", "dw_bwd", "megablock", "mel_frames")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,6 +55,8 @@ def library_path(name: str) -> Tuple[Path, Path]:
     """(source, shared-library path) of kernel source ``name``."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,179 @@
+"""Fused mega-block sub-chain kernel: wrapper, plain version, launch count.
+
+CUDA source: ``titanet_torch/csrc/megablock.cu`` (replaces
+``titanet_tpu/ops/pallas/megablock.py::fused_sub_blocks``). One launch
+computes a mega-block's chain
+
+    (depthwise k + bias -> pointwise C x C product + bias -> folded-BN
+     affine -> relu) x S
+
+on ``x [B, T, C]`` without writing an intermediate activation to device
+memory. Inference only: no gradient.
+
+Edge rows. As in the kernel it replaces, only the INPUT is zero outside
+``[0, T)``: every stage is also evaluated on the halo rows and is not
+re-zeroed there, so stage ``s+1`` at row 0 reads stage ``s`` at row ``-1``
+as ``relu(bn(pw(dw_b) + pw_b))`` where a chain of zero-padded convolutions
+would read 0. The first and last ``(S-1)*pad`` output rows therefore
+differ from ``TitaNet``'s per-conv path; every other row is the same.
+
+On a CPU tensor :func:`fused_sub_blocks` runs
+:func:`fused_sub_blocks_plain`; on a CUDA tensor it launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from titanet_torch.ops.kernels import _build
+
+MAX_SMEM = 232448
+# rows of the largest stage output a block computes, by channel count
+# (csrc/megablock.cu::dispatch); a tile is TILE_ROWS - 2*pad*(S-1) output rows
+TILE_ROWS = {128: 64, 256: 64, 512: 64, 1024: 32}
+
+
+def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
+    """BatchNorm in eval mode -> per-channel ``(scale', shift')``."""
+    inv = scale / torch.sqrt(var + eps)
+    return inv, bias - mean * inv
+
+
+def smem_bytes(channels: int, kernel_size: int) -> int:
+    """Dynamic shared memory one block of the kernel needs."""
+    pad = (kernel_size - 1) // 2
+    slab = 4096 if channels <= 256 else 8192
+    return ((TILE_ROWS[channels] + 2 * pad) * channels + slab) * 4
+
+
+def kernel_supports(channels: int, kernel_size: int, n_stages: int, dtype) -> bool:
+    """What the CUDA kernel takes: f32 or bf16, C in 128/256/512/1024, odd
+    k, and a time tile of at least 8 rows that fits shared memory (TitaNet
+    S, M and L do: (C, k) = (256, 3), (512, 7), (1024, 11), S = 3)."""
+    if dtype not in (torch.float32, torch.bfloat16) or channels not in TILE_ROWS:
+        return False
+    if kernel_size < 1 or kernel_size % 2 == 0 or n_stages < 1:
+        return False
+    tile = TILE_ROWS[channels] - (kernel_size - 1) * (n_stages - 1)
+    return tile >= 8 and smem_bytes(channels, kernel_size) <= MAX_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("megablock")
+    for fn in (lib.titanet_megablock_f32, lib.titanet_megablock_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.titanet_megablock_error_string.argtypes = [ctypes.c_int]
+    lib.titanet_megablock_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, dw_w, dw_b, pw_w, pw_b, bn, kernel_size):
+    if x.dim() != 3:
+        raise ValueError("expected x [B, T, C]")
+    c = x.shape[-1]
+    s = dw_w.shape[0]
+    shapes = {
+        "dw_w": (dw_w, (s, kernel_size, c)), "dw_b": (dw_b, (s, c)),
+        "pw_w": (pw_w, (s, c, c)), "pw_b": (pw_b, (s, c)), "bn": (bn, (s, 2, c)),
+    }
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if kernel_size % 2 == 0:
+        raise ValueError("kernel_size must be odd")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if pw_w.dtype != x.dtype:
+        raise TypeError("pw_w must have x's dtype")
+    if any(t.dtype != torch.float32 for t in (dw_w, dw_b, pw_b, bn)):
+        raise TypeError("dw_w, dw_b, pw_b and bn must be float32")
+    tensors = (x, dw_w, dw_b, pw_w, pw_b, bn)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous")
+
+
+def fused_sub_blocks_plain(
+    x: torch.Tensor,
+    dw_w: torch.Tensor,
+    dw_b: torch.Tensor,
+    pw_w: torch.Tensor,
+    pw_b: torch.Tensor,
+    bn: torch.Tensor,
+    kernel_size: int,
+) -> torch.Tensor:
+    """Plain torch version of the kernel, the same arithmetic: the input is
+    zero-padded by ``S*pad`` rows a side ONCE and the S stages run as
+    "valid" convolutions, so the length comes back to T and the halo rows
+    carry real values between stages. The depthwise sum is rounded to
+    ``x.dtype`` before the product (f32 accumulation), the stage's output
+    after the relu."""
+    pad = (kernel_size - 1) // 2
+    n_stages = dw_w.shape[0]
+    halo = n_stages * pad
+    h = F.pad(x, (0, 0, halo, halo))
+    for s in range(n_stages):
+        rows = h.shape[1] - 2 * pad
+        acc = torch.zeros(x.shape[0], rows, x.shape[2], dtype=torch.float32, device=x.device)
+        for j in range(kernel_size):
+            acc = acc + h[:, j : j + rows].float() * dw_w[s, j]
+        acc = acc + dw_b[s]
+        acc = acc.to(x.dtype).float() @ pw_w[s].float()
+        acc = (acc + pw_b[s]) * bn[s, 0] + bn[s, 1]
+        h = torch.relu(acc).to(x.dtype)
+    return h
+
+
+def fused_sub_blocks(
+    x: torch.Tensor,
+    dw_w: torch.Tensor,
+    dw_b: torch.Tensor,
+    pw_w: torch.Tensor,
+    pw_b: torch.Tensor,
+    bn: torch.Tensor,
+    kernel_size: int,
+) -> torch.Tensor:
+    """``x [B, T, C]`` (f32 or bf16) -> ``[B, T, C]``: a mega-block's fused
+    sub-block chain. ``dw_w [S, k, C]`` depthwise taps, ``dw_b [S, C]``,
+    ``pw_b [S, C]``, ``bn [S, 2, C]`` folded (scale', shift'), all f32;
+    ``pw_w [S, C, C]`` pointwise (in, out) in ``x.dtype``."""
+    _check(x, dw_w, dw_b, pw_w, pw_b, bn, kernel_size)
+    if x.device.type == "cpu":
+        return fused_sub_blocks_plain(x, dw_w, dw_b, pw_w, pw_b, bn, kernel_size)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no fused mega-block kernel for device {x.device}")
+    b, t, c = x.shape
+    n_stages = dw_w.shape[0]
+    if not kernel_supports(c, kernel_size, n_stages, x.dtype):
+        raise ValueError(
+            f"the mega-block kernel does not take C={c}, k={kernel_size}, S={n_stages}, "
+            f"{x.dtype} (see kernel_supports)"
+        )
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    fn = lib.titanet_megablock_f32 if x.dtype == torch.float32 else lib.titanet_megablock_bf16
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(
+            x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(), pw_b.data_ptr(),
+            bn.data_ptr(), out.data_ptr(), b, t, c, n_stages, kernel_size, stream,
+        )
+    if code != 0:
+        raise RuntimeError(
+            f"mega-block kernel launch failed: {lib.titanet_megablock_error_string(code).decode()}"
+        )
+    fused_sub_blocks.launches += 1
+    return out
+
+
+fused_sub_blocks.launches = 0

@@ -92,3 +92,20 @@ class AttentiveStatsPooling(nn.Module):
         e = torch.tanh(F.linear(x.to(dt), wa.to(dt), ba.to(dt)))
         e = F.linear(e, wb.to(dt), bb.to(dt))
         return attentive_stats(x, e, mask=mask, eps=self.eps)
+
+
+class SimplePooling(nn.Module):
+    """Average pool over time (the valid frames with ``mask``) + linear
+    ``C -> 2C``: the ``simple_pool`` alternative to attentive pooling."""
+
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.linear = Dense(channels, 2 * channels, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask is not None:
+            m = mask.to(x.dtype)[..., None]
+            pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+        else:
+            pooled = x.mean(dim=1)
+        return self.linear(pooled)

@@ -5,7 +5,8 @@ Utterances are padded to a few geometric length buckets and embedded in
 fixed-size batches with frame masks, so a padded embedding equals the
 utterance's solo embedding. Utterances longer than the largest bucket are
 cut into overlapping windows whose unit-norm embeddings are averaged and
-re-normalized.
+re-normalized. ``quantized=True`` embeds through the int8 tree
+(:mod:`titanet_torch.models.quantized`), built once from the model.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 
 from titanet_torch._device import resolve_device
 from titanet_torch.ops.frontend import FrontendConfig
-from titanet_torch.train.state import embed_step
+from titanet_torch.train.state import embed_step, embed_step_quantized
 
 
 def geometric_buckets(
@@ -40,14 +41,19 @@ class SpeakerEmbedder:
         quantized: bool = False,
         device="cuda",
     ):
-        if quantized:
-            raise NotImplementedError("int8 serving is not ported yet")
         self.device = resolve_device(device)
         self.model = model
         self.frontend = frontend or FrontendConfig.from_ms()
         self.buckets = sorted(buckets) if buckets else geometric_buckets()
         self.batch_size = batch_size
         self.window_overlap = window_overlap
+        self.qtree = None
+        if quantized:
+            # int8 encoder products (titanet_torch.models.quantized): the
+            # tree is built once, here
+            from titanet_torch.models.quantized import quantize_titanet
+
+            self.qtree = quantize_titanet(model)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -66,10 +72,16 @@ class SpeakerEmbedder:
                 batch[j, : len(w)] = w
                 lengths[j] = len(w)
             lengths[len(group):] = 1  # harmless filler rows
-            emb = embed_step(
-                self.model, batch, lengths,
-                frontend=self.frontend, masked=True, device=self.device,
-            )
+            if self.qtree is not None:
+                emb = embed_step_quantized(
+                    self.qtree, batch, lengths,
+                    frontend=self.frontend, masked=True, device=self.device,
+                )
+            else:
+                emb = embed_step(
+                    self.model, batch, lengths,
+                    frontend=self.frontend, masked=True, device=self.device,
+                )
             out.append(emb.float().cpu().numpy()[: len(group)])
         return np.concatenate(out)
 

@@ -1,7 +1,8 @@
 """Train state, train/eval/inference steps and the optimizer (port of
 ``titanet_tpu/train/state.py``).
 
-- :func:`embed_step`: wav -> unit-norm embeddings (serving).
+- :func:`embed_step`: wav -> unit-norm embeddings (serving);
+  :func:`embed_step_quantized` is its int8 twin.
 - :func:`train_step`: in-step frontend (no grad) -> backbone in training
   mode (batch statistics, dropout from the state's generator) -> head ->
   loss -> gradients -> ONE running-statistics update over every BatchNorm
@@ -63,6 +64,33 @@ def embed_step(
     with torch.inference_mode():
         mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
         emb = model(mel, mask=mask if masked else None)
+        return l2_normalize(emb)
+
+
+def embed_step_quantized(
+    qtree,
+    waveform,
+    lengths,
+    *,
+    frontend: FrontendConfig,
+    masked: bool = False,
+    device="cuda",
+) -> torch.Tensor:
+    """Int8 serving twin of :func:`embed_step`: ``qtree`` is the tree
+    :func:`titanet_torch.models.quantized.quantize_titanet` builds; wav ->
+    unit-norm embeddings ``[B, E]`` (f32) on ``device``."""
+    from titanet_torch.models.quantized import titanet_apply_quantized
+
+    dev = resolve_device(device)
+    if qtree.prolog_kernel.device.type != dev.type:
+        raise ValueError(
+            f"quantized tree is on {qtree.prolog_kernel.device}, embed_step_quantized was asked for {dev}"
+        )
+    wav = torch.as_tensor(waveform, device=dev)
+    lens = torch.as_tensor(lengths, device=dev)
+    with torch.inference_mode():
+        mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
+        emb = titanet_apply_quantized(qtree, mel, mask=mask if masked else None)
         return l2_normalize(emb)
 
 
