@@ -17,7 +17,8 @@ Phases (any failure exits non-zero and prints no result):
   5. ``SpeakerEmbedder.embed`` on 1.2 s, 3 s, 7 s and 40 s requests: each
      padded-batch embedding equals the request's solo embedding;
   6. attentive-pool backward kernel vs its plain version at B=128, T=301,
-     C=1536, H=128, bf16 and f32, fold on and off: every gradient;
+     C=1536, H=128, bf16 and f32, fold on and off: every gradient; the
+     workspace bytes of each route;
   7. depthwise-conv backward kernel vs its plain version and vs the library
      (autograd of the cuDNN grouped conv) at B=128, T=301, C=256,
      K = 3, 7, 11;
@@ -34,8 +35,10 @@ Phases (any failure exits non-zero and prints no result):
   10. mega-block kernel vs its plain version at B=128, T=301, S=3, (C, k) =
      (256, 3), (512, 7), (1024, 11), f32 (1e-4 of the largest entry) and
      bf16 (one bf16 ulp of it), biases of std 0.3 so the edge rows carry
-     real values; edge-row and interior errors apart; the unfused library
-     route (the port's ``MegaBlock`` sub-blocks in eval mode) timed beside;
+     real values; edge-row and interior errors apart; which design ran
+     (bf16 tensor-core with wgmma or mma.sync, f32 fp32-core); the unfused library route (the
+     port's ``MegaBlock`` sub-blocks in eval mode) timed beside; one ragged
+     bf16 case more at (256, 3): B=3, T=1000 (9 tiles, the last partial);
   11. the fused serving path on TitaNet-S: wav -> ``log_mel_spectrogram_pallas``
      -> ``titanet_apply_fused`` -> ``l2_normalize``, bf16 and f32: launches
      {mel_frames: 1, megablock: 17}, finite unit-norm [128, 192], cosine vs
@@ -51,8 +54,9 @@ The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
 kernels, the pallas-route training step for the backward kernels, the
 fused serving call for the frames and mega-block kernels), error
-vs its plain version, time, plain time, bound and library time. The last
-line is ``{"ok": true, "device": {...}}``.
+vs its plain version, time, plain time, bound and library time; the three
+kernels whose design was replaced carry the replaced design's time as
+``prev_ms``. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -77,6 +81,15 @@ B, SECONDS, SR = 128, 3, 16000
 # alike; the limits sit just under.
 FUSED_VS_EMBED_STEP_F32 = 0.99999
 FUSED_VS_EMBED_STEP_BF16 = 0.9999
+# Times of the FP32-core designs that the bf16 tensor-core kernels replaced,
+# at the same shapes (NVIDIA H100 80GB HBM3, 700 W): the mega-block kernel at
+# (C, k) = (256, 3), (512, 7), (1024, 11); the pool backward, fold on / off; the
+# pool forward, fold on.
+PREV_MS = {
+    ("megablock", 256): 0.727, ("megablock", 512): 2.911, ("megablock", 1024): 26.947,
+    ("pool_bwd", True): 7.994, ("pool_bwd", False): 7.578,
+    ("pool", True): 2.948,
+}
 
 
 def card() -> str:
@@ -130,7 +143,8 @@ def main() -> int:
     from titanet_torch.models.quantized import quantize_titanet
     from titanet_torch.models.titanet import MegaBlock
     from titanet_torch.ops.kernels import _build, dwconv
-    from titanet_torch.ops.kernels.megablock import fused_sub_blocks, fused_sub_blocks_plain
+    from titanet_torch.ops.kernels import pool as pool_kernels
+    from titanet_torch.ops.kernels.megablock import fused_sub_blocks, fused_sub_blocks_plain, kernel_design
     from titanet_torch.ops.kernels.melspec import (
         log_mel_frames,
         log_mel_frames_plain,
@@ -217,7 +231,9 @@ def main() -> int:
                 + out.numel() * out.element_size()
             bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
             report[("pool", dt, fold)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
-            print(f"attn_pool {dt} fold={fold}: max_abs_err {err:.3e} (rtol {rtol}); kernel {ms:.4f} ms, "
+            was = PREV_MS.get(("pool", fold)) if dt == torch.bfloat16 else None
+            print(f"attn_pool {dt} fold={fold}: max_abs_err {err:.3e} (rtol {rtol}); kernel {ms:.4f} ms"
+                  f"{f' (fp32-core design: {was} ms)' if was else ''}, "
                   f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
                   f"{nbytes / 1e6:.1f} MB) {tag}")
     del h32, h, buf32
@@ -318,10 +334,15 @@ def main() -> int:
             bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
             dh_err = (got[0].float() - ref[0].float()).abs().max().item()
             report[("pool_bwd", dt, fold)] = dict(max_abs_err=dh_err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+            was = PREV_MS.get(("pool_bwd", fold)) if dt == torch.bfloat16 else None
+            work = pool_kernels._lib().titanet_attn_pool_bwd_workspace_bytes(B, t_frames, ch, hid, h.element_size())
+            if work != pool_kernels.bwd_workspace_bytes(B, t_frames, ch, hid, h.element_size()):
+                raise AssertionError(f"pool backward {dt}: workspace {work} B differs from the Python mirror")
             print(f"attn_pool_bwd {dt} fold={fold}: error / max per gradient "
                   f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol {tol}); dh max abs err {dh_err:.3e}; "
-                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB) {tag}")
+                  f"kernel {ms:.4f} ms{f' (fp32-core design: {was} ms)' if was else ''}, plain {pms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); workspace {work / 1e6:.1f} MB ({work} B; one f32 [B*T, C] array would be "
+                  f"{B * t_frames * ch * 4 / 1e6:.1f} MB) {tag}")
     del h32, h, g32, g
 
     # 7. depthwise-conv backward kernel vs plain and vs the library backward
@@ -534,11 +555,29 @@ def main() -> int:
             ums = cuda_ms(library_route, iters=iters)
             report[("megablock", c_, dt)] = dict(max_abs_err=max(e_edge, e_in), ms=ms, plain_ms=pms,
                                                  bound_ms=bms, bound_by=by)
-            print(f"megablock C={c_} k={k_} {dt}: max abs err first/last {edge} rows {e_edge:.3e}, interior "
-                  f"{e_in:.3e} (tol {tol:.3e}, largest entry {top:.3f}); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            was = f" (fp32-core design: {PREV_MS['megablock', c_]} ms)" if dt == torch.bfloat16 else ""
+            print(f"megablock C={c_} k={k_} {dt} ({kernel_design(dt, c_)}): max abs err first/last {edge} rows {e_edge:.3e}, interior "
+                  f"{e_in:.3e} (tol {tol:.3e}, largest entry {top:.3f}); kernel {ms:.4f} ms{was}, plain {pms:.4f} ms, "
                   f"unfused library route {ums:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
                   f"{nbytes / 1e6:.1f} MB) {tag}")
             del args, out, ref, unfused
+        if c_ == 256:
+            # ragged: 9 tiles of 124 rows, the last one of 8
+            xr = torch.from_numpy(rng.standard_normal((3, 1000, c_)).astype(np.float32)).to(dev)
+            args = (xr.to(torch.bfloat16), dw_w, dw_b, pw32.to(torch.bfloat16), pw_b, bn)
+            out, ref = fused_sub_blocks(*args, kernel_size=k_), fused_sub_blocks_plain(*args, kernel_size=k_)
+            torch.cuda.synchronize()
+            top = ref.float().abs().max().item()
+            tol = 2.0 ** (np.floor(np.log2(top)) - 7)
+            per_row = (out.float() - ref.float()).abs().amax(dim=(0, 2))
+            e_edge = max(per_row[:edge].max().item(), per_row[1000 - edge:].max().item())
+            e_in = per_row[edge:1000 - edge].max().item()
+            if not torch.isfinite(out).all() or max(e_edge, e_in) > tol:
+                raise AssertionError(f"megablock ragged B=3 T=1000: error edge {e_edge}, interior {e_in} > {tol}")
+            print(f"megablock C={c_} k={k_} torch.bfloat16 ({kernel_design(torch.bfloat16, c_)}) ragged B=3 T=1000: max abs "
+                  f"err first/last {edge} rows {e_edge:.3e}, interior {e_in:.3e} (tol {tol:.3e}, largest entry "
+                  f"{top:.3f}) {tag}")
+            del xr, args, out, ref
         del x32, pw32
 
     # 11. fused serving path, TitaNet-S, 17 mega-blocks, B=128 x 3 s
@@ -637,6 +676,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         })
+        prev = PREV_MS.get((key[0], key[1] if key[0] == "megablock" else key[-1]))
+        if prev is not None:
+            kernels[-1]["prev_ms"] = prev
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

@@ -114,14 +114,14 @@ def _rel_err(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 77, 301])
+@pytest.mark.parametrize("t", [1, 77, 301, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fold", [False, True])
 def test_pool_backward_kernel_matches_plain(cuda_device, dtype, fold, t):
     """Every gradient within tol of its largest entry (f32 1e-4: sums in
     another order; bf16 2e-2: dh is bf16 and de, dz round to bf16 before the
     products). dbb is zero in exact arithmetic: both are noise below tol of
-    max |dWb|."""
+    max |dWb|. T = 1000 spans 16 frame tiles, the last one partial."""
     args = _pool_args(cuda_device, dtype, t=t)
     g = torch.from_numpy(np.random.default_rng(t).standard_normal((3, 512)).astype(np.float32))
     g = g.to(cuda_device).to(dtype)
@@ -142,6 +142,31 @@ def test_pool_backward_kernel_matches_plain(cuda_device, dtype, fold, t):
             assert a.abs().max().item() <= tol * scale and r.abs().max().item() <= tol * scale
         else:
             assert _rel_err(a, r) <= tol, (name, _rel_err(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", [False, True])
+def test_pool_backward_bf16_is_deterministic(cuda_device, fold):
+    """Two calls on the same inputs give the same bits in every gradient:
+    the partial sums are reduced in a fixed order, without float atomics."""
+    args = _pool_args(cuda_device, torch.bfloat16, b=5, t=301, c=512)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal((5, 1024)).astype(np.float32))
+    g = g.to(cuda_device).to(torch.bfloat16)
+    first = attentive_pool_bwd(*args, g, 1e-6, fold)
+    second = attentive_pool_bwd(*args, g, 1e-6, fold)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dh", "da", "dc", "dwa", "dba", "dwb", "dbb"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elem_size", [2, 4])
+@pytest.mark.parametrize("shape", [(128, 301, 1536, 128), (3, 1000, 256, 128), (2, 77, 256, 256)])
+def test_pool_backward_workspace_mirror_matches_the_library(cuda_device, shape, elem_size):
+    from titanet_torch.ops.kernels import pool
+
+    nbytes = pool._lib().titanet_attn_pool_bwd_workspace_bytes(*shape, elem_size)
+    assert nbytes == pool.bwd_workspace_bytes(*shape, elem_size)
 
 
 @pytest.mark.cuda
@@ -242,12 +267,18 @@ def _chain_args(device, dtype, b, t, c, k, s=3, seed=11):
     )
 
 
+_MEGABLOCK_SHAPES = [(2, 1, 128, 3, 3), (3, 59, 128, 7, 3), (2, 137, 256, 3, 3), (1, 61, 256, 5, 2),
+                     (2, 53, 512, 7, 3), (1, 45, 1024, 11, 3), (2, 301, 256, 3, 1)]
+# bf16 (the tensor-core kernel; 124-row tiles at C=256): below a tile, around
+# one tile, many tiles with a partial last one
+_MEGABLOCK_BF16_SHAPES = [(b, t, 256, 3, 3) for t in (1, 5, 127, 129, 1000) for b in (1, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "shape",
-    [(2, 1, 128, 3, 3), (3, 59, 128, 7, 3), (2, 137, 256, 3, 3), (1, 61, 256, 5, 2),
-     (2, 53, 512, 7, 3), (1, 45, 1024, 11, 3), (2, 301, 256, 3, 1)],
+    "dtype,shape",
+    [(dt, sh) for dt in (torch.float32, torch.bfloat16) for sh in _MEGABLOCK_SHAPES]
+    + [(torch.bfloat16, sh) for sh in _MEGABLOCK_BF16_SHAPES],
 )
 def test_megablock_kernel_matches_plain(cuda_device, dtype, shape):
     """Row by row, the edge rows included: f32 within 1e-4 of the largest

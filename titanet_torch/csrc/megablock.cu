@@ -17,30 +17,59 @@
 //
 // Bound on the H100: operations. One call at B=128, T=301, C=256, k=3, S=3
 // is 2*B*T*S*(C*C + C*k) = 15.3 GFLOP against 2 x 19.7 MB (bf16) of
-// activations and 0.4 MB of weights.
+// activations and 0.4 MB of weights: 0.0155 ms at the bf16 tensor-core
+// rate, 0.229 ms in f32 on the FP32 cores.
 //
-// Design. The TPU kernel keeps all S*C*C pointwise weights resident in its
-// fast memory; they do not fit a block's shared memory here (768 KB in f32
-// at C=256), so the roles are swapped: the ACTIVATION tile stays resident
-// and the weights stream through shared memory in slabs of KS rows (they
-// stay in L2). One block owns one utterance's tile of tb output rows and
-// holds (tb + 2*halo) x C floats, halo = S*pad, zero where the row is
-// outside [0, T). Each stage works in place on that one buffer:
+// What the card forces. The TPU kernel keeps all S*C*C pointwise weights
+// resident in its fast memory; they do not fit a block's shared memory here
+// (384 KB in bf16 at C=256), so the roles are swapped in both designs below:
+// the ACTIVATION tile of one utterance stays resident in shared memory
+// through all S stages, zero where a row is outside [0, T), and the weights
+// stream from L2 in slabs. tb = RM - 2*pad*(S-1) output rows a tile, so that
+// the largest stage output is RM rows; the halo rows (S*pad a side) are
+// computed again by the neighbouring tile.
+//
+// bf16: the tensor-core design (megablock_wg_kernel at C = 256 and 512,
+// megablock_tc_kernel at C = 128 and 1024, further down). What bounds it: a
+// block's products are RM x C x C, and every block streams all S*C*C
+// weights from L2, so RM sets the operations per weight byte; between the
+// products the CUDA-core passes (depthwise, epilogue) and the barriers of
+// the weight pipeline leave the tensor cores waiting. What the design does:
+//   - the tile is bf16 in two buffers: the depthwise pass writes the
+//     product's A operand, the epilogue writes the next stage's input, so no
+//     warp waits for the others between its K loop and its epilogue and the
+//     output columns can be chunked with the accumulators in registers;
+//   - the depthwise pass uses every thread (a channel pair over 8 rows each,
+//     the taps of k = 3, 7, 11 unrolled over rows held in registers);
+//   - the weight slabs come through a ring of cp.async stages that runs
+//     across column chunks and stages, so copies are in flight during the
+//     arithmetic, the epilogue and the depthwise pass;
+//   - at C = 256 and 512 the products are wgmma.m64nNk16: four (C = 256, 128
+//     rows) or two (C = 512, 64 rows) warpgroups, each a 64 x 128 or 64 x 256
+//     part, both operands read from 128-byte-swizzled shared memory through
+//     descriptors, one group of products in flight while the next slab is
+//     awaited and its copies started. Against mma.sync this cuts the shared-
+//     memory reads a product 2.4x and the instruction slots of the K loop;
+//   - C = 128 (too narrow for two column parts of 128) and C = 1024 (64 rows
+//     of two bf16 buffers are 280 KB) run mma.sync.m16n8k16 from ldmatrix
+//     fragments, the next step's fragments loaded before this step's
+//     products start (mma_bf16.cuh). At C = 1024 a tile is 12 output rows of
+//     32: it stays bound by the weight stream (21 GB from L2 a call).
+//
+// f32: the FP32-core design (megablock_kernel), the parity surface. One
+// buffer of (tb + 2*halo) x C floats, each stage in place:
 //   - depthwise: thread c walks down the rows of channel c; output row r
 //     reads rows r..r+k-1 and overwrites row r, which no later row reads;
 //   - pointwise: every thread keeps an 8 x 8 block of the RM x C product in
 //     registers over the whole K loop, then all write their blocks back
 //     over the rows they were computed from, with bias, affine and relu.
-// tb = RM - 2*pad*(S-1), so that the largest stage output is RM rows and
-// the product is one pass (RM = 64; 32 at C=1024, where 64 rows of
-// accumulators do not fit the register file). The halo rows are computed
-// again by the neighbouring tile: 3% more rows at (C, k) = (256, 3), 11%
-// at (512, 7), 83% at (1024, 11).
-// Both types run on the FP32 cores: T = bf16 rounds where the TPU kernel
-// rounds and multiplies the (exact) widened values with f32 accumulation.
+// RM = 64; 32 at C=1024, where 64 rows of accumulators do not fit the
+// register file.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -192,13 +221,440 @@ int launch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- bf16: tensor-core design
+//
+// Activations live in shared memory as bf16, rows padded for ldmatrix
+// (mma_bf16.cuh). Two buffers: `in` holds a stage's input (RM + 2*pad
+// rows), `dw` the depthwise output (at most RM rows), which is the product's
+// A operand; the epilogue writes the stage's output back into `in`. The
+// product reads one buffer and writes the other, so no warp waits for the
+// others between its K loop and its epilogue, and the output columns can be
+// computed in chunks of NC with RM x NC f32 accumulators in registers.
+// pw_w[s] streams from L2 in slabs of KS rows x NC columns through a ring
+// of NST shared-memory stages filled by cp.async; the ring runs across
+// column chunks and stages, so the next stage's first slabs land during the
+// epilogue and the depthwise pass.
+template <int C_, int RM_, int NC_, int WM_, int WN_, int KS_, int NST_, int MINB_>
+struct TcCfg {
+  static constexpr int C = C_, RM = RM_, NC = NC_, WM = WM_, WN = WN_, KS = KS_, NST = NST_;
+  static constexpr int MINB = MINB_;
+  static constexpr int NTHR = WM * WN * 32;
+  static constexpr int WTM = RM / WM, WTN = NC / WN;  // a warp's tile of the product
+  static constexpr int MT = WTM / 16, NT = WTN / 8;
+  static constexpr int LDA = C + tc::kPad;   // activation row stride
+  static constexpr int LDW = NC + tc::kPad;  // weight slab row stride
+  static constexpr int SLAB = KS * LDW;      // elements of a ring stage
+  static_assert(WTM % 16 == 0 && WTN % 16 == 0 && C % NC == 0 && C % KS == 0 && KS % 16 == 0 &&
+                    NST >= 2, "tile geometry");
+  static size_t smem_bytes(int pad) {
+    return ((size_t)(2 * RM + 2 * pad) * LDA + (size_t)NST * SLAB) * sizeof(__nv_bfloat16) +
+           3 * C * sizeof(float);
+  }
+  // element (r, c) of the depthwise buffer: padded rows for ldmatrix
+  static __device__ __forceinline__ int dw_offset(int r, int c) { return r * LDA + c; }
+};
+
+// The same chain with the products on wgmma: one block is WGM x 2
+// warpgroups over RM = 64 * WGM rows, each computing a 64 x NC/2 part of a column chunk with
+// m64nNk16 instructions that read both operands from shared memory. The
+// depthwise buffer is in wgmma's K-major swizzled layout, the weight slabs
+// in its MN-major one (mma_bf16.cuh); the input buffer keeps padded rows.
+template <int C_, int WGM_, int NC_, int KS_, int NST_, int MINB_>
+struct WgCfg {
+  static constexpr int C = C_, WGM = WGM_, RM = 64 * WGM, NC = NC_, KS = KS_, NST = NST_;
+  static constexpr int MINB = MINB_;
+  static constexpr int NTHR = 256 * WGM;  // WGM x 2 warpgroups
+  static constexpr int NW = NC / 2;  // columns of a warpgroup
+  static constexpr int LDA = C + tc::kPad;
+  static constexpr int SLAB = KS * NC;  // elements of a ring stage
+  static constexpr int KG = KS / 8;     // 8-row groups of a slab
+  static_assert((NW == 128 || NW == 256) && C % NC == 0 && C % KS == 0 && KS % 16 == 0 &&
+                    C % 64 == 0 && NST >= 3, "tile geometry");
+  static size_t smem_bytes(int pad) {
+    return ((size_t)RM * C + (size_t)NST * SLAB + (size_t)(RM + 2 * pad) * LDA) *
+               sizeof(__nv_bfloat16) + 3 * C * sizeof(float);
+  }
+  static __device__ __forceinline__ int dw_offset(int r, int c) {
+    return tc::sw128_a_offset<RM>(r, c);
+  }
+};
+
+// Depthwise stage in -> dw for `rows` output rows: a thread owns a channel
+// pair over 8 rows; output row r reads input rows r..r+k-1. The last group
+// may run past `rows` (by less than 8, inside both buffers: RM is a multiple
+// of 8): those rows are computed from stale rows and never read by a row
+// that is stored. K > 0: k == K, the 8 + K - 1 input rows are read once into
+// registers; K == 0: any k, every tap re-read.
+template <class Cfg, int K>
+__device__ __forceinline__ void depthwise_pass(const __nv_bfloat16* in, __nv_bfloat16* dw,
+                                               const float* __restrict__ w,  // [k, C] of the stage
+                                               const float* __restrict__ bias, int rows, int k,
+                                               int tid) {
+  constexpr int C = Cfg::C, LDA = Cfg::LDA;
+  const int units = (C / 2) * ((rows + 7) / 8);
+  for (int unit = tid; unit < units; unit += Cfg::NTHR) {
+    const int c = (unit % (C / 2)) * 2, r0 = (unit / (C / 2)) * 8;
+    const float2 b = *reinterpret_cast<const float2*>(bias + c);
+    float2 acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = make_float2(0.f, 0.f);
+    if (K > 0) {
+      float2 v[8 + (K > 0 ? K : 1) - 1];
+#pragma unroll
+      for (int i = 0; i < 8 + K - 1; ++i)
+        v[i] = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(in + (r0 + i) * LDA + c));
+#pragma unroll
+      for (int j = 0; j < K; ++j) {  // taps in order, as the plain version sums them
+        const float2 wj = *reinterpret_cast<const float2*>(w + j * C + c);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i].x = fmaf(v[i + j].x, wj.x, acc[i].x);
+          acc[i].y = fmaf(v[i + j].y, wj.y, acc[i].y);
+        }
+      }
+    } else {
+      float2 wj = *reinterpret_cast<const float2*>(w + c);
+      for (int j = 0; j < k; ++j) {
+        const float2 wn = *reinterpret_cast<const float2*>(w + (j + 1 < k ? j + 1 : j) * C + c);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(in + (r0 + i + j) * LDA + c));
+          acc[i].x = fmaf(v.x, wj.x, acc[i].x);
+          acc[i].y = fmaf(v.y, wj.y, acc[i].y);
+        }
+        wj = wn;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dw + Cfg::dw_offset(r0 + i, c)) =
+          __floats2bfloat162_rn(acc[i].x + b.x, acc[i].y + b.y);
+  }
+}
+
+// the taps of TitaNet S, M and L unrolled; any other odd k in a loop
+template <class Cfg>
+__device__ __forceinline__ void depthwise_stage(const __nv_bfloat16* in, __nv_bfloat16* dw,
+                                                const float* w, const float* bias, int rows,
+                                                int k, int tid) {
+  switch (k) {
+    case 3: depthwise_pass<Cfg, 3>(in, dw, w, bias, rows, k, tid); break;
+    case 7: depthwise_pass<Cfg, 7>(in, dw, w, bias, rows, k, tid); break;
+    case 11: depthwise_pass<Cfg, 11>(in, dw, w, bias, rows, k, tid); break;
+    default: depthwise_pass<Cfg, 0>(in, dw, w, bias, rows, k, tid);
+  }
+}
+
+// rows [t_first, t_first + rows) of one utterance -> in (padded rows), zero
+// where the time is outside [0, t_len); one cp.async group
+template <class Cfg>
+__device__ __forceinline__ void load_input_tile(__nv_bfloat16* in, const __nv_bfloat16* xb,
+                                                int t_first, int rows, int t_len, int tid) {
+  constexpr int CV = Cfg::C / 8;  // 16-byte chunks of a row
+  for (int i = tid; i < rows * CV; i += Cfg::NTHR) {
+    const int r = i / CV, v = i % CV;
+    const int t = t_first + r;
+    __nv_bfloat16* dst = in + r * Cfg::LDA + v * 8;
+    if (t >= 0 && t < t_len)
+      tc::cp_async16(dst, xb + (long long)t * Cfg::C + v * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  tc::cp_async_commit();
+}
+
+// the first tb rows of in -> rows [t0, t0 + tb) of one utterance, where they
+// are inside [0, t_len)
+template <class Cfg>
+__device__ __forceinline__ void store_output_tile(__nv_bfloat16* ob, const __nv_bfloat16* in,
+                                                  int t0, int tb, int t_len, int tid) {
+  constexpr int CV = Cfg::C / 8;
+  for (int i = tid; i < tb * CV; i += Cfg::NTHR) {
+    const int r = i / CV, v = i % CV;
+    if (t0 + r < t_len)
+      *reinterpret_cast<uint4*>(ob + (long long)(t0 + r) * Cfg::C + v * 8) =
+          *reinterpret_cast<const uint4*>(in + r * Cfg::LDA + v * 8);
+  }
+}
+
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_tc_kernel(
+    const __nv_bfloat16* __restrict__ x,     // [B, T, C]
+    const float* __restrict__ dw_w,          // [S, k, C]
+    const float* __restrict__ dw_b,          // [S, C]
+    const __nv_bfloat16* __restrict__ pw_w,  // [S, C, C] (in, out)
+    const float* __restrict__ pw_b,          // [S, C]
+    const float* __restrict__ bn,            // [S, 2, C] folded (scale, shift)
+    __nv_bfloat16* __restrict__ out,         // [B, T, C]
+    int t_len, int n_stages, int k, int tb) {
+  constexpr int C = Cfg::C, RM = Cfg::RM, NC = Cfg::NC, KS = Cfg::KS, NST = Cfg::NST;
+  constexpr int NTHR = Cfg::NTHR, LDA = Cfg::LDA, LDW = Cfg::LDW;
+  constexpr int MT = Cfg::MT, NT = Cfg::NT;
+  constexpr int SLABS = C / KS;        // slabs of one column chunk
+  constexpr int PER_STAGE = (C / NC) * SLABS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [RM][LDA]
+  __nv_bfloat16* ring = dw + RM * LDA;                             // [NST][KS][LDW]
+  float* par = reinterpret_cast<float*>(ring + NST * Cfg::SLAB);   // [3][C]: pw_b, scale, shift
+  __nv_bfloat16* in = reinterpret_cast<__nv_bfloat16*>(par + 3 * C);  // [RM + 2*pad][LDA]
+
+  const int pad = (k - 1) / 2;
+  const int halo = n_stages * pad;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / Cfg::WN, wn = warp % Cfg::WN;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * tb;
+  const __nv_bfloat16* xb = x + (long long)b * t_len * C;
+  const int n_slabs = n_stages * PER_STAGE;
+
+  auto prefetch = [&](int q) {  // slab q of the whole chain -> ring[q % NST]
+    if (q < n_slabs) {
+      const int s = q / PER_STAGE, rem = q % PER_STAGE;
+      const __nv_bfloat16* src =
+          pw_w + ((long long)s * C + (rem % SLABS) * KS) * C + (rem / SLABS) * NC;
+      __nv_bfloat16* dst = ring + (q % NST) * Cfg::SLAB;
+      for (int i = tid; i < KS * (NC / 8); i += NTHR) {
+        const int r = i / (NC / 8), v = i % (NC / 8);
+        tc::cp_async16(dst + r * LDW + v * 8, src + (long long)r * C + v * 8);
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  int rows = tb + 2 * halo;  // == RM + 2*pad; row r is time t0 - halo + r
+  load_input_tile<Cfg>(in, xb, t0 - halo, rows, t_len, tid);
+  for (int q = 0; q < NST - 1; ++q) prefetch(q);
+  tc::cp_async_wait<NST - 1>();  // the input tile has landed
+  __syncthreads();
+
+  int q = 0;
+  for (int s = 0; s < n_stages; ++s) {
+    rows -= 2 * pad;  // this stage's output rows; row r is time t0 - halo + (s+1)*pad + r
+    // this stage's epilogue vectors (read after the K loop's barriers)
+    for (int i = tid; i < 3 * C; i += NTHR)
+      par[i] = i < C ? pw_b[s * C + i] : bn[(s * 2) * C + i - C];
+    depthwise_stage<Cfg>(in, dw, dw_w + (long long)s * k * C, dw_b + s * C, rows, k, tid);
+
+    // pointwise dw @ pw_w[s] -> in, NC output columns at a time
+    for (int n0 = 0; n0 < C; n0 += NC) {
+      float acc[MT][NT][4];
+      tc::zero_acc(acc);
+      for (int ks = 0; ks < SLABS; ++ks, ++q) {
+        tc::cp_async_wait<NST - 2>();  // slab q has landed (this thread's copies)
+        __syncthreads();               // everyone's; slab q-1 is consumed; dw is written
+        prefetch(q + NST - 1);
+        tc::warp_mma<MT, NT, KS, false, true>(
+            acc, dw + wm * Cfg::WTM * LDA + ks * KS, LDA,
+            ring + (q % NST) * Cfg::SLAB + wn * Cfg::WTN, LDW, lane, rows - wm * Cfg::WTM);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = n0 + wn * Cfg::WTN + j * 8 + tc::frag_col(lane);
+        const float2 pb = *reinterpret_cast<const float2*>(par + c);
+        const float2 scale = *reinterpret_cast<const float2*>(par + C + c);
+        const float2 shift = *reinterpret_cast<const float2*>(par + 2 * C + c);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            // rows >= `rows` (skipped m tiles hold zeros) are written too: no
+            // row that is stored reads them
+            const int r = wm * Cfg::WTM + i * 16 + half * 8 + tc::frag_row(lane);
+            const float v0 = (acc[i][j][half * 2] + pb.x) * scale.x + shift.x;
+            const float v1 = (acc[i][j][half * 2 + 1] + pb.y) * scale.y + shift.y;
+            *reinterpret_cast<__nv_bfloat162*>(in + r * LDA + c) =
+                __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage's output is complete before anyone reads it
+  }
+
+  // rows == tb: row r is time t0 + r
+  store_output_tile<Cfg>(out + (long long)b * t_len * C, in, t0, tb, t_len, tid);
+}
+
+template <class Cfg>
+int launch_tc(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
+              const void* pw_b, const void* bn, void* out, int batch, int t_len, int n_stages,
+              int k, void* stream) {
+  const int pad = (k - 1) / 2;
+  const int tb = Cfg::RM - 2 * pad * (n_stages - 1);
+  const size_t smem = Cfg::smem_bytes(pad);
+  if (tb < 1 || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(megablock_tc_kernel<Cfg>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((t_len + tb - 1) / tb, batch);
+  megablock_tc_kernel<Cfg><<<grid, Cfg::NTHR, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const float*)dw_w, (const float*)dw_b,
+      (const __nv_bfloat16*)pw_w, (const float*)pw_b, (const float*)bn, (__nv_bfloat16*)out,
+      t_len, n_stages, k, tb);
+  return (int)cudaGetLastError();
+}
+
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_wg_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dw_w,
+    const float* __restrict__ dw_b, const __nv_bfloat16* __restrict__ pw_w,
+    const float* __restrict__ pw_b, const float* __restrict__ bn, __nv_bfloat16* __restrict__ out,
+    int t_len, int n_stages, int k, int tb) {
+  constexpr int C = Cfg::C, RM = Cfg::RM, NC = Cfg::NC, KS = Cfg::KS, NST = Cfg::NST;
+  constexpr int NTHR = Cfg::NTHR, LDA = Cfg::LDA, NW = Cfg::NW, KG = Cfg::KG;
+  constexpr int SLABS = C / KS;
+  constexpr int PER_STAGE = (C / NC) * SLABS;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // C/64 panels of [RM][64]
+  __nv_bfloat16* ring = dw + RM * C;                               // [NST] slabs of 1 KB atoms
+  float* par = reinterpret_cast<float*>(ring + NST * Cfg::SLAB);   // [3][C]: pw_b, scale, shift
+  __nv_bfloat16* in = reinterpret_cast<__nv_bfloat16*>(par + 3 * C);  // [RM + 2*pad][LDA]
+
+  const int pad = (k - 1) / 2;
+  const int halo = n_stages * pad;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = (warp >> 2) & 1, wgm = warp >> 3;  // warpgroup: column half, 64-row part
+  const int w4 = warp & 3;                          // its warp (16 rows)
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * tb;
+  const __nv_bfloat16* xb = x + (long long)b * t_len * C;
+  const int n_slabs = n_stages * PER_STAGE;
+
+  auto prefetch = [&](int q) {  // slab q of the whole chain -> ring[q % NST]
+    if (q < n_slabs) {
+      const int s = q / PER_STAGE, rem = q % PER_STAGE;
+      const __nv_bfloat16* src =
+          pw_w + ((long long)s * C + (rem % SLABS) * KS) * C + (rem / SLABS) * NC;
+      __nv_bfloat16* dst = ring + (q % NST) * Cfg::SLAB;
+      for (int i = tid; i < KS * (NC / 8); i += NTHR) {
+        const int r = i / (NC / 8), v = i % (NC / 8);
+        tc::cp_async16(dst + tc::sw128_b_offset(r, v * 8, KG), src + (long long)r * C + v * 8);
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  int rows = tb + 2 * halo;  // == RM + 2*pad; row r is time t0 - halo + r
+  load_input_tile<Cfg>(in, xb, t0 - halo, rows, t_len, tid);
+  constexpr int AHEAD = NST - 2;  // slabs in flight beyond the one being multiplied
+  for (int q = 0; q < AHEAD; ++q) prefetch(q);
+  tc::cp_async_wait<AHEAD>();  // the input tile has landed
+  __syncthreads();
+
+  int q = 0;
+  for (int s = 0; s < n_stages; ++s) {
+    rows -= 2 * pad;
+    // this stage's epilogue vectors (read after the K loop's barriers)
+    for (int i = tid; i < 3 * C; i += NTHR)
+      par[i] = i < C ? pw_b[s * C + i] : bn[(s * 2) * C + i - C];
+    depthwise_stage<Cfg>(in, dw, dw_w + (long long)s * k * C, dw_b + s * C, rows, k, tid);
+
+    for (int n0 = 0; n0 < C; n0 += NC) {
+      float acc[NW / 2];
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+      for (int ks = 0; ks < SLABS; ++ks, ++q) {
+        tc::cp_async_wait<AHEAD - 1>();  // slab q has landed (this thread's copies)
+        tc::fence_proxy_async();         // this thread's dw rows and copies, for wgmma's reads
+        __syncthreads();                 // everyone's; the products of slab q-2 are done
+        prefetch(q + AHEAD);                // into the stage slab q-2 was read from
+        const __nv_bfloat16* slab = ring + (q % NST) * Cfg::SLAB + wg * (NW / 64) * KG * 512;
+        tc::wgmma_fence();
+#pragma unroll
+        for (int k2 = 0; k2 < KS / 16; ++k2) {
+          const int kk = ks * KS + k2 * 16;
+          tc::wgmma_m64k16<NW>(acc, tc::wgmma_desc_a(dw + (kk >> 6) * (RM * 64) + wgm * 4096 + (kk & 63)),
+                               tc::wgmma_desc_b(slab + k2 * 2 * 512, KG));
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait<1>();  // slab q-1 is read; slab q multiplies while q+1 is set up
+      }
+      tc::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int c = n0 + wg * NW + j * 8 + tc::frag_col(lane);
+        const float2 pb = *reinterpret_cast<const float2*>(par + c);
+        const float2 scale = *reinterpret_cast<const float2*>(par + C + c);
+        const float2 shift = *reinterpret_cast<const float2*>(par + 2 * C + c);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = wgm * 64 + w4 * 16 + half * 8 + tc::frag_row(lane);
+          const float v0 = (acc[j * 4 + half * 2] + pb.x) * scale.x + shift.x;
+          const float v1 = (acc[j * 4 + half * 2 + 1] + pb.y) * scale.y + shift.y;
+          *reinterpret_cast<__nv_bfloat162*>(in + r * LDA + c) =
+              __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        }
+      }
+    }
+    __syncthreads();  // the stage's output is complete before anyone reads it
+  }
+
+  store_output_tile<Cfg>(out + (long long)b * t_len * C, in, t0, tb, t_len, tid);
+}
+
+template <class Cfg>
+int launch_wg(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
+              const void* pw_b, const void* bn, void* out, int batch, int t_len, int n_stages,
+              int k, void* stream) {
+  const int pad = (k - 1) / 2;
+  const int tb = Cfg::RM - 2 * pad * (n_stages - 1);
+  const size_t smem = Cfg::smem_bytes(pad);
+  if (tb < 1 || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(megablock_wg_kernel<Cfg>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((t_len + tb - 1) / tb, batch);
+  megablock_wg_kernel<Cfg><<<grid, Cfg::NTHR, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const float*)dw_w, (const float*)dw_b,
+      (const __nv_bfloat16*)pw_w, (const float*)pw_b, (const float*)bn, (__nv_bfloat16*)out,
+      t_len, n_stages, k, tb);
+  return (int)cudaGetLastError();
+}
+
+// ops/kernels/megablock.py::TC_TILES names the same numbers. C = 256 and 512
+// (TitaNet S and M) run the wgmma kernel; C = 128 is too narrow for its two
+// column halves and C = 1024 (TitaNet L) too wide for 64 rows of two bf16
+// buffers in shared memory: they run the mma.sync kernel.
+//                  C,  RM,  NC, WM, WN, KS, NST, blocks an SM
+using Tc128 = TcCfg<128, 64, 128, 2, 2, 32, 3, 2>;
+using Tc1024 = TcCfg<1024, 32, 512, 2, 8, 16, 3, 1>;
+//                  C, RM/64, NC, KS, NST, blocks an SM
+using Wg256 = WgCfg<256, 2, 256, 32, 4, 1>;
+using Wg512 = WgCfg<512, 1, 512, 16, 4, 1>;
+
+int dispatch_tc(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
+                const void* pw_b, const void* bn, void* out, int batch, int t_len, int channels,
+                int n_stages, int k, void* stream) {
+  if (batch < 1 || batch > 65535 || t_len < 1 || n_stages < 1 || k < 1 || k % 2 == 0)
+    return (int)cudaErrorInvalidValue;
+  switch (channels) {
+    case 128:
+      return launch_tc<Tc128>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
+    case 256:
+      return launch_wg<Wg256>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
+    case 512:
+      return launch_wg<Wg512>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
+    case 1024:
+      return launch_tc<Tc1024>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+
 template <typename T>
 int dispatch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
              const void* pw_b, const void* bn, void* out, int batch, int t_len, int channels,
              int n_stages, int k, void* stream) {
   if (batch < 1 || batch > 65535 || t_len < 1 || n_stages < 1 || k < 1 || k % 2 == 0)
     return (int)cudaErrorInvalidValue;
-  switch (channels) {  // ops/kernels/megablock.py::TILE_ROWS
+  switch (channels) {  // ops/kernels/megablock.py::_F32_ROWS
     case 128:
       return launch<T, 128, 64>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
     case 256:
@@ -226,8 +682,8 @@ int titanet_megablock_f32(const void* x, const void* dw_w, const void* dw_b, con
 int titanet_megablock_bf16(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
                            const void* pw_b, const void* bn, void* out, int batch, int t_len,
                            int channels, int n_stages, int k, void* stream) {
-  return dispatch<__nv_bfloat16>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, channels,
-                                 n_stages, k, stream);
+  return dispatch_tc(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, channels, n_stages, k,
+                     stream);
 }
 
 const char* titanet_megablock_error_string(int code) {

@@ -10,6 +10,15 @@ computes a mega-block's chain
 on ``x [B, T, C]`` without writing an intermediate activation to device
 memory. Inference only: no gradient.
 
+Two designs share the source. bf16 keeps a time tile of the activations in
+shared memory as bf16, runs the depthwise pass on every thread and the
+pointwise products on the tensor cores (``wgmma`` at C = 256 and 512,
+``mma.sync`` from ``ldmatrix`` fragments at C = 128 and 1024;
+``csrc/mma_bf16.cuh``) while ``cp.async`` streams the weights through a
+ring of slabs; f32, the parity surface, runs on the FP32 cores.
+:data:`TC_TILES`, :func:`tile_rows`, :func:`smem_bytes` and
+:func:`kernel_supports` mirror the tile geometry of both.
+
 Edge rows. As in the kernel it replaces, only the INPUT is zero outside
 ``[0, T)``: every stage is also evaluated on the halo rows and is not
 re-zeroed there, so stage ``s+1`` at row 0 reads stage ``s`` at row ``-1``
@@ -33,9 +42,15 @@ import torch.nn.functional as F
 from titanet_torch.ops.kernels import _build
 
 MAX_SMEM = 232448
-# rows of the largest stage output a block computes, by channel count
-# (csrc/megablock.cu::dispatch); a tile is TILE_ROWS - 2*pad*(S-1) output rows
-TILE_ROWS = {128: 64, 256: 64, 512: 64, 1024: 32}
+# f32 (FP32-core kernel): rows of the largest stage output a block computes,
+# by channel count (csrc/megablock.cu::dispatch)
+_F32_ROWS = {128: 64, 256: 64, 512: 64, 1024: 32}
+# bf16 (tensor-core kernels), by channel count: (instruction, rows RM, output
+# columns a pass NC, rows a weight slab KS, ring stages NST)
+# (csrc/megablock.cu::Tc* and Wg*)
+TC_TILES = {128: ("mma.sync", 64, 128, 32, 3), 256: ("wgmma", 128, 256, 32, 4),
+            512: ("wgmma", 64, 512, 16, 4), 1024: ("mma.sync", 32, 512, 16, 3)}
+_SMEM_ROW_PAD = 8  # bf16 elements (csrc/mma_bf16.cuh::kPad)
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -44,23 +59,47 @@ def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
     return inv, bias - mean * inv
 
 
-def smem_bytes(channels: int, kernel_size: int) -> int:
+def tile_rows(channels: int, dtype) -> int:
+    """Rows RM of the largest stage output a block computes; a tile is
+    ``RM - 2*pad*(S-1)`` output rows."""
+    return TC_TILES[channels][1] if dtype == torch.bfloat16 else _F32_ROWS[channels]
+
+
+def kernel_design(dtype, channels: int) -> str:
+    """Which of the source's kernels a dtype and width run."""
+    if dtype != torch.bfloat16:
+        return "fp32-core"
+    return f"tensor-core, {TC_TILES[channels][0]}"
+
+
+def smem_bytes(channels: int, kernel_size: int, dtype) -> int:
     """Dynamic shared memory one block of the kernel needs."""
     pad = (kernel_size - 1) // 2
+    if dtype == torch.bfloat16:
+        # depthwise buffer (RM rows; padded for mma.sync, swizzled panels for
+        # wgmma) + input buffer (RM + 2*pad padded rows) + weight ring, bf16;
+        # a stage's pw_b, scale and shift, f32
+        insn, rm, nc, ks, nst = TC_TILES[channels]
+        padded = channels + _SMEM_ROW_PAD
+        if insn == "wgmma":
+            elems = rm * channels + (rm + 2 * pad) * padded + nst * ks * nc
+        else:
+            elems = (2 * rm + 2 * pad) * padded + nst * ks * (nc + _SMEM_ROW_PAD)
+        return elems * 2 + 3 * channels * 4
     slab = 4096 if channels <= 256 else 8192
-    return ((TILE_ROWS[channels] + 2 * pad) * channels + slab) * 4
+    return ((_F32_ROWS[channels] + 2 * pad) * channels + slab) * 4
 
 
 def kernel_supports(channels: int, kernel_size: int, n_stages: int, dtype) -> bool:
-    """What the CUDA kernel takes: f32 or bf16, C in 128/256/512/1024, odd
+    """What the CUDA kernels take: f32 or bf16, C in 128/256/512/1024, odd
     k, and a time tile of at least 8 rows that fits shared memory (TitaNet
     S, M and L do: (C, k) = (256, 3), (512, 7), (1024, 11), S = 3)."""
-    if dtype not in (torch.float32, torch.bfloat16) or channels not in TILE_ROWS:
+    if dtype not in (torch.float32, torch.bfloat16) or channels not in _F32_ROWS:
         return False
     if kernel_size < 1 or kernel_size % 2 == 0 or n_stages < 1:
         return False
-    tile = TILE_ROWS[channels] - (kernel_size - 1) * (n_stages - 1)
-    return tile >= 8 and smem_bytes(channels, kernel_size) <= MAX_SMEM
+    tile = tile_rows(channels, dtype) - (kernel_size - 1) * (n_stages - 1)
+    return tile >= 8 and smem_bytes(channels, kernel_size, dtype) <= MAX_SMEM
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,6 +10,14 @@ backward recomputes ``y``, ``u``, ``e`` and ``alpha`` from ``h`` and gives
 ``dh`` in h's dtype and the f32 gradients of ``a``, ``c``, ``Wa``, ``ba``,
 ``Wb`` and ``bb`` summed over the batch.
 
+Two designs share the source. In bf16 with ``H == 128`` (every TitaNet)
+all products run on the tensor cores (``mma.sync`` tiles from
+``csrc/mma_bf16.cuh``), and the backward keeps only ``u`` (f32 and bf16),
+``de`` and ``dz`` (bf16) in device memory: it recomputes the energies
+where it needs ``alpha`` (:func:`bwd_workspace_bytes`). f32, the parity
+surface, runs the FP32-core passes. Both reduce per-block partial sums in
+a fixed order, so repeated calls give the same bits.
+
 :func:`attentive_pool_fused` is the differentiable entry point (a
 ``torch.autograd.Function``). On a CPU tensor :func:`attentive_pool_fwd`
 and :func:`attentive_pool_bwd` run their plain versions; on a CUDA tensor
@@ -39,6 +47,26 @@ def kernel_supports(n_channels: int, hidden: int, t: int, dtype: torch.dtype) ->
         and 1 <= t <= 4096
         and dtype == torch.bfloat16
     )
+
+
+def bwd_workspace_bytes(b: int, t: int, c: int, hidden: int, elem_size: int) -> int:
+    """Scratch bytes of the backward: the mirror of
+    ``csrc/attn_pool.cu::BwdWorkspace`` (the wrapper asks the library; the
+    tests hold the two equal on the card). The bf16 tensor-core route
+    (``hidden == 128``) keeps u in f32 and bf16, ``de`` and ``dz`` in bf16
+    and per-block partial sums: no f32 ``[B*T, C]`` array."""
+    rows = b * t
+    sizes = [rows * hidden * 4, 4 * b * c * 4, rows * c * elem_size]  # u, stats, de
+    if elem_size == 2 and hidden == 128:
+        parts = b * -(-t // 64) * 4  # (utterance, 64-frame tile, warp row)
+        sizes += [rows * hidden * 2, rows * hidden * 2]  # bf16 u, bf16 dz
+        sizes += [parts * hidden * 4, parts * c * 4, parts * c * 4, parts * c * 4]  # dba, dbb, da, dc
+    else:
+        row_blocks = -(-rows // 64)
+        sizes += [rows * c * 4, rows * hidden * 4]  # f32 first term of dy, dz
+        sizes += [row_blocks * hidden * 4, b * c * 4, row_blocks * c * 4, row_blocks * c * 4]
+    sizes += [32 * hidden * c * 4] * 2  # split-K partials of dWb and dWa
+    return sum(-(-n // 256) * 256 for n in sizes)
 
 
 def smem_bytes(hidden: int) -> int:
