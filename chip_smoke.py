@@ -54,9 +54,8 @@ The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
 kernels, the pallas-route training step for the backward kernels, the
 fused serving call for the frames and mega-block kernels), error
-vs its plain version, time, plain time, bound and library time; the three
-kernels whose design was replaced carry the replaced design's time as
-``prev_ms``. The last line is ``{"ok": true, "device": {...}}``.
+vs its plain version, time, plain time, bound and library time, every number
+from this run. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -82,7 +81,8 @@ B, SECONDS, SR = 128, 3, 16000
 FUSED_VS_EMBED_STEP_F32 = 0.99999
 FUSED_VS_EMBED_STEP_BF16 = 0.9999
 # Times of the FP32-core designs that the bf16 tensor-core kernels replaced,
-# at the same shapes (NVIDIA H100 80GB HBM3, 700 W): the mega-block kernel at
+# at the same shapes (NVIDIA H100 80GB HBM3, 700 W), quoted in the phases'
+# lines beside this run's times and nowhere else: the mega-block kernel at
 # (C, k) = (256, 3), (512, 7), (1024, 11); the pool backward, fold on / off; the
 # pool forward, fold on.
 PREV_MS = {
@@ -676,9 +676,6 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         })
-        prev = PREV_MS.get((key[0], key[1] if key[0] == "megablock" else key[-1]))
-        if prev is not None:
-            kernels[-1]["prev_ms"] = prev
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {

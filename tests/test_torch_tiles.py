@@ -2,10 +2,17 @@
 card: the Python mirrors of the mega-block kernel's tiles (rows, halo,
 shared memory) and of the pool backward's workspace.
 
-The tiled chain below walks a time axis exactly as
-``csrc/megablock.cu`` does (tile of ``RM - 2*pad*(S-1)`` output rows, halo
-``S*pad``, zero only outside ``[0, T)``, guarded store), so the halo
-arithmetic of every tile size is held against the plain version here.
+These tests guard the mirrors' numbers and the halo arithmetic that follows
+from them; they run no line of ``csrc/megablock.cu`` or
+``csrc/attn_pool.cu``. The kernels themselves (swizzles, descriptors,
+fragment layouts) are held against their plain versions on the card, in
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``, and the workspace mirror
+against the library's own count there too.
+
+The tiled chain below walks a time axis as ``csrc/megablock.cu`` does, with
+every number taken from the mirror (tile of ``RM - 2*pad*(S-1)`` output
+rows, halo ``S*pad``, zero only outside ``[0, T)``, guarded store), so a
+mirror edit that breaks a tile's fit or its halo fails here.
 """
 
 import numpy as np
@@ -72,24 +79,32 @@ def _chain_args(t, c, k, s, seed):
     )
 
 
-def _chain_tile_by_tile(x, dw_w, dw_b, pw_w, pw_b, bn, k, rm):
-    """The kernel's walk over time: per tile, load ``tile + 2*halo`` rows
-    (zero outside [0, T)), run the S stages as valid convolutions on them
-    without re-zeroing anything, store the rows that lie in [0, T)."""
+def _chain_tile_by_tile(x, dw_w, dw_b, pw_w, pw_b, bn, k, geometry):
+    """The kernel's walk over time with the mirror's tile for ``geometry =
+    (channels, dtype)``: per tile, load ``tile + 2*halo`` rows (zero outside
+    [0, T)), run the S stages as valid convolutions on them without
+    re-zeroing anything, store the rows that lie in [0, T). The resident
+    rows must fit the shared memory the mirror counts for that geometry."""
+    channels, dtype = geometry
     s = dw_w.shape[0]
+    assert mk.kernel_supports(channels, k, s, dtype)
+    rm = mk.tile_rows(channels, dtype)
     pad = (k - 1) // 2
     halo = s * pad
     tile = rm - 2 * pad * (s - 1)
     b, t, c = x.shape
+    elem = torch.empty((), dtype=dtype).element_size()
+    resident = (tile + 2 * halo) * channels * elem
+    assert resident < mk.smem_bytes(channels, k, dtype) <= mk.MAX_SMEM
     out = torch.empty_like(x)
     for t0 in range(0, t, tile):
         rows = torch.arange(t0 - halo, t0 + tile + halo)
         inside = (rows >= 0) & (rows < t)
         buf = torch.zeros(b, tile + 2 * halo, c, dtype=x.dtype)
         buf[:, inside] = x[:, rows[inside]]
-        assert buf.shape[1] == rm + 2 * pad
         for i in range(s):
             n = buf.shape[1] - 2 * pad
+            assert n <= rm  # the largest stage output is RM rows
             acc = torch.zeros(b, n, c)
             for j in range(k):
                 acc = acc + buf[:, j : j + n] * dw_w[i, j]
@@ -101,30 +116,36 @@ def _chain_tile_by_tile(x, dw_w, dw_b, pw_w, pw_b, bn, k, rm):
     return out
 
 
-# every RM of the two mirrors (f32 and bf16, all channel counts)
-ALL_TILE_ROWS = sorted({mk.tile_rows(c, dt) for dt in DTYPES for c in mk.TC_TILES})
+# the mirror's geometries (f32 and bf16, all channel counts) by their RM
+GEOMETRIES = {}
+for _dt in DTYPES:
+    for _c in mk.TC_TILES:
+        GEOMETRIES.setdefault(mk.tile_rows(_c, _dt), []).append((_c, _dt))
 
 
 def test_tile_rows_cover_both_designs():
-    assert ALL_TILE_ROWS == [32, 64, 128]
+    assert sorted(GEOMETRIES) == [32, 64, 128]
+    assert sum(len(g) for g in GEOMETRIES.values()) == len(DTYPES) * len(mk.TC_TILES)
 
 
 @pytest.mark.parametrize("rm", [32, 64, 128])
 @pytest.mark.parametrize("k", [3, 7])
 @pytest.mark.parametrize("t_case", ["1", "tile-1", "tile", "tile+1", "301"])
 def test_tiled_chain_equals_plain(rm, k, t_case):
-    """The chain run tile by tile with each tile height the kernels use
-    equals the plain version in f32 at C = 128: every row, the edge rows
-    and the rows next to a tile boundary included."""
+    """The chain run tile by tile, with the mirror's tile of every geometry
+    whose height is ``rm``, equals the plain version in f32 at C = 128:
+    every row, the edge rows and the rows next to a tile boundary included."""
     c, s = 128, 3
     tile = rm - (k - 1) * (s - 1)
     t = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1, "301": 301}[t_case]
     args = _chain_args(t, c, k, s, seed=k * 1000 + t)
-    got = _chain_tile_by_tile(*args, k, rm)
     ref = mk.fused_sub_blocks_plain(*args, kernel_size=k)
-    # the same sums in the same order on the same rows; the matmul may block
-    # a [rows, C] product differently for different row counts
-    torch.testing.assert_close(got, ref, rtol=0, atol=2e-6 * ref.abs().max().item())
+    for geometry in GEOMETRIES[rm]:
+        assert mk.tile_rows(*geometry) == rm
+        got = _chain_tile_by_tile(*args, k, geometry)
+        # the same sums in the same order on the same rows; the matmul may block
+        # a [rows, C] product differently for different row counts
+        torch.testing.assert_close(got, ref, rtol=0, atol=2e-6 * ref.abs().max().item())
 
 
 def _bytes_per_btc_element(b, t, h, elem_size):
@@ -149,6 +170,10 @@ def test_pool_backward_bf16_workspace_has_no_f32_btc_array(b, t):
 
 
 def test_pool_backward_workspace_main_path_size():
-    """TitaNet-S training batch: 259.8 MB in bf16 against 574.9 MB in f32."""
-    assert pk.bwd_workspace_bytes(128, 301, 1536, 128, 2) == 259784704
-    assert pk.bwd_workspace_bytes(128, 301, 1536, 128, 4) == 574854144
+    """TitaNet-S training batch: the bf16 route's workspace is smaller than
+    the f32 route's by more than the f32 ``[B*T, C]`` array it no longer
+    stores: ``de`` in bf16 and less than two more arrays of its size."""
+    b, t, c, h = 128, 301, 1536, 128
+    bf16, f32 = pk.bwd_workspace_bytes(b, t, c, h, 2), pk.bwd_workspace_bytes(b, t, c, h, 4)
+    assert bf16 + b * t * c * 4 < f32
+    assert b * t * c * 2 < bf16 < 3 * b * t * c * 2

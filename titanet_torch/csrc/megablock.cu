@@ -8,9 +8,9 @@
 //
 // Replaces titanet_tpu/ops/pallas/megablock.py::fused_sub_blocks (kernel
 // body _kernel) and computes what that body computes: the depthwise sum in
-// f32, rounded to the activation type T before the product; the product
-// with f32 accumulation; bias, affine and relu in f32, rounded to T as the
-// next stage's input. Only the kernel's INPUT is zero outside [0, T): the
+// f32, rounded to the activation type before the product; the product
+// with f32 accumulation; bias, affine and relu in f32, rounded to that type
+// as the next stage's input. Only the kernel's INPUT is zero outside [0, T): the
 // stages are evaluated on the halo rows too and not re-zeroed there, so
 // the first and last (S-1)*pad output rows differ from a chain of
 // zero-padded convolutions, exactly as in the kernel this replaces.
@@ -29,10 +29,11 @@
 // the largest stage output is RM rows; the halo rows (S*pad a side) are
 // computed again by the neighbouring tile.
 //
-// bf16: the tensor-core design (megablock_wg_kernel at C = 256 and 512,
-// megablock_tc_kernel at C = 128 and 1024, further down). What bounds it: a
-// block's products are RM x C x C, and every block streams all S*C*C
-// weights from L2, so RM sets the operations per weight byte; between the
+// bf16: the tensor-core design (megablock_tc_kernel further down, with the
+// wgmma product at C = 256 and 512 and the mma.sync product at C = 128 and
+// 1024). What bounds it: a block's products are RM x C x C, and every block
+// streams all S*C*C weights from L2, so RM sets the operations per weight
+// byte; between the
 // products the CUDA-core passes (depthwise, epilogue) and the barriers of
 // the weight pipeline leave the tensor cores waiting. What the design does:
 //   - the tile is bf16 in two buffers: the depthwise pass writes the
@@ -77,21 +78,6 @@ constexpr int kMaxSmem = 232448;
 constexpr int kTM = 8;  // rows of a thread's block of the product
 constexpr int kTN = 8;  // columns of it, strided by C/8 across the row
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_as(float v) { return to_f(from_f<T>(v)); }
-
 template <int C>
 __host__ __device__ constexpr int slab_rows() { return (C <= 256 ? 4096 : 8192) / C; }
 
@@ -100,15 +86,15 @@ size_t smem_bytes(int pad) {
   return ((size_t)(RM + 2 * pad) * C + (size_t)slab_rows<C>() * C) * sizeof(float);
 }
 
-template <typename T, int C, int RM>
+template <int C, int RM>
 __global__ void __launch_bounds__((RM / kTM) * (C / kTN), (C <= 256 ? 2 : 1)) megablock_kernel(
-    const T* __restrict__ x,         // [B, T, C]
+    const float* __restrict__ x,     // [B, T, C]
     const float* __restrict__ dw_w,  // [S, k, C]
     const float* __restrict__ dw_b,  // [S, C]
-    const T* __restrict__ pw_w,      // [S, C, C] (in, out)
+    const float* __restrict__ pw_w,  // [S, C, C] (in, out)
     const float* __restrict__ pw_b,  // [S, C]
     const float* __restrict__ bn,    // [S, 2, C] folded (scale, shift)
-    T* __restrict__ out,             // [B, T, C]
+    float* __restrict__ out,         // [B, T, C]
     int t_len, int n_stages, int k, int tb) {
   constexpr int NTX = C / kTN;
   constexpr int NT = (RM / kTM) * NTX;
@@ -124,12 +110,12 @@ __global__ void __launch_bounds__((RM / kTM) * (C / kTN), (C <= 256 ? 2 : 1)) me
   const int ty = tid / NTX;
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * tb;
-  const T* xb = x + (long long)b * t_len * C;
+  const float* xb = x + (long long)b * t_len * C;
 
   int rows = tb + 2 * halo;
   for (int i = tid; i < rows * C; i += NT) {
     const int t = t0 - halo + i / C;
-    buf[i] = (t >= 0 && t < t_len) ? to_f(xb[(long long)t * C + (i % C)]) : 0.f;
+    buf[i] = (t >= 0 && t < t_len) ? xb[(long long)t * C + (i % C)] : 0.f;
   }
   __syncthreads();
 
@@ -141,7 +127,7 @@ __global__ void __launch_bounds__((RM / kTM) * (C / kTN), (C <= 256 ? 2 : 1)) me
       for (int r = 0; r < rows; ++r) {
         float acc = 0.f;
         for (int j = 0; j < k; ++j) acc = fmaf(buf[(r + j) * C + c], w[j * C], acc);
-        buf[r * C + c] = round_as<T>(acc + bias);
+        buf[r * C + c] = acc + bias;
       }
     }
 
@@ -150,11 +136,11 @@ __global__ void __launch_bounds__((RM / kTM) * (C / kTN), (C <= 256 ? 2 : 1)) me
     for (int i = 0; i < kTM; ++i)
 #pragma unroll
       for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-    const T* wmat = pw_w + (long long)s * C * C;
+    const float* wmat = pw_w + (long long)s * C * C;
     const float* arow = buf + ty * kTM * C;
     for (int k0 = 0; k0 < C; k0 += KS) {
       __syncthreads();  // the depthwise rows are written; the last slab is consumed
-      for (int i = tid; i < KS * C; i += NT) slab[i] = to_f(wmat[(long long)k0 * C + i]);
+      for (int i = tid; i < KS * C; i += NT) slab[i] = wmat[(long long)k0 * C + i];
       __syncthreads();
 #pragma unroll 2
       for (int kk = 0; kk < KS; kk += 4) {
@@ -188,7 +174,7 @@ __global__ void __launch_bounds__((RM / kTM) * (C / kTN), (C <= 256 ? 2 : 1)) me
         const int r = ty * kTM + i;
         if (r < rows) {
           const float v = (acc[i][j] + pb) * scale + shift;
-          buf[r * C + c] = round_as<T>(fmaxf(v, 0.f));
+          buf[r * C + c] = fmaxf(v, 0.f);
         }
       }
     }
@@ -196,14 +182,14 @@ __global__ void __launch_bounds__((RM / kTM) * (C / kTN), (C <= 256 ? 2 : 1)) me
   }
 
   // rows == tb: row r is time t0 + r
-  T* ob = out + (long long)b * t_len * C;
+  float* ob = out + (long long)b * t_len * C;
   for (int i = tid; i < tb * C; i += NT) {
     const int t = t0 + i / C;
-    if (t < t_len) ob[(long long)t * C + (i % C)] = from_f<T>(buf[i]);
+    if (t < t_len) ob[(long long)t * C + (i % C)] = buf[i];
   }
 }
 
-template <typename T, int C, int RM>
+template <int C, int RM>
 int launch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
            const void* pw_b, const void* bn, void* out, int batch, int t_len, int n_stages,
            int k, void* stream) {
@@ -211,29 +197,43 @@ int launch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
   const int tb = RM - 2 * pad * (n_stages - 1);
   const size_t smem = smem_bytes<C, RM>(pad);
   if (tb < 1 || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(megablock_kernel<T, C, RM>,
+  cudaError_t err = cudaFuncSetAttribute(megablock_kernel<C, RM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t_len + tb - 1) / tb, batch);
-  megablock_kernel<T, C, RM><<<grid, (RM / kTM) * (C / kTN), smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)dw_w, (const float*)dw_b, (const T*)pw_w, (const float*)pw_b,
-      (const float*)bn, (T*)out, t_len, n_stages, k, tb);
+  megablock_kernel<C, RM><<<grid, (RM / kTM) * (C / kTN), smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)dw_w, (const float*)dw_b, (const float*)pw_w,
+      (const float*)pw_b, (const float*)bn, (float*)out, t_len, n_stages, k, tb);
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------- bf16: tensor-core design
 //
-// Activations live in shared memory as bf16, rows padded for ldmatrix
-// (mma_bf16.cuh). Two buffers: `in` holds a stage's input (RM + 2*pad
-// rows), `dw` the depthwise output (at most RM rows), which is the product's
-// A operand; the epilogue writes the stage's output back into `in`. The
-// product reads one buffer and writes the other, so no warp waits for the
-// others between its K loop and its epilogue, and the output columns can be
-// computed in chunks of NC with RM x NC f32 accumulators in registers.
-// pw_w[s] streams from L2 in slabs of KS rows x NC columns through a ring
-// of NST shared-memory stages filled by cp.async; the ring runs across
-// column chunks and stages, so the next stage's first slabs land during the
-// epilogue and the depthwise pass.
+// Activations live in shared memory as bf16. Two buffers: `in` holds a
+// stage's input (RM + 2*pad rows, padded for 16-byte row offsets), `dw` the
+// depthwise output (at most RM rows), which is the product's A operand; the
+// epilogue writes the stage's output back into `in`. The product reads one
+// buffer and writes the other, so no warp waits for the others between its K
+// loop and its epilogue, and the output columns can be computed in chunks of
+// NC with the f32 accumulators in registers. pw_w[s] streams from L2 in
+// slabs of KS rows x NC columns through a ring of NST shared-memory stages
+// filled by cp.async; the ring runs across column chunks and stages, so the
+// next stage's first slabs land during the epilogue and the depthwise pass.
+//
+// One kernel, megablock_tc_kernel<Cfg>, holds the ring, the barriers, the
+// depthwise pass and the epilogue. Cfg names the tile and brings the
+// product: the layouts of `dw` and of a weight slab (dw_offset, slab_offset),
+// how many slabs are in flight beyond the one being multiplied (AHEAD), and
+// Cfg::Product, a thread's accumulators with
+//   zero()                      before a column chunk;
+//   publish()                   before the slab's barrier;
+//   multiply(dw, slab, ks, rows)  acc += dw[:, ks*KS ..] @ slab;
+//   finish()                    after the chunk's last slab;
+//   row(i), col(j), value(i, j) the accumulator pair at (row(i), col(j) + {0, 1})
+//                               of the RM x NC chunk, i < ROWS, j < COLS.
+
+// mma.sync.m16n8k16 from ldmatrix fragments: WM x WN warps, each a WTM x WTN
+// part of the chunk. `dw` and the slabs have padded rows (mma_bf16.cuh).
 template <int C_, int RM_, int NC_, int WM_, int WN_, int KS_, int NST_, int MINB_>
 struct TcCfg {
   static constexpr int C = C_, RM = RM_, NC = NC_, WM = WM_, WN = WN_, KS = KS_, NST = NST_;
@@ -244,40 +244,112 @@ struct TcCfg {
   static constexpr int LDA = C + tc::kPad;   // activation row stride
   static constexpr int LDW = NC + tc::kPad;  // weight slab row stride
   static constexpr int SLAB = KS * LDW;      // elements of a ring stage
+  static constexpr int DW_ELEMS = RM * LDA;
+  static constexpr int AHEAD = NST - 1;  // a slab is consumed when its call returns
   static_assert(WTM % 16 == 0 && WTN % 16 == 0 && C % NC == 0 && C % KS == 0 && KS % 16 == 0 &&
                     NST >= 2, "tile geometry");
-  static size_t smem_bytes(int pad) {
-    return ((size_t)(2 * RM + 2 * pad) * LDA + (size_t)NST * SLAB) * sizeof(__nv_bfloat16) +
-           3 * C * sizeof(float);
-  }
-  // element (r, c) of the depthwise buffer: padded rows for ldmatrix
   static __device__ __forceinline__ int dw_offset(int r, int c) { return r * LDA + c; }
+  static __device__ __forceinline__ int slab_offset(int r, int c) { return r * LDW + c; }
+
+  struct Product {
+    static constexpr int ROWS = 2 * MT, COLS = NT;
+    float acc[MT][NT][4];
+    const int lane, wm, wn;
+    __device__ __forceinline__ Product(int warp, int lane_)
+        : lane(lane_), wm(warp / WN), wn(warp % WN) {}
+    __device__ __forceinline__ void zero() { tc::zero_acc(acc); }
+    static __device__ __forceinline__ void publish() {}
+    __device__ __forceinline__ void multiply(const __nv_bfloat16* dw, const __nv_bfloat16* slab,
+                                             int ks, int rows) {
+      tc::warp_mma<MT, NT, KS, false, true>(acc, dw + wm * WTM * LDA + ks * KS, LDA,
+                                            slab + wn * WTN, LDW, lane, rows - wm * WTM);
+    }
+    static __device__ __forceinline__ void finish() {}
+    // rows >= `rows` (skipped m tiles hold zeros) are in the range too: no
+    // row that is stored reads them
+    __device__ __forceinline__ int row(int i) const {
+      return wm * WTM + (i >> 1) * 16 + (i & 1) * 8 + tc::frag_row(lane);
+    }
+    __device__ __forceinline__ int col(int j) const {
+      return wn * WTN + j * 8 + tc::frag_col(lane);
+    }
+    __device__ __forceinline__ float2 value(int i, int j) const {
+      return make_float2(acc[i >> 1][j][(i & 1) * 2], acc[i >> 1][j][(i & 1) * 2 + 1]);
+    }
+  };
 };
 
-// The same chain with the products on wgmma: one block is WGM x 2
-// warpgroups over RM = 64 * WGM rows, each computing a 64 x NC/2 part of a column chunk with
-// m64nNk16 instructions that read both operands from shared memory. The
-// depthwise buffer is in wgmma's K-major swizzled layout, the weight slabs
-// in its MN-major one (mma_bf16.cuh); the input buffer keeps padded rows.
+// wgmma.m64nNk16: WGM x 2 warpgroups over RM = 64 * WGM rows, each a 64 x NC/2
+// part of the chunk, both operands read from shared memory through
+// descriptors. `dw` is in wgmma's K-major 128-byte-swizzled layout, the
+// weight slabs in its MN-major one (mma_bf16.cuh). One group of products
+// stays in flight while the next slab is awaited, so a slab is consumed one
+// call later than it is multiplied.
 template <int C_, int WGM_, int NC_, int KS_, int NST_, int MINB_>
 struct WgCfg {
   static constexpr int C = C_, WGM = WGM_, RM = 64 * WGM, NC = NC_, KS = KS_, NST = NST_;
   static constexpr int MINB = MINB_;
   static constexpr int NTHR = 256 * WGM;  // WGM x 2 warpgroups
-  static constexpr int NW = NC / 2;  // columns of a warpgroup
+  static constexpr int NW = NC / 2;       // columns of a warpgroup
   static constexpr int LDA = C + tc::kPad;
   static constexpr int SLAB = KS * NC;  // elements of a ring stage
   static constexpr int KG = KS / 8;     // 8-row groups of a slab
+  static constexpr int DW_ELEMS = RM * C;  // C/64 panels of [RM][64]
+  static constexpr int AHEAD = NST - 2;
   static_assert((NW == 128 || NW == 256) && C % NC == 0 && C % KS == 0 && KS % 16 == 0 &&
                     C % 64 == 0 && NST >= 3, "tile geometry");
-  static size_t smem_bytes(int pad) {
-    return ((size_t)RM * C + (size_t)NST * SLAB + (size_t)(RM + 2 * pad) * LDA) *
-               sizeof(__nv_bfloat16) + 3 * C * sizeof(float);
-  }
   static __device__ __forceinline__ int dw_offset(int r, int c) {
     return tc::sw128_a_offset<RM>(r, c);
   }
+  static __device__ __forceinline__ int slab_offset(int r, int c) {
+    return tc::sw128_b_offset(r, c, KG);
+  }
+
+  struct Product {
+    static constexpr int ROWS = 2, COLS = NW / 8;
+    float acc[NW / 2];
+    const int lane, wg, wgm, w4;  // warpgroup: column half, 64-row part; its warp (16 rows)
+    __device__ __forceinline__ Product(int warp, int lane_)
+        : lane(lane_), wg((warp >> 2) & 1), wgm(warp >> 3), w4(warp & 3) {}
+    __device__ __forceinline__ void zero() {
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+    }
+    // this thread's dw rows and weight copies, for wgmma's reads
+    static __device__ __forceinline__ void publish() { tc::fence_proxy_async(); }
+    __device__ __forceinline__ void multiply(const __nv_bfloat16* dw, const __nv_bfloat16* slab,
+                                             int ks, int rows) {
+      const __nv_bfloat16* part = slab + wg * (NW / 64) * KG * 512;
+      tc::wgmma_fence();
+#pragma unroll
+      for (int k2 = 0; k2 < KS / 16; ++k2) {
+        const int kk = ks * KS + k2 * 16;
+        tc::wgmma_m64k16<NW>(
+            acc, tc::wgmma_desc_a(dw + (kk >> 6) * (RM * 64) + wgm * 4096 + (kk & 63)),
+            tc::wgmma_desc_b(part + k2 * 2 * 512, KG));
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();  // the slab before is read; this one multiplies on
+    }
+    static __device__ __forceinline__ void finish() { tc::wgmma_wait<0>(); }
+    __device__ __forceinline__ int row(int i) const {
+      return wgm * 64 + w4 * 16 + i * 8 + tc::frag_row(lane);
+    }
+    __device__ __forceinline__ int col(int j) const {
+      return wg * NW + j * 8 + tc::frag_col(lane);
+    }
+    __device__ __forceinline__ float2 value(int i, int j) const {
+      return make_float2(acc[j * 4 + i * 2], acc[j * 4 + i * 2 + 1]);
+    }
+  };
 };
+
+template <class Cfg>
+size_t tc_smem_bytes(int pad) {
+  return ((size_t)Cfg::DW_ELEMS + (size_t)Cfg::NST * Cfg::SLAB +
+          (size_t)(Cfg::RM + 2 * pad) * Cfg::LDA) * sizeof(__nv_bfloat16) +
+         3 * Cfg::C * sizeof(float);
+}
 
 // Depthwise stage in -> dw for `rows` output rows: a thread owns a channel
 // pair over 8 rows; output row r reads input rows r..r+k-1. The last group
@@ -389,27 +461,25 @@ __global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_tc_kernel(
     const float* __restrict__ bn,            // [S, 2, C] folded (scale, shift)
     __nv_bfloat16* __restrict__ out,         // [B, T, C]
     int t_len, int n_stages, int k, int tb) {
-  constexpr int C = Cfg::C, RM = Cfg::RM, NC = Cfg::NC, KS = Cfg::KS, NST = Cfg::NST;
-  constexpr int NTHR = Cfg::NTHR, LDA = Cfg::LDA, LDW = Cfg::LDW;
-  constexpr int MT = Cfg::MT, NT = Cfg::NT;
-  constexpr int SLABS = C / KS;        // slabs of one column chunk
+  constexpr int C = Cfg::C, NC = Cfg::NC, KS = Cfg::KS, NST = Cfg::NST, AHEAD = Cfg::AHEAD;
+  constexpr int NTHR = Cfg::NTHR, LDA = Cfg::LDA;
+  constexpr int SLABS = C / KS;  // slabs of one column chunk
   constexpr int PER_STAGE = (C / NC) * SLABS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [RM][LDA]
-  __nv_bfloat16* ring = dw + RM * LDA;                             // [NST][KS][LDW]
+  using Product = typename Cfg::Product;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];  // wgmma tiles: 1 KB aligned
+  __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Cfg::dw_offset
+  __nv_bfloat16* ring = dw + Cfg::DW_ELEMS;                        // [NST] slabs, Cfg::slab_offset
   float* par = reinterpret_cast<float*>(ring + NST * Cfg::SLAB);   // [3][C]: pw_b, scale, shift
   __nv_bfloat16* in = reinterpret_cast<__nv_bfloat16*>(par + 3 * C);  // [RM + 2*pad][LDA]
 
   const int pad = (k - 1) / 2;
   const int halo = n_stages * pad;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp / Cfg::WN, wn = warp % Cfg::WN;
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * tb;
   const __nv_bfloat16* xb = x + (long long)b * t_len * C;
   const int n_slabs = n_stages * PER_STAGE;
+  Product prod(tid >> 5, tid & 31);
 
   auto prefetch = [&](int q) {  // slab q of the whole chain -> ring[q % NST]
     if (q < n_slabs) {
@@ -419,7 +489,7 @@ __global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_tc_kernel(
       __nv_bfloat16* dst = ring + (q % NST) * Cfg::SLAB;
       for (int i = tid; i < KS * (NC / 8); i += NTHR) {
         const int r = i / (NC / 8), v = i % (NC / 8);
-        tc::cp_async16(dst + r * LDW + v * 8, src + (long long)r * C + v * 8);
+        tc::cp_async16(dst + Cfg::slab_offset(r, v * 8), src + (long long)r * C + v * 8);
       }
     }
     tc::cp_async_commit();
@@ -427,8 +497,8 @@ __global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_tc_kernel(
 
   int rows = tb + 2 * halo;  // == RM + 2*pad; row r is time t0 - halo + r
   load_input_tile<Cfg>(in, xb, t0 - halo, rows, t_len, tid);
-  for (int q = 0; q < NST - 1; ++q) prefetch(q);
-  tc::cp_async_wait<NST - 1>();  // the input tile has landed
+  for (int q = 0; q < AHEAD; ++q) prefetch(q);
+  tc::cp_async_wait<AHEAD>();  // the input tile has landed
   __syncthreads();
 
   int q = 0;
@@ -441,34 +511,28 @@ __global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_tc_kernel(
 
     // pointwise dw @ pw_w[s] -> in, NC output columns at a time
     for (int n0 = 0; n0 < C; n0 += NC) {
-      float acc[MT][NT][4];
-      tc::zero_acc(acc);
+      prod.zero();
       for (int ks = 0; ks < SLABS; ++ks, ++q) {
-        tc::cp_async_wait<NST - 2>();  // slab q has landed (this thread's copies)
-        __syncthreads();               // everyone's; slab q-1 is consumed; dw is written
-        prefetch(q + NST - 1);
-        tc::warp_mma<MT, NT, KS, false, true>(
-            acc, dw + wm * Cfg::WTM * LDA + ks * KS, LDA,
-            ring + (q % NST) * Cfg::SLAB + wn * Cfg::WTN, LDW, lane, rows - wm * Cfg::WTM);
+        tc::cp_async_wait<AHEAD - 1>();  // slab q has landed (this thread's copies)
+        Product::publish();
+        __syncthreads();  // everyone's; dw is written; the ring stage of slab q + AHEAD is consumed
+        prefetch(q + AHEAD);
+        prod.multiply(dw, ring + (q % NST) * Cfg::SLAB, ks, rows);
       }
+      Product::finish();
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c = n0 + wn * Cfg::WTN + j * 8 + tc::frag_col(lane);
+      for (int j = 0; j < Product::COLS; ++j) {
+        const int c = n0 + prod.col(j);
         const float2 pb = *reinterpret_cast<const float2*>(par + c);
         const float2 scale = *reinterpret_cast<const float2*>(par + C + c);
         const float2 shift = *reinterpret_cast<const float2*>(par + 2 * C + c);
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            // rows >= `rows` (skipped m tiles hold zeros) are written too: no
-            // row that is stored reads them
-            const int r = wm * Cfg::WTM + i * 16 + half * 8 + tc::frag_row(lane);
-            const float v0 = (acc[i][j][half * 2] + pb.x) * scale.x + shift.x;
-            const float v1 = (acc[i][j][half * 2 + 1] + pb.y) * scale.y + shift.y;
-            *reinterpret_cast<__nv_bfloat162*>(in + r * LDA + c) =
-                __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-          }
+        for (int i = 0; i < Product::ROWS; ++i) {
+          const float2 v = prod.value(i, j);
+          const float v0 = (v.x + pb.x) * scale.x + shift.x;
+          const float v1 = (v.y + pb.y) * scale.y + shift.y;
+          *reinterpret_cast<__nv_bfloat162*>(in + prod.row(i) * LDA + c) =
+              __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
         }
       }
     }
@@ -485,7 +549,7 @@ int launch_tc(const void* x, const void* dw_w, const void* dw_b, const void* pw_
               int k, void* stream) {
   const int pad = (k - 1) / 2;
   const int tb = Cfg::RM - 2 * pad * (n_stages - 1);
-  const size_t smem = Cfg::smem_bytes(pad);
+  const size_t smem = tc_smem_bytes<Cfg>(pad);
   if (tb < 1 || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(megablock_tc_kernel<Cfg>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -498,129 +562,10 @@ int launch_tc(const void* x, const void* dw_w, const void* dw_b, const void* pw_
   return (int)cudaGetLastError();
 }
 
-template <class Cfg>
-__global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_wg_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dw_w,
-    const float* __restrict__ dw_b, const __nv_bfloat16* __restrict__ pw_w,
-    const float* __restrict__ pw_b, const float* __restrict__ bn, __nv_bfloat16* __restrict__ out,
-    int t_len, int n_stages, int k, int tb) {
-  constexpr int C = Cfg::C, RM = Cfg::RM, NC = Cfg::NC, KS = Cfg::KS, NST = Cfg::NST;
-  constexpr int NTHR = Cfg::NTHR, LDA = Cfg::LDA, NW = Cfg::NW, KG = Cfg::KG;
-  constexpr int SLABS = C / KS;
-  constexpr int PER_STAGE = (C / NC) * SLABS;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // C/64 panels of [RM][64]
-  __nv_bfloat16* ring = dw + RM * C;                               // [NST] slabs of 1 KB atoms
-  float* par = reinterpret_cast<float*>(ring + NST * Cfg::SLAB);   // [3][C]: pw_b, scale, shift
-  __nv_bfloat16* in = reinterpret_cast<__nv_bfloat16*>(par + 3 * C);  // [RM + 2*pad][LDA]
-
-  const int pad = (k - 1) / 2;
-  const int halo = n_stages * pad;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wg = (warp >> 2) & 1, wgm = warp >> 3;  // warpgroup: column half, 64-row part
-  const int w4 = warp & 3;                          // its warp (16 rows)
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * tb;
-  const __nv_bfloat16* xb = x + (long long)b * t_len * C;
-  const int n_slabs = n_stages * PER_STAGE;
-
-  auto prefetch = [&](int q) {  // slab q of the whole chain -> ring[q % NST]
-    if (q < n_slabs) {
-      const int s = q / PER_STAGE, rem = q % PER_STAGE;
-      const __nv_bfloat16* src =
-          pw_w + ((long long)s * C + (rem % SLABS) * KS) * C + (rem / SLABS) * NC;
-      __nv_bfloat16* dst = ring + (q % NST) * Cfg::SLAB;
-      for (int i = tid; i < KS * (NC / 8); i += NTHR) {
-        const int r = i / (NC / 8), v = i % (NC / 8);
-        tc::cp_async16(dst + tc::sw128_b_offset(r, v * 8, KG), src + (long long)r * C + v * 8);
-      }
-    }
-    tc::cp_async_commit();
-  };
-
-  int rows = tb + 2 * halo;  // == RM + 2*pad; row r is time t0 - halo + r
-  load_input_tile<Cfg>(in, xb, t0 - halo, rows, t_len, tid);
-  constexpr int AHEAD = NST - 2;  // slabs in flight beyond the one being multiplied
-  for (int q = 0; q < AHEAD; ++q) prefetch(q);
-  tc::cp_async_wait<AHEAD>();  // the input tile has landed
-  __syncthreads();
-
-  int q = 0;
-  for (int s = 0; s < n_stages; ++s) {
-    rows -= 2 * pad;
-    // this stage's epilogue vectors (read after the K loop's barriers)
-    for (int i = tid; i < 3 * C; i += NTHR)
-      par[i] = i < C ? pw_b[s * C + i] : bn[(s * 2) * C + i - C];
-    depthwise_stage<Cfg>(in, dw, dw_w + (long long)s * k * C, dw_b + s * C, rows, k, tid);
-
-    for (int n0 = 0; n0 < C; n0 += NC) {
-      float acc[NW / 2];
-#pragma unroll
-      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
-      for (int ks = 0; ks < SLABS; ++ks, ++q) {
-        tc::cp_async_wait<AHEAD - 1>();  // slab q has landed (this thread's copies)
-        tc::fence_proxy_async();         // this thread's dw rows and copies, for wgmma's reads
-        __syncthreads();                 // everyone's; the products of slab q-2 are done
-        prefetch(q + AHEAD);                // into the stage slab q-2 was read from
-        const __nv_bfloat16* slab = ring + (q % NST) * Cfg::SLAB + wg * (NW / 64) * KG * 512;
-        tc::wgmma_fence();
-#pragma unroll
-        for (int k2 = 0; k2 < KS / 16; ++k2) {
-          const int kk = ks * KS + k2 * 16;
-          tc::wgmma_m64k16<NW>(acc, tc::wgmma_desc_a(dw + (kk >> 6) * (RM * 64) + wgm * 4096 + (kk & 63)),
-                               tc::wgmma_desc_b(slab + k2 * 2 * 512, KG));
-        }
-        tc::wgmma_commit();
-        tc::wgmma_wait<1>();  // slab q-1 is read; slab q multiplies while q+1 is set up
-      }
-      tc::wgmma_wait<0>();
-#pragma unroll
-      for (int j = 0; j < NW / 8; ++j) {
-        const int c = n0 + wg * NW + j * 8 + tc::frag_col(lane);
-        const float2 pb = *reinterpret_cast<const float2*>(par + c);
-        const float2 scale = *reinterpret_cast<const float2*>(par + C + c);
-        const float2 shift = *reinterpret_cast<const float2*>(par + 2 * C + c);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = wgm * 64 + w4 * 16 + half * 8 + tc::frag_row(lane);
-          const float v0 = (acc[j * 4 + half * 2] + pb.x) * scale.x + shift.x;
-          const float v1 = (acc[j * 4 + half * 2 + 1] + pb.y) * scale.y + shift.y;
-          *reinterpret_cast<__nv_bfloat162*>(in + r * LDA + c) =
-              __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-        }
-      }
-    }
-    __syncthreads();  // the stage's output is complete before anyone reads it
-  }
-
-  store_output_tile<Cfg>(out + (long long)b * t_len * C, in, t0, tb, t_len, tid);
-}
-
-template <class Cfg>
-int launch_wg(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
-              const void* pw_b, const void* bn, void* out, int batch, int t_len, int n_stages,
-              int k, void* stream) {
-  const int pad = (k - 1) / 2;
-  const int tb = Cfg::RM - 2 * pad * (n_stages - 1);
-  const size_t smem = Cfg::smem_bytes(pad);
-  if (tb < 1 || smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(megablock_wg_kernel<Cfg>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((t_len + tb - 1) / tb, batch);
-  megablock_wg_kernel<Cfg><<<grid, Cfg::NTHR, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const float*)dw_w, (const float*)dw_b,
-      (const __nv_bfloat16*)pw_w, (const float*)pw_b, (const float*)bn, (__nv_bfloat16*)out,
-      t_len, n_stages, k, tb);
-  return (int)cudaGetLastError();
-}
-
 // ops/kernels/megablock.py::TC_TILES names the same numbers. C = 256 and 512
-// (TitaNet S and M) run the wgmma kernel; C = 128 is too narrow for its two
+// (TitaNet S and M) run the wgmma product; C = 128 is too narrow for its two
 // column halves and C = 1024 (TitaNet L) too wide for 64 rows of two bf16
-// buffers in shared memory: they run the mma.sync kernel.
+// buffers in shared memory: they run the mma.sync product.
 //                  C,  RM,  NC, WM, WN, KS, NST, blocks an SM
 using Tc128 = TcCfg<128, 64, 128, 2, 2, 32, 3, 2>;
 using Tc1024 = TcCfg<1024, 32, 512, 2, 8, 16, 3, 1>;
@@ -628,62 +573,41 @@ using Tc1024 = TcCfg<1024, 32, 512, 2, 8, 16, 3, 1>;
 using Wg256 = WgCfg<256, 2, 256, 32, 4, 1>;
 using Wg512 = WgCfg<512, 1, 512, 16, 4, 1>;
 
-int dispatch_tc(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
-                const void* pw_b, const void* bn, void* out, int batch, int t_len, int channels,
-                int n_stages, int k, void* stream) {
-  if (batch < 1 || batch > 65535 || t_len < 1 || n_stages < 1 || k < 1 || k % 2 == 0)
-    return (int)cudaErrorInvalidValue;
-  switch (channels) {
-    case 128:
-      return launch_tc<Tc128>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
-    case 256:
-      return launch_wg<Wg256>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
-    case 512:
-      return launch_wg<Wg512>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
-    case 1024:
-      return launch_tc<Tc1024>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-
-template <typename T>
-int dispatch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
-             const void* pw_b, const void* bn, void* out, int batch, int t_len, int channels,
-             int n_stages, int k, void* stream) {
-  if (batch < 1 || batch > 65535 || t_len < 1 || n_stages < 1 || k < 1 || k % 2 == 0)
-    return (int)cudaErrorInvalidValue;
-  switch (channels) {  // ops/kernels/megablock.py::_F32_ROWS
-    case 128:
-      return launch<T, 128, 64>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
-    case 256:
-      return launch<T, 256, 64>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
-    case 512:
-      return launch<T, 512, 64>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
-    case 1024:
-      return launch<T, 1024, 32>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+bool bad_shape(int batch, int t_len, int n_stages, int k) {
+  return batch < 1 || batch > 65535 || t_len < 1 || n_stages < 1 || k < 1 || k % 2 == 0;
 }
 
 }  // namespace
+
+// the arguments every launch passes on
+#define CHAIN_ARGS x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, n_stages, k, stream
 
 extern "C" {
 
 int titanet_megablock_f32(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
                           const void* pw_b, const void* bn, void* out, int batch, int t_len,
                           int channels, int n_stages, int k, void* stream) {
-  return dispatch<float>(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, channels, n_stages,
-                         k, stream);
+  if (bad_shape(batch, t_len, n_stages, k)) return (int)cudaErrorInvalidValue;
+  switch (channels) {  // ops/kernels/megablock.py::_F32_ROWS
+    case 128: return launch<128, 64>(CHAIN_ARGS);
+    case 256: return launch<256, 64>(CHAIN_ARGS);
+    case 512: return launch<512, 64>(CHAIN_ARGS);
+    case 1024: return launch<1024, 32>(CHAIN_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int titanet_megablock_bf16(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
                            const void* pw_b, const void* bn, void* out, int batch, int t_len,
                            int channels, int n_stages, int k, void* stream) {
-  return dispatch_tc(x, dw_w, dw_b, pw_w, pw_b, bn, out, batch, t_len, channels, n_stages, k,
-                     stream);
+  if (bad_shape(batch, t_len, n_stages, k)) return (int)cudaErrorInvalidValue;
+  switch (channels) {
+    case 128: return launch_tc<Tc128>(CHAIN_ARGS);
+    case 256: return launch_tc<Wg256>(CHAIN_ARGS);
+    case 512: return launch_tc<Wg512>(CHAIN_ARGS);
+    case 1024: return launch_tc<Tc1024>(CHAIN_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* titanet_megablock_error_string(int code) {
@@ -691,3 +615,5 @@ const char* titanet_megablock_error_string(int code) {
 }
 
 }  // extern "C"
+
+#undef CHAIN_ARGS

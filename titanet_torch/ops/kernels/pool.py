@@ -50,9 +50,11 @@ def kernel_supports(n_channels: int, hidden: int, t: int, dtype: torch.dtype) ->
 
 
 def bwd_workspace_bytes(b: int, t: int, c: int, hidden: int, elem_size: int) -> int:
-    """Scratch bytes of the backward: the mirror of
-    ``csrc/attn_pool.cu::BwdWorkspace`` (the wrapper asks the library; the
-    tests hold the two equal on the card). The bf16 tensor-core route
+    """Scratch bytes of the backward: a mirror of
+    ``csrc/attn_pool.cu::BwdWorkspace`` for the tests and ``chip_smoke.py``
+    only. No path of the port calls it: :func:`attentive_pool_bwd` asks the
+    library (``titanet_attn_pool_bwd_workspace_bytes``), and the card tests
+    hold the two equal. The bf16 tensor-core route
     (``hidden == 128``) keeps u in f32 and bf16, ``de`` and ``dz`` in bf16
     and per-block partial sums: no f32 ``[B*T, C]`` array."""
     rows = b * t
