@@ -38,7 +38,7 @@ OWN_KERNELS = (
     "logmel_kernel", "attn_u_kernel", "attn_stats_kernel", "attn_de_kernel", "gemm_kernel",
     "tc_u_kernel", "tc_stats_kernel", "tc_de_kernel", "tc_dh_kernel", "tc_atb_kernel",
     "sum_parts_kernel", "dw_bwd_kernel", "dw_reduce_kernel", "megablock_kernel",
-    "megablock_tc_kernel", "megablock_wg_kernel", "mel_frames_kernel",
+    "megablock_tc_kernel", "mel_frames_kernel",
 )
 
 
