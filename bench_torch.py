@@ -2,7 +2,8 @@
 """Where the time of the port's serving and training steps goes, on one GPU.
 
     python3 bench_torch.py [--batch 128] [--seconds 3] [--blocks 17] [--runs 20]
-                           [--variant embed|fused|int8|all] [--train]
+                           [--variant embed|fused|int8|frames|all ...] [--train]
+                           [--tree DIR]
 
 Serving (default): for the serving (bf16, fused frontend) and parity (f32,
 TF32 off) modes of ``titanet_torch.train.state.embed_step`` on TitaNet-S
@@ -10,16 +11,25 @@ TF32 off) modes of ``titanet_torch.train.state.embed_step`` on TitaNet-S
 variant instead (wav -> ``log_mel_spectrogram_pallas`` ->
 ``titanet_apply_fused`` -> ``l2_normalize``, bf16 and f32), ``int8`` the
 quantized one (``embed_step_quantized`` on the f32 model's tree), ``all``
-the three in turn. ``--train``: ``train_step`` on TitaNet-S
+the three in turn; ``frames`` the frames log-mel wrapper alone
+(``log_mel_frames`` on the batch's B x 301 frames, "default" and
+"highest"). ``--train``: ``train_step`` on TitaNet-S
 (bf16, dropout 0.5, fused f32 mel, CE over 251 classes, Adam 1e-3) under
 ``TITANET_DW_BWD`` = xla, pallas, pallas, xla in turn, on one fixed batch.
 
 For each mode: the median wall time per call (host clock around
-synchronized calls) with quartiles, then a ``torch.profiler`` trace of 3
+synchronized calls) with quartiles, the median host time per call (the
+call's return after an empty queue, not synchronized: what the host spends
+issuing it), then a ``torch.profiler`` trace of 3
 calls giving device time per kernel, the hand-written kernels' times, and
 the device's idle share (1 - summed kernel time / wall time of the traced
 calls); training adds the peak device memory. Prints one JSON line per
 mode, with the card's name and power limit.
+
+``--tree DIR`` imports ``titanet_torch`` from another checkout (its kernels
+built there), so that two versions are timed by one script in one session:
+run it for the parent's tree and this one in turn, e.g. parent, this, this,
+parent.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ OWN_KERNELS = (
     "logmel_kernel", "attn_u_kernel", "attn_stats_kernel", "attn_de_kernel", "gemm_kernel",
     "tc_u_kernel", "tc_stats_kernel", "tc_de_kernel", "tc_dh_kernel", "tc_atb_kernel",
     "sum_parts_kernel", "dw_bwd_kernel", "dw_reduce_kernel", "megablock_kernel",
-    "megablock_tc_kernel", "mel_frames_kernel",
+    "megablock_tc_kernel", "mel_frames_tc_kernel", "mel_frames_kernel",
 )
 
 
@@ -71,6 +81,13 @@ def run_mode(label, step, runs):
         step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    host = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
 
     n_traced = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -93,6 +110,7 @@ def run_mode(label, step, runs):
         "mode": label,
         "median_ms": statistics.median(times),
         "quartiles_ms": [statistics.quantiles(times, n=4)[0], statistics.quantiles(times, n=4)[2]],
+        "host_ms_median": statistics.median(host),
         "device_ms_per_call": device_ms,
         "device_kernels_per_call": launches / n_traced,
         "idle_share": max(0.0, 1.0 - device_ms * n_traced / wall_ms),
@@ -150,13 +168,18 @@ def main() -> int:
     p.add_argument("--seconds", type=float, default=3.0)
     p.add_argument("--blocks", type=int, default=17)
     p.add_argument("--runs", type=int, default=20)
-    p.add_argument("--variant", choices=("embed", "fused", "int8", "all"), default="embed",
-                   help="serving variant: embed_step, the fused path, the int8 path, or all three")
+    p.add_argument("--variant", choices=("embed", "fused", "int8", "frames", "all"), nargs="+",
+                   default=["embed"], help="serving variants: embed_step, the fused path, the int8 path, "
+                   "the frames log-mel wrapper alone, or the first three")
     p.add_argument("--train", action="store_true", help="time train_step instead of embed_step")
+    p.add_argument("--tree", help="import titanet_torch from this checkout instead")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("bench_torch: no CUDA device", file=sys.stderr)
         return 1
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
+    import titanet_torch
     from titanet_torch.models import get_titanet
     from titanet_torch.ops.frontend import FrontendConfig
 
@@ -167,13 +190,14 @@ def main() -> int:
     rng = np.random.default_rng(0)
     wav = torch.from_numpy((rng.standard_normal((args.batch, n)) * 0.1).astype(np.float32)).to(dev)
     lengths = torch.full((args.batch,), n, dtype=torch.int32, device=dev)
-    name = card()
+    name = f"{card()}; titanet_torch from {os.path.dirname(os.path.abspath(titanet_torch.__file__))}"
     if args.train:
         return bench_train(args, dev, n, name)
     from titanet_torch.models import l2_normalize
     from titanet_torch.models.fused_inference import titanet_apply_fused
     from titanet_torch.models.quantized import quantize_titanet
-    from titanet_torch.ops.kernels.melspec import log_mel_spectrogram_pallas
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.kernels.melspec import log_mel_frames, log_mel_spectrogram_pallas
     from titanet_torch.train.state import embed_step, embed_step_quantized
 
     def embed(model, fe):
@@ -197,7 +221,19 @@ def main() -> int:
         "fused": [("fused bf16", fused, bf16), ("fused f32", fused, f32)],
         "int8": [("int8 (f32 model)", int8, f32)],
     }
-    for variant in ("embed", "fused", "int8") if args.variant == "all" else (args.variant,):
+    for variant in ("embed", "fused", "int8") if "all" in args.variant else args.variant:
+        if variant == "frames":
+            for _, dtype, fe in (bf16, f32):
+                frames = tf.frame_signal(wav, fe.n_fft, fe.hop_length).reshape(-1, fe.n_fft).contiguous()
+                _, _, _, basis, fb = tf._constants(fe, dev, dtype or torch.float32)
+
+                def call(frames=frames, basis=basis, fb=fb, fe=fe):
+                    return log_mel_frames(frames, basis, fb, precision=fe.precision, win_length=fe.win_length)
+
+                res = run_mode(f"log_mel_frames {fe.precision}", call, args.runs)
+                res.update(n_frames=frames.shape[0], card=name)
+                print(json.dumps(res))
+            continue
         for label, make, (_, dtype, fe) in modes[variant]:
             model = get_titanet(n_mega_blocks=args.blocks, dtype=dtype, device=dev,
                                 generator=torch.Generator().manual_seed(0))

@@ -169,16 +169,26 @@ def test_pool_backward_workspace_mirror_matches_the_library(cuda_device, shape, 
     assert nbytes == pool.bwd_workspace_bytes(*shape, elem_size)
 
 
+def _dw_args(device, dtype, b, t, c, k, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, t, c)).astype(np.float32)).to(device).to(dtype)
+    dy = torch.from_numpy(rng.standard_normal((b, t, c)).astype(np.float32)).to(device).to(dtype)
+    w = torch.from_numpy((rng.standard_normal((c, 1, k)) * 0.3).astype(np.float32)).to(device)
+    return x, w, dy
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2, 137, 4096])
+@pytest.mark.parametrize("c", [128, 256, 512, 1024])
 @pytest.mark.parametrize("k", [3, 7, 11])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dw_backward_kernel_matches_plain(cuda_device, dtype, k):
+def test_dw_backward_kernel_matches_plain(cuda_device, dtype, k, c, t):
     """dx, dk, db within tol of their largest entry (f32 1e-5, bf16 3e-2:
-    the JAX package's tolerances for its kernel)."""
-    rng = np.random.default_rng(k)
-    x = torch.from_numpy(rng.standard_normal((3, 137, 256)).astype(np.float32)).to(cuda_device).to(dtype)
-    dy = torch.from_numpy(rng.standard_normal((3, 137, 256)).astype(np.float32)).to(cuda_device).to(dtype)
-    w = torch.from_numpy((rng.standard_normal((256, 1, k)) * 0.3).astype(np.float32)).to(cuda_device)
+    the JAX package's tolerances for its kernel; the sums run in another
+    order, and in bf16 dx is stored in bf16). T = 1 and 2 are shorter than
+    the halo, 137 ends in a partial tile, 4096 is the longest the routing
+    sends to the kernel."""
+    x, w, dy = _dw_args(cuda_device, dtype, 2 if t == 4096 else 3, t, c, k, seed=k + c + t)
     before = dwconv.dw_bwd.launches
     got = dwconv.dw_bwd(x, w, dy)
     torch.cuda.synchronize()
@@ -187,7 +197,39 @@ def test_dw_backward_kernel_matches_plain(cuda_device, dtype, k):
     tol = 1e-5 if dtype == torch.float32 else 3e-2
     for name, a, r in zip(("dx", "dk", "db"), got, ref):
         assert a.shape == r.shape and a.dtype == r.dtype, name
+        assert torch.isfinite(a).all(), name
         assert _rel_err(a, r) <= tol, (name, _rel_err(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_backward_kernel_is_deterministic(cuda_device, dtype):
+    """Two calls give identical bits: each block walks a fixed list of tiles
+    and the partials are added in a fixed order, without float atomics."""
+    x, w, dy = _dw_args(cuda_device, dtype, 128, 301, 256, 3, seed=1)
+    first = dwconv.dw_bwd(x, w, dy)
+    second = dwconv.dw_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dk", "db"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_dw_backward_kernel_refuses_what_the_router_does_not_send(cuda_device):
+    """Built for K <= 11 and C a multiple of 128: the shapes
+    ``kernel_supports`` lets through, and no others."""
+    for c, k in ((128, 13), (192, 3)):
+        assert not dwconv.kernel_supports(37, c, k, torch.bfloat16)
+        with pytest.raises(ValueError):
+            dwconv.dw_bwd(*_dw_args(cuda_device, torch.bfloat16, 2, 37, c, k, seed=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elem_size", [2, 4])
+@pytest.mark.parametrize("shape", [(128, 301, 256, 3), (3, 37, 128, 7), (2, 4096, 1024, 11), (1, 1, 512, 3)])
+def test_dw_backward_workspace_mirror_matches_the_library(cuda_device, shape, elem_size):
+    nbytes = dwconv._lib().titanet_dw_bwd_workspace_bytes(*shape, elem_size)
+    assert nbytes == dwconv.workspace_bytes(*shape, elem_size)
 
 
 @pytest.mark.cuda
@@ -221,7 +263,9 @@ def test_bf16_train_mode_gives_every_parameter_a_gradient(cuda_device, monkeypat
 @pytest.mark.parametrize("n_rows", [1, 64, 453])
 def test_mel_frames_kernel_matches_plain(cuda_device, precision, geometry, n_rows):
     """f32 operands 1e-4, bf16-rounded operands 5e-2 (a product that lands
-    on the other side of a bf16 rounding moves the dB)."""
+    on the other side of a bf16 rounding moves the dB). "default" runs the
+    tensor-core kernel: n_rows 1 and 453 leave a partial 128-frame tile,
+    (256, 200) pads its 200 taps to 224 and its 129 bins to 17 groups."""
     n_fft, win, hop = geometry
     cfg = tf.FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop, precision=precision)
     dtype = torch.float32 if precision == "highest" else torch.bfloat16
@@ -237,6 +281,47 @@ def test_mel_frames_kernel_matches_plain(cuda_device, precision, geometry, n_row
     # all taps (no window skip) give the same result
     full = log_mel_frames(frames, basis, fb, precision=precision)
     torch.testing.assert_close(full, out, rtol=0, atol=1e-5)
+
+
+def _one_tap_frames(n, device, seed=3):
+    """Frames with one non-zero tap each, of a power-of-two size, at a tap
+    the TitaNet window keeps."""
+    rng = np.random.default_rng(seed)
+    frames = np.zeros((n, 512), np.float32)
+    frames[np.arange(n), rng.integers(56, 456, n)] = rng.choice([-1.0, 1.0], n) * 2.0 ** rng.integers(-6, 2, n)
+    return torch.from_numpy(frames).to(device)
+
+
+def _power_rounded_apart(frames, basis, fb):
+    """The frames log-mel with re^2 and im^2 rounded to bf16 apart (the
+    fused kernel's arithmetic, the frames route's before Fault 3)."""
+    b32 = basis.float()
+    re, im = frames.bfloat16().float() @ b32[0], frames.bfloat16().float() @ b32[1]
+    p = (re * re).bfloat16().float() + (im * im).bfloat16().float()
+    db = 10.0 * torch.log10(torch.clamp(p @ fb.float(), min=1e-10))
+    return db / torch.clamp(torch.linalg.vector_norm(db, dim=-1, keepdim=True), min=1e-12)
+
+
+@pytest.mark.cuda
+def test_mel_frames_kernel_rounds_the_power_once(cuda_device):
+    """Fault 3: the "default" kernel rounds re^2 + im^2 to bf16 once, as
+    ``_mel_kernel`` and ``log_mel_frames_plain`` do. With one non-zero tap
+    of a power-of-two size a frame, re and im are exact products, re^2 and
+    im^2 are exact in f32, so the kernel and the plain version round the
+    same f32 power to the same bf16 whatever order the tensor cores add in:
+    they agree to 1e-6 (only the mel sums' order moves their last f32 bits).
+    Rounding re^2 and im^2 apart lands up to 7e-4 away on these frames; the
+    kernel must be further than 1e-5 from that."""
+    cfg = tf.FrontendConfig.from_ms(precision="default")
+    _, _, _, basis, fb = tf._constants(cfg, cuda_device, torch.bfloat16)
+    frames = _one_tap_frames(256, cuda_device)
+    out = log_mel_frames(frames, basis, fb, precision="default", win_length=400)
+    once = log_mel_frames_plain(frames, basis, fb, precision="default")
+    apart = _power_rounded_apart(frames, basis, fb)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - once).abs().max().item() <= 1e-6
+    assert (out - apart).abs().max().item() > 1e-5
 
 
 @pytest.mark.cuda

@@ -182,9 +182,54 @@ def test_frames_route_default_precision_is_in_the_serving_error_class(interpret_
     out, _ = log_mel_spectrogram_pallas(torch.from_numpy(wav), tf.FrontendConfig.from_ms(precision="default"))
     err = np.abs(out.numpy() - np.asarray(ref)).max()
     assert 0 < err < 5e-2
-    # and it is the same function as the fused route at that precision
+    # and the fused route at that precision differs from it only in the
+    # power's rounding (re^2 and im^2 apart, as _fused_kernel; once here, as
+    # _mel_kernel): each mel sum moves by less than 2^-8 of itself, at most
+    # 10*log10(1 + 2^-8) = 0.017 dB, under 1e-3 after the L2 norm of a row
     fused = _port_fused(wav, tf.FrontendConfig.from_ms(precision="default"))
-    np.testing.assert_allclose(out.numpy(), fused, rtol=0, atol=1e-5)
+    diff = np.abs(out.numpy() - fused).max()
+    assert 0 < diff < 1e-3
+
+
+def _bf16(a):
+    """numpy f32 -> the nearest bf16 (ties to even), as f32."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def test_frames_route_rounds_the_power_once_as_the_pallas_frames_kernel():
+    """Fault 3 (repaired): ``_mel_kernel`` at DEFAULT precision sums
+    ``re^2 + im^2`` in f32 and its dot rounds that sum to bf16 once; the
+    frames route's plain version does the same. Emulated in numpy with the
+    JAX package's own weights: frames, basis, power and fb rounded to bf16,
+    products summed in f32. Each frame has two non-zero taps, so re and im
+    are sums of two exact products and every summation order gives the
+    same bits: the two agree to 1e-6. The two-rounding arithmetic of the
+    fused kernel (re^2 and im^2 rounded apart) does not."""
+    from titanet_tpu.ops.pallas.melspec import _fused_weights
+
+    basis_j, fb_pad, n_bins = _fused_weights(jf.FrontendConfig.from_ms(precision="default"))
+    bins_pad = fb_pad.shape[0]
+    rng = np.random.default_rng(11)
+    frames = np.zeros((32, 512), np.float32)
+    for row in frames:
+        row[rng.choice(np.arange(56, 456), 2, replace=False)] = rng.standard_normal(2) * 0.3
+    spec = _bf16(frames) @ _bf16(basis_j)
+    re, im = spec[:, :bins_pad], spec[:, bins_pad:]
+
+    def normalized(mel):
+        db = 10.0 * np.log10(np.maximum(mel, 1e-10))[:, :80]
+        return db / np.maximum(np.linalg.norm(db, axis=-1, keepdims=True), 1e-12)
+
+    fbb = _bf16(fb_pad)
+    once = normalized(_bf16(re * re + im * im) @ fbb)
+    apart = normalized(_bf16(re * re) @ fbb + _bf16(im * im) @ fbb)
+    _, _, _, basis, fb = tf._constants(tf.FrontendConfig.from_ms(precision="default"),
+                                       torch.device("cpu"), torch.bfloat16)
+    port = log_mel_frames_plain(torch.from_numpy(frames), basis, fb, precision="default").numpy()
+    assert np.abs(port - once).max() <= 1e-6
+    assert np.abs(apart - once).max() > 1e-5
 
 
 def test_frames_wrapper_checks_inputs_and_counts_no_cpu_launch():

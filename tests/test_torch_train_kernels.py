@@ -208,3 +208,21 @@ def test_dw_kernel_supports_matches_jax_rule():
     for t, c, k in ((301, 256, 3), (301, 200, 3), (301, 256, 4), (5000, 256, 3), (0, 256, 3), (7, 128, 11)):
         for tdt, jdt in ((torch.bfloat16, jnp.bfloat16), (torch.float32, jnp.float32)):
             assert dwconv.kernel_supports(t, c, k, tdt) == jdwconv.kernel_supports(t, c, k, jdt)
+
+
+@pytest.mark.parametrize("k", [13, 31])
+def test_dw_wider_than_the_kernel_keeps_the_library_backward(monkeypatch, k):
+    """The kernel is built for K <= 11 (every TitaNet preset). Wider odd K,
+    which the JAX rule would send to its kernel, keeps the library conv's
+    backward under TITANET_DW_BWD=pallas, so the router never sends the
+    wrapper a shape it refuses."""
+    assert jdwconv.kernel_supports(301, 128, k, jnp.bfloat16)
+    assert not dwconv.kernel_supports(301, 128, k, torch.bfloat16)
+    mod = tconv.SamePadConv1d(128, 128, k, groups=128, dtype=torch.bfloat16)
+    calls = []
+    real = dwconv.dw_bwd
+    monkeypatch.setattr(dwconv, "dw_bwd", lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setenv("TITANET_DW_BWD", "pallas")
+    x = torch.ones(2, 16, 128, dtype=torch.bfloat16, requires_grad=True)
+    mod(x).float().sum().backward()
+    assert not calls and x.grad is not None and mod.weight.grad is not None

@@ -12,101 +12,246 @@
 // multiply does.
 //
 // Bound on the H100: bytes. x and dy read and dx written once: 3 x 19.7 MB at
-// B=128, T=301, C=256 bf16, ~0.018 ms at 3.35 TB/s; the 4 K B T C operations
-// are far below the bf16 rate.
+// B=128, T=301, C=256 bf16, ~0.018 ms at 3.35 TB/s; the ~4 K B T C operations
+// are far below the FP32 cores' rate. To run near the memory rate an SM
+// needs ~20 KB of loads in flight, and the next tile's loads must overlap
+// the current tile's arithmetic.
 //
-// Design (first version; correct and simple): one block per (128 channels,
-// 64 frames, utterance) stages x and dy for its frames plus a K-1 frame halo
-// in shared memory (f32, zero outside the utterance: the same padding), so
-// each element is read from device memory about once. Two thread groups of
-// one channel per thread split the frames: each computes dx for its frames
-// and sums dk (16 taps at a time in registers) and db over them. The TPU
-// kernel added dk and db into one output in grid order; here every thread
-// group writes its own partial sums and dw_reduce_kernel adds them in a fixed
-// order, so the gradients are deterministic.
+// Design: persistent blocks, a two-stage cp.async pipeline, 16-byte accesses.
+// - Grid: C / 128 channel slices x G blocks a slice, G = ceil(264 / slices)
+//   (two blocks on each of the H100's 132 SMs) capped at the work items.
+//   Block j of a slice walks the (utterance, time tile) pairs j, j + G, ...
+//   in that order; the walk depends on the block index only.
+// - A tile is kFr frames (64 bf16 / 32 f32) plus a K-1 frame halo of x and
+//   dy for 128 channels, copied as 16-byte cp.async chunks into a stage of
+//   shared memory in x's own dtype (zero-filled outside [0, T): the same
+//   padding). While a block computes on one stage, the next pair's tile is
+//   in flight into the other: 2 blocks x ~34 KB (bf16, K=3) a SM.
+// - A thread owns 16 bytes of channels (8 bf16 / 4 f32; neighbouring threads
+//   on neighbouring channels) of a subset of the tile's frames. Warps 0-3
+//   compute dx (w's taps for the thread's channels held in registers) and
+//   store it with 16-byte stores; warps 4-7 accumulate dk and db in f32
+//   registers across every tile the block walks. The two roles share one
+//   register array (w's taps or the dk sums), which keeps a thread near the
+//   128 registers that two blocks an SM allow, up to K = 11 (TitaNet L).
+//   That is the widest K built: a wider conv keeps the library backward
+//   (ops/kernels/dwconv.py::kernel_supports).
+// - After its walk a block adds its threads' dk/db partials over the frame
+//   groups in a fixed order and writes one partial [K+1][128] for its slice;
+//   dw_reduce_kernel adds the G partials of each channel in a fixed order.
+//   The workspace is G x (K+1) x C f32; repeated calls give identical bits,
+//   on any card (G does not depend on the card).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-constexpr int kCh = 128;     // channels per block (one per thread of a group)
-constexpr int kFr = 64;      // frames per block
-constexpr int kGroups = 2;   // thread groups splitting the frames
-constexpr int kTaps = 16;    // dk taps accumulated in registers at a time
+constexpr int kCh = 128;        // channels of a slice
+constexpr int kThreads = 256;   // 8 warps: 4 for dx, 4 for dk/db
+constexpr int kGridTarget = 264;  // blocks in all: 2 on each of 132 SMs
 constexpr int kMaxSmem = 232448;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kMaxK = 11;       // the widest tap count built (TitaNet L)
 
 template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+struct Geo {
+  static constexpr int kVec = 16 / sizeof(T);           // channels a thread
+  static constexpr int kLanes = kCh / kVec;             // threads a frame row
+  static constexpr int kRowsPerWarp = 32 / kLanes;      // frame rows a warp at once
+  static constexpr int kGroups = 4 * kRowsPerWarp;      // frame groups of each role
+  static constexpr int kFr = sizeof(T) == 2 ? 64 : 32;  // frames a tile
+};
+
+__host__ __device__ constexpr int stage_elems(int fr, int k) { return 2 * (fr + k - 1) * kCh; }
+
+template <typename T>
+size_t smem_bytes(int K) {
+  const size_t stages = (size_t)2 * stage_elems(Geo<T>::kFr, K) * sizeof(T);
+  const size_t red = (size_t)Geo<T>::kGroups * (K + 1) * kCh * sizeof(float);
+  return stages > red ? stages : red;
 }
 
-template <typename T>
-__device__ __forceinline__ float round_as(float v) { return to_f(from_f<T>(v)); }
+int grid_blocks(int B, int n_t, int C, int fr) {
+  const int slices = C / kCh;
+  const long long items = (long long)B * ((n_t + fr - 1) / fr);
+  long long g = (kGridTarget + slices - 1) / slices;
+  if (g > items) g = items;
+  return (int)(g < 1 ? 1 : g);
+}
 
-size_t smem_bytes(int K) { return (size_t)2 * (kFr + K - 1) * kCh * sizeof(float); }
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 f = __bfloat1622float2(h[q]);
+    v[2 * q] = f.x;
+    v[2 * q + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(&u);
+  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+  return u;
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+  return *reinterpret_cast<const uint4*>(v);
+}
 
-// part: [B * n_chunks * kGroups][K + 1][C]: dk taps, then db
-template <typename T>
-__global__ void __launch_bounds__(kCh * kGroups) dw_bwd_kernel(
+// acc[v] += dt(x[v] d[v]) for the 16 bytes of x and d. bf16: one packed
+// multiply rounds each exact product to bf16 once (as the f32 product
+// rounded to bf16 would), then the halves widen to f32 by a shift / a mask
+__device__ __forceinline__ void add_products(float (&acc)[8], const uint4& x, const uint4& d) {
+  const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const __nv_bfloat162 p = __hmul2(x2[q], d2[q]);
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(&p);
+    acc[2 * q] += __uint_as_float(u << 16);
+    acc[2 * q + 1] += __uint_as_float(u & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void add_products(float (&acc)[4], const uint4& x, const uint4& d) {
+  const float4 a = *reinterpret_cast<const float4*>(&x);
+  const float4 b = *reinterpret_cast<const float4*>(&d);
+  acc[0] += a.x * b.x;
+  acc[1] += a.y * b.y;
+  acc[2] += a.z * b.z;
+  acc[3] += a.w * b.w;
+}
+
+// part: [G][K + 1][C]: block j of slice s writes columns s*128 .. s*128+127
+// of row j: dk taps, then db
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(kThreads, 2) dw_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ w,
-    T* __restrict__ dx, float* __restrict__ part, int n_t, int C, int K) {
-  extern __shared__ __align__(16) float smem[];
+    T* __restrict__ dx, float* __restrict__ part, int B, int n_t, int C, int K) {
+  using G = Geo<T>;
+  constexpr int V = G::kVec;
+  constexpr int FR = G::kFr;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int pad = (K - 1) / 2;
-  const int rows = kFr + K - 1;
-  float* xs = smem;               // [rows][kCh]: frames t0 - pad .. t0 + kFr - 1 + pad
-  float* ds = smem + rows * kCh;  // the same frames of dy
-  const int tc = threadIdx.x % kCh;
-  const int grp = threadIdx.x / kCh;
-  const int c0 = blockIdx.x * kCh;
-  const int ch = c0 + tc;
-  const int chunk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int t0 = chunk * kFr;
-  const long long base = (long long)b * n_t * C;
-  for (int i = threadIdx.x; i < rows * kCh; i += kCh * kGroups) {
-    const int t = t0 - pad + i / kCh;
-    const bool in = t >= 0 && t < n_t;
-    const long long o = base + (long long)t * C + c0 + i % kCh;
-    xs[i] = in ? to_f(x[o]) : 0.f;
-    ds[i] = in ? to_f(dy[o]) : 0.f;
+  const int rows = FR + K - 1;
+  const int stage = stage_elems(FR, K);
+  const int n_tiles = (n_t + FR - 1) / FR;
+  const int items = B * n_tiles;
+  const int c0 = blockIdx.y * kCh;
+  const int j = blockIdx.x;
+  const int nblk = gridDim.x;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool dk_role = warp >= 4;
+  const int grp = (warp & 3) * G::kRowsPerWarp + lane / G::kLanes;  // frame group
+  const int cl = (lane % G::kLanes) * V;                            // channel in the slice
+
+  // 16-byte chunks of one tile: 2 arrays x rows x 128 channels
+  constexpr int kChunksPerRow = kCh * sizeof(T) / 16;
+  auto load_tile = [&](int item, int s) {
+    const int b = item / n_tiles;
+    const int t0 = (item - b * n_tiles) * FR - pad;
+    T* dst = smem + s * stage;
+    const int n = 2 * rows * kChunksPerRow;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int arr = i / (rows * kChunksPerRow);
+      const int rem = i - arr * rows * kChunksPerRow;
+      const int r = rem / kChunksPerRow;
+      const int ch = (rem - r * kChunksPerRow) * (16 / sizeof(T));
+      const int t = t0 + r;
+      const bool in = t >= 0 && t < n_t;
+      const T* src = (arr ? dy : x) + ((long long)b * n_t + (in ? t : 0)) * C + c0 + ch;
+      tc::cp_async16_zfill(dst + arr * rows * kCh + r * kCh + ch, src, in ? 16 : 0);
+    }
+  };
+
+  // one register array for either role (both live in one loop, so two
+  // arrays would cost their sum): dx role, w[c, i] of the thread's channels;
+  // dk role, the sums of dt(x dy) per tap
+  float reg[KMAX][V];
+  float dbs[V];
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      reg[i][v] = (!dk_role && i < K) ? w[(long long)(c0 + cl + v) * K + i] : 0.f;
+#pragma unroll
+  for (int v = 0; v < V; ++v) dbs[v] = 0.f;
+
+  if (j < items) load_tile(j, 0);
+  tc::cp_async_commit();
+  int s = 0;
+  for (int item = j; item < items; item += nblk, s ^= 1) {
+    if (item + nblk < items) load_tile(item + nblk, s ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const T* xs = smem + s * stage;  // row r holds frame t0 - pad + r
+    const T* ds = xs + rows * kCh;
+    const int b = item / n_tiles;
+    const int t0 = (item - b * n_tiles) * FR;
+    const int nt = min(FR, n_t - t0);
+    if (!dk_role) {
+      // dx[t0 + f] = sum_i w[i] dy[t0 + f + pad - i]: stage row f + 2 pad - i
+      T* out = dx + ((long long)b * n_t + t0) * C + c0 + cl;
+      for (int f = grp; f < nt; f += G::kGroups) {
+        float o[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) o[v] = 0.f;
+#pragma unroll
+        for (int i = 0; i < KMAX; ++i) {
+          if (i < K) {
+            float d[V];
+            unpack(*reinterpret_cast<const uint4*>(ds + (f + 2 * pad - i) * kCh + cl), d);
+#pragma unroll
+            for (int v = 0; v < V; ++v) o[v] = fmaf(d[v], reg[i][v], o[v]);
+          }
+        }
+        *reinterpret_cast<uint4*>(out + (long long)f * C) = pack(o);
+      }
+    } else {
+      // dk[i] += dt(x[t + i - pad] dy[t]): x at stage row f + i, dy at f + pad
+      for (int f = grp; f < nt; f += G::kGroups) {
+        const uint4 du = *reinterpret_cast<const uint4*>(ds + (f + pad) * kCh + cl);
+        float d[V];
+        unpack(du, d);
+#pragma unroll
+        for (int v = 0; v < V; ++v) dbs[v] += d[v];
+#pragma unroll
+        for (int i = 0; i < KMAX; ++i)
+          if (i < K) add_products(reg[i], *reinterpret_cast<const uint4*>(xs + (f + i) * kCh + cl), du);
+      }
+    }
+    __syncthreads();  // the stage is refilled two items on
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  // partials of the frame groups -> red[g][tap][channel] -> summed in order g
+  float* red = reinterpret_cast<float*>(smem_raw);
+  if (dk_role) {
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i)
+      if (i < K)
+#pragma unroll
+        for (int v = 0; v < V; ++v) red[(grp * (K + 1) + i) * kCh + cl + v] = reg[i][v];
+#pragma unroll
+    for (int v = 0; v < V; ++v) red[(grp * (K + 1) + K) * kCh + cl + v] = dbs[v];
   }
   __syncthreads();
-  const int nt = min(kFr, n_t - t0);
-
-  // dx[t] = sum_i w[i] dy[t + pad - i]; dy[t'] sits at row t' - t0 + pad
-  for (int f = grp; f < nt; f += kGroups) {
-    float s = 0.f;
-    for (int i = 0; i < K; ++i) s = fmaf(ds[(f + 2 * pad - i) * kCh + tc], w[ch * K + i], s);
-    dx[base + (long long)(t0 + f) * C + ch] = from_f<T>(s);
+  for (int n = threadIdx.x; n < (K + 1) * kCh; n += kThreads) {
+    float sum = 0.f;
+    for (int g = 0; g < G::kGroups; ++g) sum += red[g * (K + 1) * kCh + n];
+    const int tap = n / kCh;
+    part[((long long)j * (K + 1) + tap) * C + c0 + n - tap * kCh] = sum;
   }
-
-  float* p = part + ((long long)(b * gridDim.y + chunk) * kGroups + grp) * (K + 1) * C + ch;
-  // dk[i] = sum_t dt(x[t + i - pad] dy[t]); x[t + i - pad] sits at row f + i
-  for (int i0 = 0; i0 < K; i0 += kTaps) {
-    float acc[kTaps];
-#pragma unroll
-    for (int j = 0; j < kTaps; ++j) acc[j] = 0.f;
-    for (int f = grp; f < nt; f += kGroups) {
-      const float d = ds[(f + pad) * kCh + tc];
-#pragma unroll
-      for (int j = 0; j < kTaps; ++j)
-        if (i0 + j < K) acc[j] += round_as<T>(xs[(f + i0 + j) * kCh + tc] * d);
-    }
-#pragma unroll
-    for (int j = 0; j < kTaps; ++j)
-      if (i0 + j < K) p[(long long)(i0 + j) * C] = acc[j];
-  }
-  float db = 0.f;
-  for (int f = grp; f < nt; f += kGroups) db += ds[(f + pad) * kCh + tc];
-  p[(long long)K * C] = db;
 }
 
 // dk[c][i] and db[c] = sums over the S partials, in order: 32 outputs a block,
@@ -134,24 +279,37 @@ __global__ void __launch_bounds__(256) dw_reduce_kernel(const float* __restrict_
     db[c] = sum;
 }
 
+template <typename T, int KMAX>
+int launch_k(const void* x, const void* dy, const void* w, void* dx, float* part, int B,
+             int n_t, int C, int K, int G, cudaStream_t st) {
+  const size_t smem = smem_bytes<T>(K);
+  cudaError_t err = cudaFuncSetAttribute(
+      dw_bwd_kernel<T, KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dw_bwd_kernel<T, KMAX><<<dim3(G, C / kCh), kThreads, smem, st>>>(
+      (const T*)x, (const T*)dy, (const float*)w, (T*)dx, part, B, n_t, C, K);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, const void* dy, const void* w, void* dx, void* dk, void* db,
            void* work, int B, int n_t, int C, int K, void* stream) {
-  const size_t smem = smem_bytes(K);
-  const int n_chunks = (n_t + kFr - 1) / kFr;
-  if (B < 1 || B > 65535 || n_t < 1 || n_chunks > 65535 || C % kCh || K < 1 || K % 2 == 0 ||
-      smem > (size_t)kMaxSmem)
+  if (B < 1 || n_t < 1 || C < kCh || C % kCh || C / kCh > 65535 || K < 1 || K % 2 == 0 ||
+      K > kMaxK || smem_bytes<T>(K) > (size_t)kMaxSmem ||
+      (long long)B * ((n_t + Geo<T>::kFr - 1) / Geo<T>::kFr) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      dw_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   float* part = (float*)work;
-  dw_bwd_kernel<T><<<dim3(C / kCh, n_chunks, B), kCh * kGroups, smem, st>>>(
-      (const T*)x, (const T*)dy, (const float*)w, (T*)dx, part, n_t, C, K);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int S = B * n_chunks * kGroups;
-  dw_reduce_kernel<<<((K + 1) * C + 31) / 32, 256, 0, st>>>(part, (float*)dk, (float*)db, S, C,
+  const int G = grid_blocks(B, n_t, C, Geo<T>::kFr);
+  int code;
+  if (K <= 3)
+    code = launch_k<T, 3>(x, dy, w, dx, part, B, n_t, C, K, G, st);
+  else if (K <= 7)
+    code = launch_k<T, 7>(x, dy, w, dx, part, B, n_t, C, K, G, st);
+  else
+    code = launch_k<T, kMaxK>(x, dy, w, dx, part, B, n_t, C, K, G, st);
+  if (code != 0) return code;
+  dw_reduce_kernel<<<((K + 1) * C + 31) / 32, 256, 0, st>>>(part, (float*)dk, (float*)db, G, C,
                                                              K);
   return (int)cudaGetLastError();
 }
@@ -170,9 +328,10 @@ int titanet_dw_bwd_bf16(const void* x, const void* dy, const void* w, void* dx, 
   return launch<__nv_bfloat16>(x, dy, w, dx, dk, db, work, B, n_t, C, K, stream);
 }
 
-long long titanet_dw_bwd_workspace_bytes(int B, int n_t, int C, int K) {
-  const long long n_chunks = (n_t + kFr - 1) / kFr;
-  return (long long)B * n_chunks * kGroups * (K + 1) * C * (long long)sizeof(float);
+// bytes of the partials workspace for x of `elem_size` bytes (2 or 4)
+long long titanet_dw_bwd_workspace_bytes(int B, int n_t, int C, int K, int elem_size) {
+  const int fr = elem_size == 2 ? Geo<__nv_bfloat16>::kFr : Geo<float>::kFr;
+  return (long long)grid_blocks(B, n_t, C, fr) * (K + 1) * C * (long long)sizeof(float);
 }
 
 const char* titanet_dw_bwd_error_string(int code) {

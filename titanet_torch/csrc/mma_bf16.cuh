@@ -33,6 +33,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
 }
+// the same copy, reading `src_bytes` (0 or 16) bytes and zero-filling the rest
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem),
+               "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // wait until at most N of this thread's committed groups are still in flight
 template <int N>

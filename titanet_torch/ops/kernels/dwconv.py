@@ -29,20 +29,57 @@ import torch
 from titanet_torch.ops.kernels import _build
 
 MAX_SMEM = 232448
-_CHANNELS = 128  # channels per block
-_FRAMES = 64  # frames per block
+MAX_K = 11  # the widest tap count the kernel is built for (TitaNet L; csrc/dw_bwd.cu kMaxK)
+_CHANNELS = 128  # channels of a slice (csrc/dw_bwd.cu kCh)
+_GRID_TARGET = 264  # blocks in all, 2 on each of the H100's 132 SMs (kGridTarget)
+_GROUPS = {2: 8, 4: 4}  # frame groups of a role by element size (Geo::kGroups)
 
 
 def kernel_supports(t: int, c: int, k: int, dtype: torch.dtype) -> bool:
     """The JAX package's eligibility rule (dwconv.py::kernel_supports):
-    lane-aligned channels, odd K, 1 <= T <= 4096, bf16 only."""
-    return c % 128 == 0 and k % 2 == 1 and 1 <= t <= 4096 and dtype == torch.bfloat16
+    lane-aligned channels, odd K, 1 <= T <= 4096, bf16 only; and K <= 11,
+    the widest the kernel is built for (every TitaNet preset's). A wider
+    conv keeps the library backward under ``TITANET_DW_BWD=pallas``."""
+    return (c % 128 == 0 and k % 2 == 1 and k <= MAX_K and 1 <= t <= 4096
+            and dtype == torch.bfloat16)
 
 
-def smem_bytes(k: int) -> int:
-    """Dynamic shared memory of the kernel: x and dy tiles of
-    ``_FRAMES + K - 1`` frames by 128 channels, f32."""
-    return 2 * (_FRAMES + k - 1) * _CHANNELS * 4
+# Python mirror of the kernel's geometry (csrc/dw_bwd.cu): the tests walk the
+# persistent grid and check shared memory with it, and the card tests hold
+# the workspace size against the library's own count.
+
+
+def tile_frames(elem_size: int) -> int:
+    """Frames of a time tile: 64 for bf16, 32 for f32 (``Geo::kFr``)."""
+    return 64 if elem_size == 2 else 32
+
+
+def frame_groups(elem_size: int) -> int:
+    """Frame groups of each role (``Geo::kGroups``): a tile's frame ``f``
+    belongs to group ``f % groups``; 8 for bf16, 4 for f32."""
+    return _GROUPS[elem_size]
+
+
+def grid_blocks(b: int, t: int, c: int, elem_size: int) -> int:
+    """Blocks a channel slice: ``ceil(264 / slices)``, at most one per
+    (utterance, time tile) pair. Block ``j`` walks the pairs ``j, j + G,
+    ...``, pair ``p`` being utterance ``p // tiles``, tile ``p % tiles``."""
+    slices = c // _CHANNELS
+    items = b * -(-t // tile_frames(elem_size))
+    return max(1, min(-(-_GRID_TARGET // slices), items))
+
+
+def workspace_bytes(b: int, t: int, c: int, k: int, elem_size: int) -> int:
+    """The partials workspace: ``G x (K + 1) x C`` f32."""
+    return grid_blocks(b, t, c, elem_size) * (k + 1) * c * 4
+
+
+def smem_bytes(k: int, elem_size: int) -> int:
+    """Dynamic shared memory of a block: two stages of x and dy tiles
+    (``tile_frames + K - 1`` frames by 128 channels, x's dtype), reused
+    after the walk for the frame groups' partials (f32)."""
+    stages = 2 * 2 * (tile_frames(elem_size) + k - 1) * _CHANNELS * elem_size
+    return max(stages, frame_groups(elem_size) * (k + 1) * _CHANNELS * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,7 +88,7 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.titanet_dw_bwd_f32, lib.titanet_dw_bwd_bf16):
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.titanet_dw_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
+    lib.titanet_dw_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 5
     lib.titanet_dw_bwd_workspace_bytes.restype = ctypes.c_longlong
     lib.titanet_dw_bwd_error_string.argtypes = [ctypes.c_int]
     lib.titanet_dw_bwd_error_string.restype = ctypes.c_char_p
@@ -91,7 +128,8 @@ def dw_bwd_plain(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor):
 def dw_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor):
     """Depthwise-conv gradients; arguments and results as for
     :func:`dw_bwd_plain`. ``x`` and ``dy`` f32 or bf16 (one dtype),
-    contiguous; ``weight`` any float dtype; K odd."""
+    contiguous; ``weight`` any float dtype; K odd; on the card C a multiple
+    of 128 and K <= 11."""
     if x.dim() != 3 or tuple(dy.shape) != tuple(x.shape):
         raise ValueError(f"x and dy must be one [B, T, C] shape, got {tuple(x.shape)}, {tuple(dy.shape)}")
     b, t, ch = x.shape
@@ -108,14 +146,14 @@ def dw_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor):
         return dw_bwd_plain(x, weight, dy)
     if x.device.type != "cuda":
         raise RuntimeError(f"no depthwise-backward kernel for device {x.device}")
-    if ch % _CHANNELS or smem_bytes(k) > MAX_SMEM:
-        raise ValueError(f"kernel takes C % {_CHANNELS} == 0 and K <= 163; got C={ch}, K={k}")
+    if ch % _CHANNELS or k > MAX_K:
+        raise ValueError(f"kernel takes C % {_CHANNELS} == 0 and K <= {MAX_K}; got C={ch}, K={k}")
     lib = _lib()
     w = weight[:, 0, :].float().contiguous()
     dx = torch.empty_like(x)
     dk = torch.empty(ch, k, device=x.device, dtype=torch.float32)
     db = torch.empty(ch, device=x.device, dtype=torch.float32)
-    work = torch.empty(lib.titanet_dw_bwd_workspace_bytes(b, t, ch, k),
+    work = torch.empty(lib.titanet_dw_bwd_workspace_bytes(b, t, ch, k, x.element_size()),
                        device=x.device, dtype=torch.uint8)
     fn = lib.titanet_dw_bwd_f32 if x.dtype == torch.float32 else lib.titanet_dw_bwd_bf16
     with torch.cuda.device(x.device):

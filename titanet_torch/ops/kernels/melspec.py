@@ -11,7 +11,9 @@
   (replaces ``..melspec.py::_mel_frames_pallas``): takes materialized
   frames ``[N, n_fft]`` (f32) and returns ``[N, n_mels]``;
   :func:`log_mel_spectrogram_pallas` is the frontend built on it (plain
-  torch framing and frame mask around the kernel).
+  torch framing and frame mask around the kernel). Its "default" route runs
+  on the bf16 tensor cores, with the basis and filterbank rearranged once
+  per tensor (:func:`tc_basis`, :func:`tc_filterbank`).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -24,6 +26,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from titanet_torch.ops import frontend
 from titanet_torch.ops.kernels import _build
@@ -167,9 +170,9 @@ log_mel_fused.launches = 0
 @functools.lru_cache(maxsize=None)
 def _frames_lib() -> ctypes.CDLL:
     lib = _build.load("mel_frames")
-    for fn in (lib.titanet_mel_frames_f32, lib.titanet_mel_frames_bf16):
+    for fn, n_ints in ((lib.titanet_mel_frames_f32, 4), (lib.titanet_mel_frames_bf16, 5)):
         fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -179,8 +182,97 @@ def _frames_lib() -> ctypes.CDLL:
 
 
 def frames_smem_bytes(taps: int, n_fft: int, n_mels: int) -> int:
-    """Dynamic shared memory one block of the frames kernel needs."""
+    """Dynamic shared memory one block of the f32 frames kernel needs."""
     return (TILE_FRAMES * max(taps, n_mels) + TILE_FRAMES * (n_fft // 2 + 1)) * 4
+
+
+# The bf16 tensor-core frames kernel (csrc/mel_frames.cu mel_frames_tc_kernel):
+# the host-side layout of its operands and its shared memory, mirrored here.
+TC_ROWS = 128  # frames a block (kTcRows)
+TC_SLAB = 32  # taps a basis slab (kSlab)
+TC_STAGES = (4, 3)  # basis ring depths; the deepest that fits is taken
+TC_MELS = (80,)  # n_mels the kernel is built for (TitaNet's)
+TC_MAX_TAPS = 512  # a lane loads four 4-tap chunks of a frame row
+_TC_PAD = 8  # bf16 elements of padding a shared-memory row
+
+
+def tc_taps(k_lo: int, k_hi: int):
+    """``(k0, taps)``: the kernel reads taps ``[k0, k_hi)`` with ``k0`` =
+    ``k_lo`` rounded down to 16, so each 16-tap product step covers the same
+    taps whatever window skip the caller asks for, and the skipped steps
+    would add exact zeros: with or without the skip, the same bits."""
+    k0 = k_lo // 16 * 16
+    return k0, k_hi - k0
+
+
+def tc_layout(taps: int, n_bins: int):
+    """``(tpp, n_groups, n_panels, kb)``: taps padded to a slab multiple;
+    bins ``0 .. n_bins - 2`` in 8-bin groups and 128-bin panels (the
+    Nyquist bin rides in bin 0's sin column); filterbank rows: 128 a panel,
+    then 16 whose first is the Nyquist bin's."""
+    tpp = -(-taps // TC_SLAB) * TC_SLAB
+    n_groups = -(-(n_bins - 1) // 8)
+    n_panels = -(-n_groups // 16)
+    return tpp, n_groups, n_panels, n_panels * 128 + 16
+
+
+def tc_smem_bytes(taps: int, n_bins: int, n_mels: int, stages: int) -> int:
+    """Dynamic shared memory of a block: the frames tile (64-tap panels of
+    128 rows), the basis ring (16 KB a stage) and the filterbank (rows padded
+    by 8), bf16."""
+    tpp, _, _, kb = tc_layout(taps, n_bins)
+    return 2 * (TC_ROWS * -(-tpp // 64) * 64 + stages * TC_SLAB * 256 + kb * (n_mels + _TC_PAD))
+
+
+def tc_stages(taps: int, n_bins: int, n_mels: int) -> int:
+    """The ring depth the kernel takes, the deepest that fits shared
+    memory; 0 where none does or the taps are more than it takes."""
+    if tc_layout(taps, n_bins)[0] > TC_MAX_TAPS:
+        return 0
+    return next((s for s in TC_STAGES if tc_smem_bytes(taps, n_bins, n_mels, s) <= MAX_SMEM), 0)
+
+
+def tc_basis(basis: torch.Tensor, k_lo: int, k_hi: int) -> torch.Tensor:
+    """``[2, n_fft, n_bins]`` -> panels ``[n_panels, tpp, 256]`` bf16: tap
+    ``t`` is basis row ``k_lo + t``; column ``16 g + 8 s + j`` of panel ``p``
+    is bin ``128 p + 8 g + j`` (of ``0 .. n_bins - 2``), cos for ``s = 0``,
+    sin for ``s = 1``; bin 0's sin column (zero) holds the cos column of
+    the Nyquist bin, whose sin column (the rounding residue of sin(pi t))
+    is left out; zero past the taps and the bins."""
+    taps, n_bins = k_hi - k_lo, basis.shape[2]
+    tpp, _, n_panels, _ = tc_layout(taps, n_bins)
+    cs = basis.new_zeros(2, tpp, n_panels * 128, dtype=torch.bfloat16)
+    cs[:, :taps, : n_bins - 1] = basis[:, k_lo:k_hi, : n_bins - 1]
+    cs[1, :taps, 0] = basis[0, k_lo:k_hi, n_bins - 1]
+    cs = cs.reshape(2, tpp, n_panels, 16, 8).permute(2, 1, 3, 0, 4)
+    return cs.reshape(n_panels, tpp, 256).contiguous()
+
+
+def tc_filterbank(fb: torch.Tensor) -> torch.Tensor:
+    """``[n_bins, n_mels]`` -> ``[kb, n_mels]`` bf16: the rows of bins
+    ``0 .. n_bins - 2``, then at ``n_panels * 128`` the Nyquist bin's; zero
+    elsewhere."""
+    n_bins = fb.shape[0]
+    _, _, n_panels, kb = tc_layout(1, n_bins)
+    out = fb.new_zeros(kb, fb.shape[1], dtype=torch.bfloat16)
+    out[: n_bins - 1] = fb[: n_bins - 1]
+    out[n_panels * 128] = fb[n_bins - 1]
+    return out
+
+
+# tensor -> {key: (the tensor's in-place version, operand)}; an entry goes
+# with its tensor
+_tc_cache = WeakTensorKeyDictionary()
+
+
+def _tc_cached(t: torch.Tensor, key, build):
+    """``build()`` once per (tensor, key), again if the tensor was written
+    in place (inference tensors cannot be)."""
+    version = -1 if t.is_inference() else t._version
+    per_key = _tc_cache.setdefault(t, {})
+    if key not in per_key or per_key[key][0] != version:
+        per_key[key] = (version, build())
+    return per_key[key][1]
 
 
 def _operand_dtype(precision: str) -> torch.dtype:
@@ -211,17 +303,18 @@ def log_mel_frames_plain(
 ) -> torch.Tensor:
     """Plain torch version of the frames kernel, the same arithmetic in
     f32. Under ``"default"`` the operands of both products are rounded to
-    bf16 first (the frames here, the power before the filterbank product;
-    basis and fb arrive in bf16) and widened exactly."""
+    bf16 first (the frames here, the power ``re^2 + im^2`` once, after its
+    f32 sum, before the filterbank product, as ``_mel_kernel``'s
+    DEFAULT-precision dot rounds it; basis and fb arrive in bf16) and widened
+    exactly."""
     _operand_dtype(precision)
     b32 = basis.float()
     f = frames if precision == "highest" else frames.bfloat16().float()
     re = f @ b32[0]
     im = f @ b32[1]
-    if precision == "highest":
-        p = re * re + im * im
-    else:
-        p = (re * re).bfloat16().float() + (im * im).bfloat16().float()
+    p = re * re + im * im
+    if precision == "default":
+        p = p.bfloat16().float()
     db = 10.0 * torch.log10(torch.clamp(p @ fb.float(), min=1e-10))
     nrm = torch.clamp(torch.linalg.vector_norm(db, dim=-1, keepdim=True), min=1e-12)
     return db / nrm
@@ -247,23 +340,37 @@ def log_mel_frames(
         return log_mel_frames_plain(frames, basis, fb, precision=precision)
     if frames.device.type != "cuda":
         raise RuntimeError(f"no frames log-mel kernel for device {frames.device}")
-    n_fft, n_mels = basis.shape[1], fb.shape[1]
+    n_fft, n_bins, n_mels = basis.shape[1], basis.shape[2], fb.shape[1]
     k_lo, k_hi = _window_taps(n_fft, win_length if win_length else n_fft)
-    if frames_smem_bytes(k_hi - k_lo, n_fft, n_mels) > MAX_SMEM:
+    if precision == "highest":
+        fits = frames_smem_bytes(k_hi - k_lo, n_fft, n_mels) <= MAX_SMEM
+    else:
+        taps = tc_taps(k_lo, k_hi)[1]
+        fits = n_mels in TC_MELS and tc_stages(taps, n_bins, n_mels) > 0
+    if not fits:
         raise ValueError(
-            f"n_fft={n_fft}: a {TILE_FRAMES}-frame tile does not fit in shared memory"
+            f"n_fft={n_fft}, n_mels={n_mels}: the {precision!r} frames kernel's tile does not "
+            "fit in shared memory or takes no such n_mels"
         )
     out = torch.empty(frames.shape[0], n_mels, device=frames.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
     lib = _frames_lib()
-    fn = lib.titanet_mel_frames_f32 if precision == "highest" else lib.titanet_mel_frames_bf16
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        code = fn(
-            frames.data_ptr(), frames.shape[0], basis.data_ptr(), fb.data_ptr(), out.data_ptr(),
-            n_fft, k_lo, k_hi, n_mels, stream,
-        )
+        if precision == "highest":
+            code = lib.titanet_mel_frames_f32(
+                frames.data_ptr(), frames.shape[0], basis.data_ptr(), fb.data_ptr(),
+                out.data_ptr(), n_fft, k_lo, k_hi, n_mels, stream,
+            )
+        else:
+            k0, taps = tc_taps(k_lo, k_hi)
+            panels = _tc_cached(basis, (k0, k_hi), lambda: tc_basis(basis, k0, k_hi))
+            fbp = _tc_cached(fb, None, lambda: tc_filterbank(fb))
+            code = lib.titanet_mel_frames_bf16(
+                frames.data_ptr(), frames.shape[0], panels.data_ptr(), fbp.data_ptr(),
+                out.data_ptr(), n_fft, k0, taps, n_bins, n_mels, stream,
+            )
     if code != 0:
         raise RuntimeError(
             f"frames log-mel kernel launch failed: "
