@@ -7,15 +7,18 @@ Phases (any failure exits non-zero and prints no result):
   1. build the CUDA kernels from ``titanet_torch/csrc`` (one nvcc each, in
      parallel), timed;
   2. fused log-mel kernel vs its plain version at the serving shapes
-     (B=128 x 3 s), f32 (atol 1e-4) and bf16 (atol 5e-2);
+     (B=128 x 3 s), f32 (``logmel_kernel``, atol 1e-4) and bf16 (the
+     tensor-core ``logmel_tc_kernel``, atol 2e-3), timed by device time;
   3. attentive-pool kernel vs its plain version at B=128, T=301, C=1536,
      H=128, with and without the fold, bf16 (rtol 2e-2) and f32 (rtol 1e-4);
   4. ``embed_step`` on TitaNet-S (17 mega-blocks, random weights from seed
      0) at B=128 x 3 s, serving bf16 and parity f32 (TF32 off): launch
-     counts, unit-norm finite embeddings, bf16-vs-f32 cosine, agreement with
+     counts (bf16 through the tensor-core log-mel kernel), unit-norm finite
+     embeddings, bf16-vs-f32 cosine, agreement with
      the all-plain route, median ms per batch;
   5. ``SpeakerEmbedder.embed`` on 1.2 s, 3 s, 7 s and 40 s requests: each
-     padded-batch embedding equals the request's solo embedding;
+     padded-batch embedding equals the request's solo embedding; every
+     log-mel launch on the tensor-core kernel;
   6. attentive-pool backward kernel vs its plain version at B=128, T=301,
      C=1536, H=128, bf16 and f32, fold on and off: every gradient; the
      workspace bytes of each route;
@@ -63,8 +66,9 @@ kernels, the pallas-route training step for the backward kernels, the
 fused serving call for the frames and mega-block kernels), error
 vs its plain version, time, plain time, bound and library time, every number
 from this run, and ``timed_by``: ``"profiler"`` (device time of the
-kernel's launches) or ``"events"`` (CUDA events around its wrapper). The
-last line is ``{"ok": true, "device": {...}}``.
+kernel's launches), or ``"events"`` (CUDA events around its wrapper) where
+the profiler saw no device time. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -102,8 +106,14 @@ PREV_MS = {
     # "default" before their redesign (same card and shapes, CUDA events)
     ("dw_bwd", 3): 0.160, ("dw_bwd", 7): 0.183, ("dw_bwd", 11): 0.204,
     ("mel_frames", "default"): 1.628,
+    # the fused log-mel's bf16 route on the FP32 cores (logmel_kernel),
+    # before the tensor-core kernel (same card and shapes, CUDA events)
+    ("logmel", "bf16"): 1.088,
 }
 DW_KERNELS = ("dw_bwd_kernel", "dw_reduce_kernel")
+# the kernels of csrc/attn_pool.cu, both routes, forward and backward
+POOL_KERNELS = ("tc_u_kernel", "tc_stats_kernel", "tc_de_kernel", "tc_dh_kernel", "tc_atb_kernel",
+                "sum_parts_kernel", "attn_u_kernel", "attn_stats_kernel", "attn_de_kernel", "gemm_kernel")
 
 
 def card() -> str:
@@ -130,27 +140,37 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names=None, iters=10, warmup=3):
+def device_ms(fn, names=None, iters=10, warmup=3, attempts=3):
     """Device time of one ``fn()`` in ms: the CUDA kernels that
     ``torch.profiler`` records over ``iters`` calls (those whose name holds
-    one of ``names``, or all), summed and divided by ``iters``. Returns
-    ``(ms, "profiler")``, or CUDA-event time and ``"events"`` where the
-    profiler saw no device time."""
+    one of ``names``, or all), summed and divided by ``iters``. A trace can
+    lose kernel records: after a large one (phase 8's train steps) each
+    trace lost its first two (18 of 20 single-launch calls recorded,
+    NVIDIA H100 80GB HBM3), and now and then one loses more. So the calls
+    are traced after a traced warm-up cycle of as many calls, which takes the
+    first loss, and a trace is taken again (``attempts`` in all) unless it
+    holds the same whole number of records for every call. Returns
+    ``(ms, "profiler")``, or CUDA-event time and ``"events"`` where no trace
+    was whole."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and (names is None or any(n in e.name for n in names)))
-    if us > 0:
-        return us / iters / 1e3, "profiler"
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up cycle, then the recorded one
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and (names is None or any(n in e.name for n in names))]
+        if us and len(us) % iters == 0:
+            return sum(us) / iters / 1e3, "profiler"
     return cuda_ms(fn, iters=iters, warmup=0), "events"
 
 
@@ -211,7 +231,7 @@ def main() -> int:
     built = _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built)} {tag}")
     for src, (secs, log) in built.items():
-        info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "C75" in ln]
         print(f"  nvcc {src}: {secs:.2f} s; " + " / ".join(info))
 
     rng = np.random.default_rng(0)
@@ -222,15 +242,22 @@ def main() -> int:
     lengths = torch.full((B,), n_samples, dtype=torch.int32, device=dev)
     report = {}
 
-    # 2. fused log-mel kernel vs plain
+    # 2. fused log-mel kernel vs plain. bf16 runs the tensor-core kernel:
+    # 2e-3, over 4x the 4.6e-4 this input gives (NVIDIA H100 80GB HBM3,
+    # 700 W), a square summed in another order landing on the other side of
+    # a bf16 rounding
     buf32, n_frames, _ = tf._framing_buffer(wav, 512, 160, lengths)
-    for cfg, dt, atol in ((cfg32, torch.float32, 1e-4), (cfg16, torch.bfloat16, 5e-2)):
+    for cfg, dt, atol, kernel in ((cfg32, torch.float32, 1e-4, "logmel_kernel"),
+                                  (cfg16, torch.bfloat16, 2e-3, "logmel_tc_kernel")):
         buf = buf32.to(dt).contiguous()
         _, _, _, basis, fb = tf._constants(cfg, dev, dt)
         run = lambda: log_mel_fused(buf, lengths, basis, fb, n_frames=n_frames, hop=160, win_length=400)  # noqa: E731
         plain = lambda: log_mel_fused_plain(buf, lengths, basis, fb, n_frames=n_frames, hop=160)  # noqa: E731
+        tc_before = log_mel_fused.tc_launches
         out, ref = run(), plain()
         torch.cuda.synchronize()
+        if log_mel_fused.tc_launches - tc_before != (dt == torch.bfloat16):
+            raise AssertionError(f"log-mel {dt}: expected {kernel}")
         err = (out - ref).abs().max().item()
         if not torch.isfinite(out).all() or err > atol:
             raise AssertionError(f"log-mel {dt}: max abs err {err} > {atol}")
@@ -240,10 +267,14 @@ def main() -> int:
         nbytes = buf.numel() * buf.element_size() + out.numel() * 4 \
             + (2 * 400 * n_bins + fb.numel()) * basis.element_size()
         bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
-        ms, pms = cuda_ms(run), cuda_ms(plain, iters=5)
-        report[("logmel", dt)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
-        print(f"logmel {dt}: max_abs_err {err:.3e} (atol {atol}); kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) {tag}")
+        ms, timed_by = device_ms(run, names=(kernel,), iters=20)
+        pms = cuda_ms(plain, iters=5)
+        report[("logmel", dt)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                      timed_by=timed_by)
+        was = f"; FP32-core design: {PREV_MS['logmel', 'bf16']} ms by events" if dt == torch.bfloat16 else ""
+        print(f"logmel {dt} ({kernel}): max_abs_err {err:.3e} (atol {atol}); kernel {ms:.4f} ms (device time, "
+              f"{timed_by}{was}), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB) {tag}")
 
     # 3. attentive-pool kernel vs plain
     t_frames, ch, hid = n_frames, 1536, 128
@@ -264,16 +295,17 @@ def main() -> int:
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=rtol)
-            ms = cuda_ms(lambda: attentive_pool_fwd(*args))
+            ms, timed_by = device_ms(lambda: attentive_pool_fwd(*args), names=POOL_KERNELS, iters=20)
             pms = cuda_ms(lambda: attentive_pool_fwd_plain(*args), iters=5)
             ops = 4 * B * t_frames * ch * hid
             nbytes = (h.numel() + wa.numel() + wb.numel()) * h.element_size() + 4 * (3 * ch + hid) \
                 + out.numel() * out.element_size()
             bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
-            report[("pool", dt, fold)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+            report[("pool", dt, fold)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                              timed_by=timed_by)
             was = PREV_MS.get(("pool", fold)) if dt == torch.bfloat16 else None
-            print(f"attn_pool {dt} fold={fold}: max_abs_err {err:.3e} (rtol {rtol}); kernel {ms:.4f} ms"
-                  f"{f' (fp32-core design: {was} ms)' if was else ''}, "
+            print(f"attn_pool {dt} fold={fold}: max_abs_err {err:.3e} (rtol {rtol}); kernel {ms:.4f} ms "
+                  f"(device time, {timed_by}){f' (fp32-core design: {was} ms by events)' if was else ''}, "
                   f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
                   f"{nbytes / 1e6:.1f} MB) {tag}")
     del h32, h, buf32
@@ -282,12 +314,14 @@ def main() -> int:
     m16 = get_titanet(n_mega_blocks=17, dtype=torch.bfloat16, device=dev,
                       generator=torch.Generator().manual_seed(0))
     m32 = get_titanet(n_mega_blocks=17, device=dev, generator=torch.Generator().manual_seed(0))
-    log_mel_fused.launches = attentive_pool_fwd.launches = 0
+    log_mel_fused.launches = log_mel_fused.tc_launches = attentive_pool_fwd.launches = 0
     e16 = embed_step(m16, wav, lengths, frontend=cfg16, device=dev)
     torch.cuda.synchronize()
     launches = {"logmel": log_mel_fused.launches, "pool": attentive_pool_fwd.launches}
     if launches["logmel"] < 1 or launches["pool"] < 1:
         raise AssertionError(f"serving run did not go through both kernels: {launches}")
+    if log_mel_fused.tc_launches != launches["logmel"]:
+        raise AssertionError("bf16 serving run: the log-mel did not take the tensor-core kernel")
     log_mel_fused.launches = attentive_pool_fwd.launches = 0
     e32 = embed_step(m32, wav, lengths, frontend=cfg32, device=dev)
     torch.cuda.synchronize()
@@ -307,7 +341,7 @@ def main() -> int:
     cos_plain = torch.nn.functional.cosine_similarity(e32, plain32, dim=-1).min().item()
     if cos_plain <= 0.99999:
         raise AssertionError(f"f32 kernel route vs all-plain route cosine {cos_plain}")
-    print(f"embed_step: launches per serving call {launches}; min cosine bf16 vs f32 {cos:.7f}; "
+    print(f"embed_step: launches per serving call {launches} (log-mel on logmel_tc_kernel); min cosine bf16 vs f32 {cos:.7f}; "
           f"f32 kernel route vs plain route {cos_plain:.9f} {tag}")
     for label, model, cfg in (("bf16 serving", m16, cfg16), ("f32 parity", m32, cfg32)):
         times = []
@@ -326,15 +360,20 @@ def main() -> int:
     # 5. SpeakerEmbedder on variable-length requests
     embedder = SpeakerEmbedder(m16, cfg16, device=dev)
     reqs = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in (1.2, 3, 7, 40)]
+    log_mel_fused.launches = log_mel_fused.tc_launches = 0
     t0 = time.perf_counter()
     batched = embedder.embed(reqs)
     t_batch = time.perf_counter() - t0
     solo = np.concatenate([embedder.embed([r]) for r in reqs])
+    embedder_launches = (log_mel_fused.launches, log_mel_fused.tc_launches)
+    if embedder_launches[0] < 1 or embedder_launches[1] != embedder_launches[0]:
+        raise AssertionError(f"SpeakerEmbedder: log-mel launches (all, tensor-core) {embedder_launches}")
     cosines = np.sum(batched * solo, -1) / (np.linalg.norm(batched, axis=-1) * np.linalg.norm(solo, axis=-1))
     if batched.shape != (4, 192) or not np.isfinite(batched).all() or cosines.min() <= 0.9999:
         raise AssertionError(f"SpeakerEmbedder padded vs solo cosines {cosines}")
     print(f"SpeakerEmbedder: 4 requests (1.2/3/7/40 s) in {t_batch * 1e3:.1f} ms; padded vs solo "
-          f"cosines {np.array2string(cosines, precision=7)} {tag}")
+          f"cosines {np.array2string(cosines, precision=7)}; log-mel launches {embedder_launches[0]}, all on "
+          f"logmel_tc_kernel {tag}")
 
     del embedder, m16
 
@@ -365,7 +404,7 @@ def main() -> int:
                     err = max(x.abs().max().item(), r.abs().max().item())
                 if err > tol * scale:
                     raise AssertionError(f"pool backward {dt} fold={fold}: {gname} error {err} > {tol} x {scale}")
-            ms = cuda_ms(lambda: attentive_pool_bwd(*args), iters=10)
+            ms, timed_by = device_ms(lambda: attentive_pool_bwd(*args), names=POOL_KERNELS, iters=10)
             pms = cuda_ms(lambda: attentive_pool_bwd_plain(*args), iters=3)
             ops = 12 * B * t_frames * ch * hid
             nbytes = 2 * h.numel() * h.element_size() + g.numel() * g.element_size() \
@@ -373,14 +412,16 @@ def main() -> int:
                 + 4 * (2 * ch * hid + 3 * ch + hid)
             bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
             dh_err = (got[0].float() - ref[0].float()).abs().max().item()
-            report[("pool_bwd", dt, fold)] = dict(max_abs_err=dh_err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+            report[("pool_bwd", dt, fold)] = dict(max_abs_err=dh_err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                                  timed_by=timed_by)
             was = PREV_MS.get(("pool_bwd", fold)) if dt == torch.bfloat16 else None
             work = pool_kernels._lib().titanet_attn_pool_bwd_workspace_bytes(B, t_frames, ch, hid, h.element_size())
             if work != pool_kernels.bwd_workspace_bytes(B, t_frames, ch, hid, h.element_size()):
                 raise AssertionError(f"pool backward {dt}: workspace {work} B differs from the Python mirror")
             print(f"attn_pool_bwd {dt} fold={fold}: error / max per gradient "
                   f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol {tol}); dh max abs err {dh_err:.3e}; "
-                  f"kernel {ms:.4f} ms{f' (fp32-core design: {was} ms)' if was else ''}, plain {pms:.4f} ms, "
+                  f"kernel {ms:.4f} ms (device time, {timed_by}){f' (fp32-core design: {was} ms by events)' if was else ''}, "
+                  f"plain {pms:.4f} ms, "
                   f"bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); workspace {work / 1e6:.1f} MB ({work} B; one f32 [B*T, C] array would be "
                   f"{B * t_frames * ch * 4 / 1e6:.1f} MB) {tag}")
     del h32, h, g32, g
@@ -594,7 +635,7 @@ def main() -> int:
         nbytes = B * n_frames * 400 * 4 + out.numel() * 4 + (2 * 400 * 257 + fb.numel()) * basis.element_size()
         bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
         ms, timed_by = device_ms(run, names=("mel_frames",), iters=20)
-        fms, _ = device_ms(fused, names=("logmel_kernel",), iters=20)
+        fms, _ = device_ms(fused, names=("logmel_kernel", "logmel_tc_kernel"), iters=20)
         pms = cuda_ms(plain, iters=5)
         report[("mel_frames", dt)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
                                           timed_by=timed_by)
@@ -663,16 +704,17 @@ def main() -> int:
                 + 4 * (dw_w.numel() + dw_b.numel() + pw_b.numel() + bn.numel())
             bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
             iters = 20 if c_ == 256 else 5
-            ms = cuda_ms(lambda: fused_sub_blocks(*args, kernel_size=k_), iters=iters)
+            ms, timed_by = device_ms(lambda: fused_sub_blocks(*args, kernel_size=k_), names=("megablock",),
+                                     iters=iters)
             pms = cuda_ms(lambda: fused_sub_blocks_plain(*args, kernel_size=k_), iters=3)
-            ums = cuda_ms(library_route, iters=iters)
+            ums, _ = device_ms(library_route, iters=iters)
             report[("megablock", c_, dt)] = dict(max_abs_err=max(e_edge, e_in), ms=ms, plain_ms=pms,
-                                                 bound_ms=bms, bound_by=by)
-            was = f" (fp32-core design: {PREV_MS['megablock', c_]} ms)" if dt == torch.bfloat16 else ""
+                                                 bound_ms=bms, bound_by=by, timed_by=timed_by)
+            was = f"; fp32-core design: {PREV_MS['megablock', c_]} ms by events" if dt == torch.bfloat16 else ""
             print(f"megablock C={c_} k={k_} {dt} ({kernel_design(dt, c_)}): max abs err first/last {edge} rows {e_edge:.3e}, interior "
-                  f"{e_in:.3e} (tol {tol:.3e}, largest entry {top:.3f}); kernel {ms:.4f} ms{was}, plain {pms:.4f} ms, "
-                  f"unfused library route {ums:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB) {tag}")
+                  f"{e_in:.3e} (tol {tol:.3e}, largest entry {top:.3f}); kernel {ms:.4f} ms (device time, {timed_by}{was}), "
+                  f"plain {pms:.4f} ms, unfused library route {ums:.4f} ms (device time), bound {bms:.4f} ms ({by}; "
+                  f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) {tag}")
             del args, out, ref, unfused
         if c_ == 256:
             # ragged: 9 tiles of 124 rows, the last one of 8

@@ -89,6 +89,89 @@ def test_mel_kernel_matches_plain(cuda_device, precision, geometry):
     torch.testing.assert_close(out, ref, rtol=0, atol=tol)
 
 
+# The fused kernel's bf16 tensor-core route vs its plain version: over 4x
+# the 4.6e-4 that chip_smoke.py measures at B=128 x 3 s (NVIDIA H100 80GB
+# HBM3, 700 W): a square summed in another order than the plain version's
+# lands on the other side of a bf16 rounding.
+FUSED_TC_ATOL = 2e-3
+
+
+def _fused_case(device, geometry, masked, n_mels=80, seed=6):
+    n_fft, win, hop = geometry
+    cfg = tf.FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop, n_mels=n_mels, precision="default")
+    wav = torch.from_numpy(np.random.default_rng(seed).standard_normal((3, 24000)) * 0.1).float().to(device)
+    lengths = torch.tensor([24000, 16000, 9000], dtype=torch.int32, device=device) if masked else None
+    buf, n_frames, _ = tf._framing_buffer(wav, n_fft, hop, lengths)
+    _, _, _, basis, fb = tf._constants(cfg, device, torch.bfloat16)
+    return buf.bfloat16().contiguous(), lengths, basis, fb, dict(n_frames=n_frames, hop=hop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("geometry", [(512, 400, 160), (512, 400, 80), (256, 200, 159)])
+def test_fused_tc_kernel_matches_plain(cuda_device, geometry, masked):
+    """bf16 at these geometries runs ``logmel_tc_kernel`` (hop 159 takes its
+    2-byte loads); within FUSED_TC_ATOL of the plain version, masked rows
+    zero, and two calls give identical bits."""
+    buf, lengths, basis, fb, kw = _fused_case(cuda_device, geometry, masked)
+    win = geometry[1]
+    before = (log_mel_fused.launches, log_mel_fused.tc_launches)
+    out = log_mel_fused(buf, lengths, basis, fb, win_length=win, **kw)
+    again = log_mel_fused(buf, lengths, basis, fb, win_length=win, **kw)
+    torch.cuda.synchronize()
+    assert (log_mel_fused.launches, log_mel_fused.tc_launches) == (before[0] + 2, before[1] + 2)
+    ref = log_mel_fused_plain(buf, lengths, basis, fb, **kw)
+    assert torch.isfinite(out).all() and torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=0, atol=FUSED_TC_ATOL)
+    if masked:
+        assert not out[2, 1 + 9000 // kw["hop"] :].any()
+
+
+@pytest.mark.cuda
+def test_fused_tc_kernel_rounds_re2_and_im2_apart(cuda_device):
+    """``_fused_kernel`` rounds re^2 and im^2 to bf16 apart. Power-of-two
+    samples at least n_fft apart give every frame one non-zero tap, so re
+    and im are exact products and re^2, im^2 exact in f32: the kernel and
+    the twice-rounded plain version round the same squares, 1e-6 apart
+    (only the mel sums' order moves their last bits); rounding the power
+    once lands further than 1e-5 away."""
+    cfg = tf.FrontendConfig.from_ms(precision="default")
+    _, _, _, basis, fb = tf._constants(cfg, cuda_device, torch.bfloat16)
+    rng = np.random.default_rng(3)
+    buf = np.zeros((4, 48640), np.float32)
+    spikes = buf[:, 600:-600:613].shape
+    buf[:, 600:-600:613] = rng.choice([-1.0, 1.0], spikes) * 2.0 ** rng.integers(-6, 2, spikes)
+    buf = torch.from_numpy(buf).bfloat16().to(cuda_device)
+    before = log_mel_fused.tc_launches
+    out = log_mel_fused(buf, None, basis, fb, n_frames=301, hop=160, win_length=400)
+    torch.cuda.synchronize()
+    assert log_mel_fused.tc_launches == before + 1
+    apart = log_mel_fused_plain(buf, None, basis, fb, n_frames=301, hop=160)
+    frames, b32 = buf.float().unfold(1, 512, 160)[:, :301], basis.float()
+    re, im = frames @ b32[0], frames @ b32[1]
+    db = 10.0 * torch.log10(torch.clamp((re * re + im * im).bfloat16().float() @ fb.float(), min=1e-10))
+    once = db / torch.clamp(torch.linalg.vector_norm(db, dim=-1, keepdim=True), min=1e-12)
+    assert torch.isfinite(out).all()
+    assert (out - apart).abs().max().item() <= 1e-6
+    assert (out - once).abs().max().item() > 1e-5
+
+
+@pytest.mark.cuda
+def test_fused_routes_by_geometry(cuda_device):
+    """The TitaNet frontend takes the tensor-core kernel; 64 mels, which it
+    is not built for, take ``logmel_kernel`` (bf16 on the FP32 cores, held
+    to 5e-2 as in test_mel_kernel_matches_plain)."""
+    for n_mels, tc in ((80, 1), (64, 0)):
+        buf, lengths, basis, fb, kw = _fused_case(cuda_device, (512, 400, 160), True, n_mels=n_mels)
+        before = (log_mel_fused.launches, log_mel_fused.tc_launches)
+        out = log_mel_fused(buf, lengths, basis, fb, win_length=400, **kw)
+        torch.cuda.synchronize()
+        counts = (log_mel_fused.launches - before[0], log_mel_fused.tc_launches - before[1])
+        assert counts == (1, tc), (n_mels, counts)
+        err = (out - log_mel_fused_plain(buf, lengths, basis, fb, **kw)).abs().max().item()
+        assert out.shape[-1] == n_mels and err <= (FUSED_TC_ATOL if tc else 5e-2), (n_mels, err)
+
+
 @pytest.mark.cuda
 def test_small_bf16_embed_step_runs_both_kernels(cuda_device):
     from titanet_torch.models.titanet import TitaNet
@@ -101,9 +184,10 @@ def test_small_bf16_embed_step_runs_both_kernels(cuda_device):
     wav = np.random.default_rng(7).standard_normal((4, 16000)).astype(np.float32) * 0.1
     lengths = np.full(4, 16000, np.int32)
     fe = tf.FrontendConfig.from_ms(precision="default", use_pallas_fused=True)
-    log_mel_fused.launches = attentive_pool_fwd.launches = 0
+    log_mel_fused.launches = log_mel_fused.tc_launches = attentive_pool_fwd.launches = 0
     emb = embed_step(model, wav, lengths, frontend=fe, device=cuda_device).float()
     assert log_mel_fused.launches == 1 and attentive_pool_fwd.launches == 1
+    assert log_mel_fused.tc_launches == 1  # the tensor-core log-mel kernel
     assert emb.shape == (4, 192) and torch.isfinite(emb).all()
     torch.testing.assert_close(torch.linalg.vector_norm(emb, dim=-1), torch.ones(4, device=cuda_device),
                                rtol=0, atol=1e-2)

@@ -13,7 +13,9 @@ from titanet_torch.ops.kernels.melspec import (
     log_mel_fused_plain,
     log_mel_spectrogram_pallas,
 )
+from titanet_torch.ops.kernels import melspec as ms
 from titanet_tpu.ops import frontend as jf
+from tests.torch_port_helpers import fused_tc_walk
 
 ATOL = 2e-5
 
@@ -248,3 +250,83 @@ def test_frames_wrapper_checks_inputs_and_counts_no_cpu_launch():
         log_mel_frames(frames[:, :400], basis, fb)
     with pytest.raises(ValueError):
         log_mel_frames(frames, basis, fb, precision="high")
+
+
+@pytest.mark.parametrize("geometry", [(512, 400, 160), (512, 400, 80), (256, 200, 159)])
+def test_fused_tc_walk_matches_pallas_fused_kernel(interpret_mode, geometry):
+    """The walk of the fused tensor-core kernel vs the Pallas kernel it
+    replaces at precision="default", in interpret mode: there the CPU takes
+    the bf16 operands as they are, sums exact products in f32, and rounds
+    ``spec * spec`` to bf16 column by column (re^2 and im^2 apart), the
+    walk's arithmetic in another summation order. So the walk vs plain
+    tolerance holds: under 1e-3, most entries within 1e-6. Five 0.5 s
+    utterances (the last 128-row tile straddles them), masked."""
+    from titanet_tpu.ops.pallas.melspec import log_mel_spectrogram_pallas_fused
+
+    n_fft, win, hop = geometry
+    lengths = [8000, 6000, 3000, 8000, 700]
+    wav = _wavs(12, 5, 8000, lengths)
+    jcfg = jf.FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop, precision="default")
+    ref, _ = log_mel_spectrogram_pallas_fused(jnp.asarray(wav), jcfg, lengths=jnp.asarray(lengths))
+    cfg = tf.FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop, precision="default")
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    buf, n_frames, _ = tf._framing_buffer(torch.from_numpy(wav), n_fft, hop, lens)
+    _, _, _, basis, fb = tf._constants(cfg, torch.device("cpu"), torch.bfloat16)
+    got = fused_tc_walk(buf.bfloat16().contiguous(), lens, basis, fb, n_frames=n_frames, hop=hop,
+                        win_length=win, dtype=torch.float32).numpy()
+    assert got.shape == ref.shape == (5, n_frames, 80)
+    err = np.abs(got - np.asarray(ref))
+    assert err.max() < 1e-3 and (err > 1e-6).mean() < 0.05
+
+
+def test_fused_tc_walk_rounds_re2_and_im2_apart_as_the_pallas_fused_kernel():
+    """``_fused_kernel`` squares ``spec`` in f32 and rounds the squares to
+    bf16 before its FB2 product, which repeats the filterbank over the re and
+    im halves: re^2 and im^2 are rounded apart. Emulated in numpy with the
+    JAX package's own weights (basis and fb rounded to bf16, products summed
+    in f32). Samples 250 apart leave each frame's 400-tap window one or two
+    non-zero taps, so re and im are sums of at most two exact products and
+    every summation order gives the same bits: the tensor-core kernel's walk
+    equals the apart-rounded emulation to 1e-6, and is further than 1e-5
+    from the power rounded once (the frames route's arithmetic)."""
+    from titanet_tpu.ops.pallas.melspec import _fused_weights
+
+    basis_j, fb_pad, _ = _fused_weights(jf.FrontendConfig.from_ms(precision="default"))
+    bins_pad = fb_pad.shape[0]
+    rng = np.random.default_rng(13)
+    n_frames, hop = 40, 160
+    buf = np.zeros((2, (n_frames - 1) * hop + 512), np.float32)
+    buf[:, 100::250] = rng.standard_normal(buf[:, 100::250].shape) * 0.3
+    buf = torch.from_numpy(buf).bfloat16()
+    frames = buf.unfold(1, 512, hop)[:, :n_frames].float().reshape(-1, 512).numpy()
+    spec = frames @ _bf16(basis_j)
+    re, im = spec[:, :bins_pad], spec[:, bins_pad:]
+
+    def normalized(mel):
+        db = 10.0 * np.log10(np.maximum(mel, 1e-10))[:, :80]
+        return db / np.maximum(np.linalg.norm(db, axis=-1, keepdims=True), 1e-12)
+
+    fbb = _bf16(fb_pad)
+    apart = normalized(_bf16(re * re) @ fbb + _bf16(im * im) @ fbb)
+    once = normalized(_bf16(re * re + im * im) @ fbb)
+    _, _, _, basis, fb = tf._constants(tf.FrontendConfig.from_ms(precision="default"),
+                                       torch.device("cpu"), torch.bfloat16)
+    walk = fused_tc_walk(buf, None, basis, fb, n_frames=n_frames, hop=hop, win_length=400,
+                         dtype=torch.float32).reshape(-1, 80).numpy()
+    assert np.abs(walk - apart).max() <= 1e-6
+    assert np.abs(walk - once).max() > 1e-5
+
+
+def test_fused_wrapper_runs_plain_on_cpu_for_either_route():
+    """On a CPU tensor the wrapper runs the plain version and counts no
+    launch, on the tensor-core route's geometry (bf16, 80 mels) as on
+    ``logmel_kernel``'s (64 mels)."""
+    for n_mels in (80, 64):
+        cfg = tf.FrontendConfig.from_ms(precision="default", n_mels=n_mels)
+        assert ms.fused_tc_supports(cfg.n_fft, cfg.win_length, n_mels) == (n_mels == 80)
+        _, _, _, basis, fb = tf._constants(cfg, torch.device("cpu"), torch.bfloat16)
+        buf = torch.from_numpy(_wavs(14, 2, 2000)).bfloat16()
+        before = (log_mel_fused.launches, log_mel_fused.tc_launches)
+        out = log_mel_fused(buf, None, basis, fb, n_frames=10, hop=160, win_length=400)
+        assert torch.equal(out, log_mel_fused_plain(buf, None, basis, fb, n_frames=10, hop=160))
+        assert (log_mel_fused.launches, log_mel_fused.tc_launches) == before

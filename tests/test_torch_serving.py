@@ -101,8 +101,8 @@ def test_speaker_embedder_refuses_quantized():
 
 
 def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
-    """Every module of titanet_torch, chip_smoke.py and bench_torch.py
-    import with jax, flax, optax and titanet_tpu blocked; without a card the entry points raise unless
+    """Every module of titanet_torch, chip_smoke.py and the bench_*.py of the
+    port import with jax, flax, optax and titanet_tpu blocked; without a card the entry points raise unless
     device='cpu' is passed."""
     code = textwrap.dedent(
         """
@@ -117,7 +117,7 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
             importlib.import_module(name)
         for name in ("models.fused_inference", "models.quantized", "ops.kernels.megablock"):
             assert "titanet_torch." + name in names, name
-        import bench_torch, chip_smoke
+        import bench_logmel_tc, bench_torch, chip_smoke
         from titanet_torch.models import get_titanet
         from titanet_torch.ops.frontend import FrontendConfig
         from titanet_torch.train.extractor import SpeakerEmbedder
@@ -157,11 +157,11 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
 
 
 def test_port_sources_hold_no_jax_import():
-    """No import statement anywhere in titanet_torch/, chip_smoke.py or
-    bench_torch.py (inside functions too) names jax, flax, optax or the JAX
-    package."""
+    """No import statement anywhere in titanet_torch/, chip_smoke.py or the
+    port's bench_torch.py and bench_logmel_tc.py (inside functions too) names
+    jax, flax, optax or the JAX package."""
     files = glob.glob(os.path.join(REPO, "titanet_torch", "**", "*.py"), recursive=True)
-    files += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
+    files += [os.path.join(REPO, name) for name in ("chip_smoke.py", "bench_torch.py", "bench_logmel_tc.py")]
     assert len(files) > 20
     banned = ("jax", "flax", "optax", "titanet_tpu")
     for path in files:

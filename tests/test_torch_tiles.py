@@ -2,8 +2,9 @@
 card: the Python mirrors of the mega-block kernel's tiles (rows, halo,
 shared memory), of the pool backward's workspace, of the depthwise
 backward's persistent grid (tile walk, frame groups, fixed-order partial
-sums, workspace) and of the frames log-mel kernel's tensor-core operands
-(interleaved basis panels, padded filterbank).
+sums, workspace), of the frames log-mel kernel's tensor-core operands
+(interleaved basis panels, padded filterbank) and of the fused log-mel
+kernel's (rows over the whole batch, doubled filterbank, routing).
 
 These tests guard the mirrors' numbers and the halo arithmetic that follows
 from them; they run no line of ``csrc/megablock.cu`` or
@@ -27,6 +28,7 @@ from titanet_torch.ops.kernels import dwconv as dk
 from titanet_torch.ops.kernels import megablock as mk
 from titanet_torch.ops.kernels import melspec as ms
 from titanet_torch.ops.kernels import pool as pk
+from tests.torch_port_helpers import fused_plain64, fused_tc_walk
 
 DTYPES = [torch.float32, torch.bfloat16]
 TITANET_SHAPES = [(256, 3, 3), (512, 7, 3), (1024, 11, 3)]  # TitaNet S, M, L
@@ -447,3 +449,92 @@ def test_frames_tc_basis_interleaves_cos_and_sin():
             want = basis[0, 48 + t, 256] if t < 408 else 0
         assert panels[p, t, col] == want
     assert not basis[1, :, 0].any()
+
+
+# ------------------------------------------- fused log-mel, tensor cores
+
+FUSED_GEOMETRIES = [(512, 400, 160), (512, 400, 80), (256, 200, 159)]
+# five 0.5 s utterances: 255 rows (505 at hop 80), so the last 128-row tile
+# is partial and holds the ends of several utterances
+FUSED_LENGTHS = {"unmasked": None, "masked": [8000, 6000, 3000, 8000, 700]}
+
+
+def _fused_inputs(geometry, lengths, seed=6):
+    n_fft, win, hop = geometry
+    cfg = tf.FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop, precision="default")
+    _, _, _, basis, fb = tf._constants(cfg, torch.device("cpu"), torch.bfloat16)
+    wav = torch.from_numpy(np.random.default_rng(seed).standard_normal((5, 8000)) * 0.1).float()
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    buf, n_frames, _ = tf._framing_buffer(wav, n_fft, hop, lens)
+    return buf.bfloat16().contiguous(), lens, basis, fb, n_frames
+
+
+@pytest.mark.parametrize("masking", sorted(FUSED_LENGTHS))
+@pytest.mark.parametrize("geometry", FUSED_GEOMETRIES)
+def test_fused_tc_walk_equals_plain(geometry, masking):
+    """The fused tensor-core kernel's walk computes the plain version's
+    function, masked rows included. With f64 sums the two agree to 1e-9:
+    the bf16 roundings of re^2 and im^2 fall alike, and the Nyquist bin's
+    sin residue, which the kernel leaves out, moves nothing at that
+    tolerance. With f32 sums, the kernel's own, a square summed in another
+    order can land on the other side of a bf16 rounding: under 1e-3, most
+    entries within 1e-6, as the frames walk."""
+    _, win, hop = geometry
+    buf, lens, basis, fb, n_frames = _fused_inputs(geometry, FUSED_LENGTHS[masking])
+    n_rows = buf.shape[0] * n_frames
+    last = (n_rows - 1) // ms.TC_ROWS * ms.TC_ROWS
+    assert last < (buf.shape[0] - 1) * n_frames  # the last tile straddles utterances
+    kw = dict(n_frames=n_frames, hop=hop)
+    exact = fused_tc_walk(buf, lens, basis, fb, win_length=win, dtype=torch.float64, **kw)
+    torch.testing.assert_close(exact, fused_plain64(buf, lens, basis, fb, **kw), rtol=0, atol=1e-9)
+    got = fused_tc_walk(buf, lens, basis, fb, win_length=win, dtype=torch.float32, **kw)
+    err = (got - ms.log_mel_fused_plain(buf, lens, basis, fb, **kw)).abs()
+    assert err.max().item() < 1e-3 and (err > 1e-6).float().mean().item() < 0.05
+    if lens is not None:
+        assert not got[4, 1 + 700 // hop :].any() and got[4, 700 // hop].all()
+
+
+@pytest.mark.parametrize("n_fft", [512, 256])
+def test_fused_tc_filterbank_doubles_each_group(n_fft):
+    """Row ``256 p + 16 g + 8 s + j`` of the doubled filterbank is bin
+    ``128 p + 8 g + j``'s fb row, under its cos column (``s = 0``) and again
+    under its sin column (``s = 1``): group g holds bins 8g .. 8g + 7 twice,
+    FB2's layout group by group. Under bin 0's sin slot, which carries the
+    Nyquist bin's cos column, sits the Nyquist bin's row; zero past the
+    bins."""
+    cfg = tf.FrontendConfig(n_fft=n_fft, win_length=n_fft * 25 // 32, precision="default")
+    fb = tf._constants(cfg, torch.device("cpu"), torch.bfloat16)[4]
+    n_bins = n_fft // 2 + 1
+    _, _, n_panels, _ = ms.tc_layout(1, n_bins)
+    doubled = ms.fused_tc_filterbank(fb)
+    assert doubled.shape == (n_panels * ms.FUSED_TC_FB_ROWS, 80) and doubled.dtype == torch.bfloat16
+    for p in range(n_panels):
+        for g in range(16):
+            for s in range(2):
+                for j in range(8):
+                    b = 128 * p + 8 * g + j
+                    want = fb[b] if b < n_bins - 1 else torch.zeros_like(fb[0])
+                    if b == 0 and s == 1:
+                        want = fb[n_bins - 1]
+                    assert torch.equal(doubled[256 * p + 16 * g + 8 * s + j], want), (p, g, s, j)
+    # the sin column of bin 0 in the basis panels is the Nyquist bin's cos
+    basis = tf._constants(cfg, torch.device("cpu"), torch.bfloat16)[3]
+    assert torch.equal(ms.tc_basis(basis, 0, n_fft)[0, :n_fft, 8], basis[0, :, n_bins - 1])
+
+
+@pytest.mark.parametrize("geometry", FUSED_GEOMETRIES)
+def test_fused_tc_route_takes_the_card_test_geometries(geometry):
+    """``fused_tc_supports`` sends the three geometries of the card tests to
+    the tensor-core kernel at 80 mels and any other ``n_mels`` to
+    ``logmel_kernel``; the ring depth fits shared memory, and with two
+    panels a panel has at least ``stages - 1`` slabs, so its filterbank
+    rows land before its last one."""
+    n_fft, win, _ = geometry
+    assert ms.fused_tc_supports(n_fft, win, 80)
+    assert not ms.fused_tc_supports(n_fft, win, 64) and not ms.fused_tc_supports(n_fft, win, 40)
+    _, taps = ms.tc_taps(*ms._window_taps(n_fft, win))
+    stages = ms.fused_tc_stages(taps, n_fft // 2 + 1, 80)
+    assert stages in ms.TC_STAGES and ms.fused_tc_smem_bytes(taps, 80, stages) <= ms.MAX_SMEM
+    assert ms.fused_tc_stages(408, 257, 80) == 4 and ms.fused_tc_stages(512, 257, 80) == 3
+    assert ms.fused_tc_stages(544, 257, 80) == 0
+    assert ms.fused_tc_stages(64, 257, 80) == 3 and ms.fused_tc_stages(64, 129, 80) == 4

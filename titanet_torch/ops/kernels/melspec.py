@@ -6,7 +6,10 @@
   ``ops/frontend.py::_framing_buffer`` builds and returns the normalized
   log-mel ``[B, F, n_mels]`` (f32), with frames at or after
   ``1 + length // hop`` zeroed when ``lengths`` is given. No frames tensor
-  exists.
+  exists. bf16 runs on the tensor cores (``logmel_tc_kernel``, basis and
+  filterbank rearranged once per tensor: :func:`tc_basis`,
+  :func:`fused_tc_filterbank`) wherever :func:`fused_tc_supports` holds,
+  f32 and any other bf16 geometry on the FP32 cores (``logmel_kernel``).
 - :func:`log_mel_frames`, CUDA source ``titanet_torch/csrc/mel_frames.cu``
   (replaces ``..melspec.py::_mel_frames_pallas``): takes materialized
   frames ``[N, n_fft]`` (f32) and returns ``[N, n_mels]``;
@@ -53,6 +56,11 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.titanet_logmel_f32, lib.titanet_logmel_bf16):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.titanet_logmel_bf16_tc.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
+    lib.titanet_logmel_bf16_tc.restype = ctypes.c_int
     lib.titanet_logmel_error_string.argtypes = [ctypes.c_int]
     lib.titanet_logmel_error_string.restype = ctypes.c_char_p
     return lib
@@ -129,39 +137,54 @@ def log_mel_fused(
     """``buf [B, L]`` (f32 or bf16), ``basis [2, n_fft, n_bins]`` (window
     folded in), ``fb [n_bins, n_mels]`` -> normalized log-mel
     ``[B, n_frames, n_mels]`` f32. ``win_length`` lets the kernel skip the
-    basis rows the window zeroes (the default reads all ``n_fft``)."""
+    basis rows the window zeroes (the default reads all ``n_fft``).
+    ``log_mel_fused.launches`` counts every launch,
+    ``log_mel_fused.tc_launches`` those of the tensor-core kernel."""
     _check(buf, lengths, basis, fb, n_frames, hop)
     if buf.device.type == "cpu":
         return log_mel_fused_plain(buf, lengths, basis, fb, n_frames=n_frames, hop=hop)
     if buf.device.type != "cuda":
         raise RuntimeError(f"no fused log-mel kernel for device {buf.device}")
-    n_fft, n_mels = basis.shape[1], fb.shape[1]
-    if smem_bytes(hop, n_fft, n_mels) > MAX_SMEM:
+    n_fft, n_bins, n_mels = basis.shape[1], basis.shape[2], fb.shape[1]
+    win_length = win_length if win_length else n_fft
+    tc = buf.dtype == torch.bfloat16 and fused_tc_supports(n_fft, win_length, n_mels)
+    if not tc and smem_bytes(hop, n_fft, n_mels) > MAX_SMEM:
         raise ValueError(
             f"n_fft={n_fft}, hop={hop}: a {TILE_FRAMES}-frame tile does not fit "
             "in shared memory"
         )
-    k_lo, k_hi = _window_taps(n_fft, win_length if win_length else n_fft)
+    k_lo, k_hi = _window_taps(n_fft, win_length)
     out = torch.empty(buf.shape[0], n_frames, n_mels, device=buf.device, dtype=torch.float32)
     lib = _lib()
-    fn = lib.titanet_logmel_f32 if buf.dtype == torch.float32 else lib.titanet_logmel_bf16
+    lens = lengths.data_ptr() if lengths is not None else None
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream(buf.device).cuda_stream
-        code = fn(
-            buf.data_ptr(), buf.stride(0), buf.shape[1], buf.shape[0],
-            lengths.data_ptr() if lengths is not None else None,
-            basis.data_ptr(), fb.data_ptr(), out.data_ptr(),
-            n_frames, hop, n_fft, k_lo, k_hi, n_mels, stream,
-        )
+        if tc:
+            k0, taps = tc_taps(k_lo, k_hi)
+            panels = _tc_cached(basis, (k0, k_hi), lambda: tc_basis(basis, k0, k_hi))
+            fbd = _tc_cached(fb, "fused", lambda: fused_tc_filterbank(fb))
+            code = lib.titanet_logmel_bf16_tc(
+                buf.data_ptr(), buf.stride(0), buf.shape[0], lens, panels.data_ptr(),
+                fbd.data_ptr(), out.data_ptr(), n_frames, hop, k0, taps, n_bins, n_mels, stream,
+            )
+        else:
+            fn = lib.titanet_logmel_f32 if buf.dtype == torch.float32 else lib.titanet_logmel_bf16
+            code = fn(
+                buf.data_ptr(), buf.stride(0), buf.shape[1], buf.shape[0], lens,
+                basis.data_ptr(), fb.data_ptr(), out.data_ptr(),
+                n_frames, hop, n_fft, k_lo, k_hi, n_mels, stream,
+            )
     if code != 0:
         raise RuntimeError(
             f"log-mel kernel launch failed: {lib.titanet_logmel_error_string(code).decode()}"
         )
     log_mel_fused.launches += 1
+    log_mel_fused.tc_launches += tc
     return out
 
 
 log_mel_fused.launches = 0
+log_mel_fused.tc_launches = 0
 
 
 # ---------------------------------------------------------- frames kernel
@@ -258,6 +281,61 @@ def tc_filterbank(fb: torch.Tensor) -> torch.Tensor:
     out[: n_bins - 1] = fb[: n_bins - 1]
     out[n_panels * 128] = fb[n_bins - 1]
     return out
+
+
+# The bf16 tensor-core fused kernel (csrc/logmel.cu logmel_tc_kernel) takes
+# the frames kernel's basis panels and tap window (tc_basis, tc_taps) and a
+# filterbank of its own, one panel's rows at a time in shared memory.
+FUSED_TC_FB_ROWS = 256  # doubled filterbank rows a panel (kFbRows)
+
+
+def fused_tc_filterbank(fb: torch.Tensor) -> torch.Tensor:
+    """``[n_bins, n_mels]`` -> ``[n_panels * 256, n_mels]`` bf16, the B
+    operand of the fused kernel's mel product, which multiplies re^2 and
+    im^2 (rounded to bf16 apart) of each 8-bin group at once: row
+    ``256 p + 16 g + 8 s + j`` is bin ``128 p + 8 g + j``'s row (of bins
+    ``0 .. n_bins - 2``), under its cos column (``s = 0``) and again under
+    its sin column (``s = 1``): ``_fused_kernel``'s FB2, group by group.
+    Row 8, bin 0's sin slot, is the Nyquist bin's row (bin 0's im is
+    exactly zero; its slot carries the Nyquist bin's cos). Zero past the
+    bins."""
+    n_bins = fb.shape[0]
+    _, _, n_panels, _ = tc_layout(1, n_bins)
+    rows = fb.new_zeros(n_panels * 128, fb.shape[1], dtype=torch.bfloat16)
+    rows[: n_bins - 1] = fb[: n_bins - 1]
+    out = rows.reshape(n_panels * 16, 1, 8, -1).expand(-1, 2, -1, -1).clone()
+    out[0, 1, 0] = fb[n_bins - 1]
+    return out.reshape(n_panels * FUSED_TC_FB_ROWS, fb.shape[1])
+
+
+def fused_tc_smem_bytes(taps: int, n_mels: int, stages: int) -> int:
+    """Dynamic shared memory of a block of the fused tensor-core kernel: the
+    frames tile (64-tap panels of 128 rows), the basis ring (16 KB a stage)
+    and one panel's filterbank rows (padded by 8), bf16."""
+    tpp = tc_layout(taps, 2)[0]
+    return 2 * (TC_ROWS * -(-tpp // 64) * 64 + stages * TC_SLAB * 256
+                + FUSED_TC_FB_ROWS * (n_mels + _TC_PAD))
+
+
+def fused_tc_stages(taps: int, n_bins: int, n_mels: int) -> int:
+    """The ring depth the fused kernel takes: the deepest that fits shared
+    memory and, with two panels or more, lets a panel's filterbank rows,
+    copied at its first slab, land before its last (``stages - 1`` slabs a
+    panel at least); 0 where none does, the taps are more than it takes, or
+    ``n_mels`` is not one it is built for."""
+    tpp, _, n_panels, _ = tc_layout(taps, n_bins)
+    if n_mels not in TC_MELS or tpp > TC_MAX_TAPS:
+        return 0
+    return next((s for s in TC_STAGES if fused_tc_smem_bytes(taps, n_mels, s) <= MAX_SMEM
+                 and (n_panels == 1 or tpp // TC_SLAB >= s - 1)), 0)
+
+
+def fused_tc_supports(n_fft: int, win_length: int, n_mels: int) -> bool:
+    """Whether :func:`log_mel_fused` sends bf16 at this geometry to the
+    tensor-core kernel (else to ``logmel_kernel``); the hop does not
+    matter."""
+    _, taps = tc_taps(*_window_taps(n_fft, win_length))
+    return fused_tc_stages(taps, n_fft // 2 + 1, n_mels) > 0
 
 
 # tensor -> {key: (the tensor's in-place version, operand)}; an entry goes
