@@ -58,7 +58,28 @@ Phases (any failure exits non-zero and prints no result):
   12. the int8 variant: ``quantize_titanet`` -> ``embed_step_quantized`` at
      B=128 x 3 s: unit norm, cosine vs the f32 ``embed_step`` > 0.99, median
      ms, weight bytes; ``SpeakerEmbedder(quantized=True)`` padded == solo
-     (> 0.999).
+     (> 0.999);
+  13. the trainer as users run it: first each of its four kernels against
+     its plain version on the tensors the trainer gives it (every batch of
+     the trainer's own train, validation and test loaders through the f32
+     log-mel kernel with the lengths each step passes, ragged ones
+     included, atol 1e-4; the pool forward at the train and validation T,
+     the pool backward and all 51 ``dw_bwd`` launches of one train step,
+     their inputs and output gradients kept by hooks, at phases 3, 6 and 7's
+     tolerances); then ``titanet_torch.cli.train`` on a synthetic
+     corpus (64 speakers x 16 utterances), TitaNet-S at full width, bf16,
+     CE, B=64, chunk + SpecAugment + noise, under ``TITANET_DW_BWD=pallas``
+     and ``=xla``: run A trains 2 epochs straight (validation every epoch,
+     verification at the end), run B trains 1 epoch and resumes for the
+     second, and B's epoch-2 metrics must equal A's (identical bits under
+     pallas, ``RESUME_XLA_RTOL`` under xla); finite losses, both
+     checkpoints, the launches of the four kernels of the path against the
+     count the loaders' batches give (SpecAugment steps compute their mel in
+     plain torch); one more epoch with ``[chunk]`` only (the log-mel kernel
+     in every step); ``cli.evaluate_checkpoint`` on run A (EER and minDCF in
+     [0, 1], the log-mel kernel in the verification embeddings); utt/s of
+     the whole loop, the ``StepTimer`` data/model split, epoch wall time
+     and peak memory.
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
@@ -182,10 +203,367 @@ def library_dw_conv(x, w, b):
     return conv1d_same(x, w.to(x.dtype), b.to(x.dtype), groups=x.shape[-1])
 
 
+POOL_GRADS = ("dh", "da", "dc", "dwa", "dba", "dwb", "dbb")
+
+
+def pool_bwd_errors(got, ref, fold: bool, tol: float, what: str) -> dict:
+    """Each gradient of the pool backward kernel (``got``) against its plain
+    version (``ref``): error over the gradient's largest entry, raising
+    above ``tol``. Without the fold da and dc must be zero. dbb is zero in
+    exact arithmetic (softmax over T ignores a per-channel shift): both are
+    noise, held below tol of max |dWb|."""
+    import torch
+
+    errs = {}
+    for gname, x, r in zip(POOL_GRADS, got, ref):
+        if not torch.isfinite(x).all() or x.shape != r.shape or x.dtype != r.dtype:
+            raise AssertionError(f"{what}: {gname} bad shape, dtype or value")
+        if gname in ("da", "dc") and not fold:
+            if x.any() or r.any():
+                raise AssertionError(f"{what}: {gname} not zero without the fold")
+            continue
+        scale = ref[5].abs().max().item() if gname == "dbb" else r.float().abs().max().item()
+        err = (x.float() - r.float()).abs().max().item()
+        errs[gname] = err / scale
+        if gname == "dbb":
+            err = max(x.abs().max().item(), r.abs().max().item())
+        if err > tol * scale:
+            raise AssertionError(f"{what}: {gname} error {err} > {tol} x {scale}")
+    return errs
+
+
 def bound_ms(n_bytes: float, n_ops: float, dtype: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# Trainer phase (13): TitaNet-S at full width (17 mega-blocks, hidden 256,
+# epilog 1536, embedding 192), bf16, CE, B=64, on a synthetic corpus of 64
+# speakers x 16 utterances (1.2-3.5 s): 4 utterances a speaker for
+# validation, 8 test speakers x 4 for verification, 736 for training (11
+# steps an epoch).
+TRAIN_SPEAKERS, TRAIN_UTTERANCES, TRAIN_BATCH = 64, 16, 64
+# Run B (one epoch, then resumed for the second) against run A (two epochs
+# straight): the epoch-2 metrics compared. Under TITANET_DW_BWD=pallas every
+# backward of the step adds in a fixed order, so they must agree to the bit;
+# under xla cuDNN's depthwise backward may sum in another order each call,
+# and its rounding (bf16 activations) is held to this relative difference.
+RESUME_XLA_RTOL = 1e-2
+RESUME_KEYS = ("train/avg_loss", "train/accuracy", "val/avg_loss", "val/accuracy",
+               "test/eer", "test/mindcf")
+
+
+def trainer_config(root: str, run: str, epochs: int, enable, resume: bool = False):
+    from titanet_torch.config import Config
+
+    return Config.from_dict({
+        "dataset": {"name": "synthetic", "synthetic_speakers": TRAIN_SPEAKERS,
+                    "synthetic_utterances": TRAIN_UTTERANCES},
+        "training": {"batch_size": TRAIN_BATCH, "epochs": epochs, "dtype": "bfloat16", "loss": "ce",
+                     "checkpoints_path": root, "checkpoints_frequency": 1, "run_name": run,
+                     "resume": resume},
+        "validation": {"every": 1, "batch_size": TRAIN_BATCH, "num_utterances_per_speaker": 4},
+        "test": {"num_speakers": 8, "num_utterances_per_speaker": 4},
+        "titanet": {"model_size": "s", "n_mega_blocks": 17, "attention_hidden_size": 128},
+        "generic": {"seed": 0, "workers": 2, "embedding_size": 192},
+        "augmentation": {"enable": list(enable)},
+    })
+
+
+def read_jsonl(path: str):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def epoch_record(records, epoch, prefix):
+    """The merged metrics of ``epoch`` whose keys start with ``prefix``
+    (the last record wins: a resumed run appends)."""
+    out = {}
+    for r in records:
+        if r.get("epoch") == epoch and any(k.startswith(prefix) for k in r):
+            out.update({k: v for k, v in r.items() if k.startswith(prefix)})
+    return out
+
+
+def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
+    """Phase 13's kernel checks: each of the four kernels of the trainer's
+    path against its plain version on the tensors that path gives it.
+    Every batch of the trainer's own train, validation and test loaders
+    (``cli._loaders``), staged by ``device_prefetch`` as the loop stages
+    them, goes through the log-mel kernel (f32: ``frontend_precision:
+    highest``) with the lengths its step passes (None for a uniform train
+    batch, as the loop's fast path; ragged otherwise). Then one train step
+    (``cfg``'s SpecAugment and noise, ``TITANET_DW_BWD=pallas``) on the first
+    train batch and one ``eval_step`` on the first validation batch run with
+    hooks that keep the inputs of the pooling and of each depthwise conv
+    and the gradients of their outputs: the pool forward at both T, the pool
+    backward and every ``dw_bwd`` launch of the step are replayed on those
+    tensors and held against their plain versions, at the tolerances of
+    phases 2, 3, 6 and 7. The replayed forward must give the path's own
+    output bit for bit (the replay saw the path's inputs). Raises on a
+    miss."""
+    import torch
+
+    from titanet_torch import cli
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.conv import SamePadConv1d
+    from titanet_torch.ops.kernels import dwconv
+    from titanet_torch.ops.kernels import pool as pk
+    from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
+    from titanet_torch.ops.pooling import AttentiveStatsPooling
+    from titanet_torch.train import loop
+    from titanet_torch.train import state as ts
+
+    dev = torch.device("cuda")
+    train_ds, val_ds, test_ds, n_speakers = datasets
+    frontend = cli._frontend(cfg)
+    loaders = dict(zip(("train", "val", "test"), cli._loaders(cfg, train_ds, val_ds, test_ds, None)))
+    loaders["train"].set_epoch(1)
+    staged = {kind: list(loop._staged_batches(ld, dev)) for kind, ld in loaders.items()}
+
+    # the log-mel kernel on every batch, with the lengths each step passes
+    _, _, _, basis, fb = tf._constants(frontend, dev, torch.float32)
+    hop = frontend.hop_length
+    mel_err, mel_calls, ragged = 0.0, 0, 0
+    for kind, batches in staged.items():
+        for (wav, lengths, _), batch in batches:
+            uniform = int(batch.lengths.min()) == wav.shape[1]
+            lens = None if kind == "train" and uniform else lengths.to(torch.int32).contiguous()
+            buf, n_frames, _ = tf._framing_buffer(ts._dequantize_waveform(wav), frontend.n_fft, hop, lens)
+            args = (buf.contiguous(), lens, basis, fb)
+            out = log_mel_fused(*args, n_frames=n_frames, hop=hop, win_length=frontend.win_length)
+            ref = log_mel_fused_plain(*args, n_frames=n_frames, hop=hop)
+            err = (out - ref).abs().max().item()
+            if not torch.isfinite(out).all() or err > 1e-4:
+                raise AssertionError(f"trainer log-mel f32 on a {kind} batch {tuple(wav.shape)}: "
+                                     f"max abs err {err} > 1e-4")
+            mel_err, mel_calls = max(mel_err, err), mel_calls + 1
+            ragged += lens is not None and not uniform
+    print(f"trainer kernels vs plain: log-mel f32 (logmel_kernel) on all {mel_calls} batches of the "
+          f"trainer's train/validation/test loaders ({ragged} with ragged lengths), "
+          f"max abs err {mel_err:.3e} (atol 1e-4) {tag}")
+
+    # one train step and one eval_step, keeping what the pool and the
+    # depthwise convs are given
+    os.environ["TITANET_DW_BWD"] = "pallas"
+    _, _, state = cli._new_state(cfg, n_speakers, dev, len(loaders["train"]))
+    kept = {"pool": [], "dw": []}
+
+    def keep_grad(out, rec):
+        if out.requires_grad:  # the train step's: the backward kernels run on its gradient
+            out.register_hook(lambda g: rec.__setitem__("g", g.detach().clone()))
+
+    def on_pool(mod, args, kwargs, out):
+        x, prescale, preshift = args[0], kwargs.get("prescale"), kwargs.get("preshift")
+        if kwargs.get("mask") is not None:
+            return  # masked pooling runs plain
+        dt = mod.dtype or torch.promote_types(x.dtype, torch.float32)
+        fold = prescale is not None
+        zeros = torch.zeros(x.shape[-1], device=x.device)
+        vec = lambda v: (v if fold else zeros).detach().float().clone()  # noqa: E731
+        rec = {"out": out.detach().clone(), "eps": mod.eps, "fold": fold, "args": (
+            x.detach().to(dt).contiguous().clone(), vec(prescale), vec(preshift),
+            mod.in_linear.weight.detach().t().to(dt).contiguous(), mod.in_linear.bias.detach().float().clone(),
+            mod.out_linear.weight.detach().t().to(dt).contiguous(), mod.out_linear.bias.detach().float().clone())}
+        kept["pool"].append(rec)
+        keep_grad(out, rec)
+
+    def on_dw(mod, args, out):
+        x = args[0].to(mod.dtype) if mod.dtype is not None else args[0]
+        if not out.requires_grad or mod.groups != x.shape[-1] or not dwconv.kernel_supports(x.shape[1], x.shape[-1], mod.kernel_size,
+                                                                    x.dtype):
+            return
+        rec = {"x": x.detach().contiguous().clone(), "w": mod.weight.detach().clone()}
+        kept["dw"].append(rec)
+        keep_grad(out, rec)
+
+    hooks = [m.register_forward_hook(on_pool, with_kwargs=True)
+             for m in state.model.modules() if isinstance(m, AttentiveStatsPooling)]
+    hooks += [m.register_forward_hook(on_dw) for m in state.model.modules()
+              if isinstance(m, SamePadConv1d) and m.groups > 1]
+    (wav, lengths, speakers), batch = staged["train"][0]
+    uniform = int(batch.lengths.min()) == wav.shape[1]
+    dw_before = dwconv.dw_bwd.launches
+    ts.train_step(state, wav, None if uniform else lengths, speakers, frontend=frontend,
+                  augment=cli._augment_config(cfg, None))
+    dw_launches = dwconv.dw_bwd.launches - dw_before
+    (vwav, vlengths, vspeakers), _ = staged["val"][0]
+    ts.eval_step(state, vwav, vlengths, vspeakers, frontend=frontend)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    if len(kept["pool"]) != 2 or "g" not in kept["pool"][0] or len(kept["dw"]) != dw_launches \
+            or not all("g" in r for r in kept["dw"]):
+        raise AssertionError(f"trainer kernels: kept {len(kept['pool'])} pool calls and {len(kept['dw'])} "
+                             f"depthwise convs for {dw_launches} dw_bwd launches")
+
+    for rec, where in zip(kept["pool"], ("train step", "eval_step")):
+        args, eps, fold = rec["args"], rec["eps"], rec["fold"]
+        out, ref = pk.attentive_pool_fwd(*args, eps, fold), pk.attentive_pool_fwd_plain(*args, eps, fold)
+        torch.cuda.synchronize()
+        if not torch.equal(out, rec["out"]):
+            raise AssertionError(f"trainer pool forward ({where}): the replay differs from the path's output")
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        line = (f"trainer kernels vs plain: pool forward ({where}, {args[0].dtype}, h {tuple(args[0].shape)}, "
+                f"fold={fold}): max abs err {(out.float() - ref.float()).abs().max().item():.3e} (rtol 2e-2)")
+        if "g" in rec:
+            g = rec["g"].to(args[0].dtype).contiguous()
+            got, bref = pk.attentive_pool_bwd(*args, g, eps, fold), pk.attentive_pool_bwd_plain(*args, g, eps, fold)
+            torch.cuda.synchronize()
+            errs = pool_bwd_errors(got, bref, fold, 2e-2, f"trainer pool backward ({where})")
+            line += (f"; pool backward: error / max per gradient "
+                     f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol 2e-2)")
+        print(f"{line} {tag}")
+
+    worst = {"dx": 0.0, "dk": 0.0, "db": 0.0}
+    shapes = set()
+    for rec in kept["dw"]:
+        x, w = rec["x"], rec["w"]
+        dy = rec["g"].to(x.dtype).contiguous()
+        got, ref = dwconv.dw_bwd(x, w, dy), dwconv.dw_bwd_plain(x, w, dy)
+        torch.cuda.synchronize()
+        for gname, a_, r in zip(("dx", "dk", "db"), got, ref):
+            err = (a_.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+            if not torch.isfinite(a_).all() or err > 3e-2:
+                raise AssertionError(f"trainer dw_bwd {tuple(x.shape)} K={w.shape[-1]} {x.dtype}: {gname} "
+                                     f"error / max {err} > 3e-2")
+            worst[gname] = max(worst[gname], err)
+        shapes.add((tuple(x.shape), w.shape[-1]))
+    print(f"trainer kernels vs plain: dw_bwd, every one of the step's {len(kept['dw'])} launches "
+          f"({', '.join(f'{s} K={k}' for s, k in sorted(shapes))}, {kept['dw'][0]['x'].dtype}): worst error / "
+          f"max {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})} (tol 3e-2) {tag}")
+    os.environ.pop("TITANET_DW_BWD", None)
+
+
+def trainer_phase(tag: str) -> None:
+    """Phase 13: ``titanet_torch.cli.train`` as a user runs it, then
+    ``cli.evaluate_checkpoint``; raises on any failed check."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from titanet_torch import cli
+    from titanet_torch.ops.kernels import dwconv
+    from titanet_torch.ops.kernels.melspec import log_mel_fused
+    from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
+    from titanet_torch.train import checkpoint as ckpt
+
+    counters = {"logmel": log_mel_fused, "pool_fwd": attentive_pool_fwd,
+                "pool_bwd": attentive_pool_bwd, "dw_bwd": dwconv.dw_bwd}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    augmented = ("chunk", "specaugment", "noise")
+    root = tempfile.mkdtemp(prefix="titanet_torch_trainer_")
+    # set-up: synthesize the corpus once (cli.train's datasets share the
+    # process-wide cache), and count the batches of each kind in one epoch
+    t0 = time.perf_counter()
+    train_ds, val_ds, test_ds, n_speakers = cli._datasets(trainer_config(root, "probe", 1, augmented), True)
+    for ds in (train_ds, val_ds, test_ds):
+        for i in range(len(ds)):
+            ds.get_sample(i)
+    steps = len(train_ds) // TRAIN_BATCH
+    val_batches = -(-len(val_ds) // TRAIN_BATCH)
+    test_batches = -(-len(test_ds) // TRAIN_BATCH)
+    print(f"trainer set-up: {TRAIN_SPEAKERS * TRAIN_UTTERANCES} synthetic utterances made in "
+          f"{time.perf_counter() - t0:.2f} s; {len(train_ds)} train ({steps} steps of {TRAIN_BATCH}), "
+          f"{len(val_ds)} validation, {len(test_ds)} test {tag}")
+    trainer_kernels_vs_plain(trainer_config(root, "kernels", 1, augmented),
+                             (train_ds, val_ds, test_ds, n_speakers), tag)
+
+    # one epoch without SpecAugment first (it also warms the process up):
+    # the train step's mel on the log-mel kernel
+    os.environ["TITANET_DW_BWD"] = "pallas"
+    _, counts = counted(lambda: cli.train(trainer_config(root, "chunk-only", 1, ("chunk",))))
+    expect = {"logmel": steps + val_batches + test_batches, "pool_fwd": steps + val_batches,
+              "pool_bwd": steps, "dw_bwd": 51 * steps}
+    if counts != expect:
+        raise AssertionError(f"trainer chunk only: launches {counts}, expected {expect}")
+    loss = epoch_record(read_jsonl(os.path.join(root, "chunk-only", "metrics.jsonl")), 1,
+                        "train/")["train/avg_loss"]
+    if not np.isfinite(loss):
+        raise AssertionError(f"trainer chunk only: loss {loss}")
+    print(f"trainer pallas, augmentation [chunk] only, 1 epoch: launches {counts} (log-mel kernel in every "
+          f"step); train/avg_loss {loss:.4f} {tag}")
+
+    for route in ("pallas", "xla"):
+        os.environ["TITANET_DW_BWD"] = route
+        # run A: two epochs straight, validation every epoch, verification at the end
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, counts = counted(lambda: cli.train(trainer_config(root, f"a-{route}", 2, augmented)))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        run_a = os.path.join(root, f"a-{route}")
+        rec_a = read_jsonl(os.path.join(run_a, "metrics.jsonl"))
+        # SpecAugment steps compute their mel in plain torch: the log-mel
+        # kernel runs in validation (eval_step) and verification (embed_step)
+        expect = {"logmel": 2 * val_batches + test_batches, "pool_fwd": 2 * (steps + val_batches),
+                  "pool_bwd": 2 * steps, "dw_bwd": 2 * steps * 51 if route == "pallas" else 0}
+        if counts != expect:
+            raise AssertionError(f"trainer {route}: launches {counts}, expected {expect}")
+        losses = [epoch_record(rec_a, e, "train/")["train/avg_loss"] for e in (1, 2)]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"trainer {route}: non-finite epoch losses {losses}")
+        if ckpt.latest_epoch(run_a) != 2 or not all(
+                os.path.isfile(os.path.join(run_a, str(e), ckpt.FILENAME)) for e in (1, 2)):
+            raise AssertionError(f"trainer {route}: checkpoints of epochs 1 and 2 missing under {run_a}")
+        falls = losses[1] < losses[0]
+        tr = [epoch_record(rec_a, e, "train/") for e in (1, 2)]
+        ts_ = [r["ts"] for r in rec_a if "train/avg_loss" in r]
+        n_utt = 2 * steps * TRAIN_BATCH
+        data_s = sum(r["train/total_data_time"] for r in tr)
+        model_s = sum(r["train/total_model_time"] for r in tr)
+        test_a = epoch_record(rec_a, 2, "test/")
+        print(f"trainer {route} (cli.train, TitaNet-S 17 blocks, bf16, B={TRAIN_BATCH}, {steps} steps an "
+              f"epoch, chunk+specaugment+noise): launches {counts}; train/avg_loss epoch 1 {losses[0]:.4f} -> "
+              f"epoch 2 {losses[1]:.4f}"
+              f"{'' if falls else ' (did not fall: two epochs of 11 steps from random weights, SpecAugment and noise on half the rows)'}"
+              f"; val/avg_loss {epoch_record(rec_a, 2, 'val/')['val/avg_loss']:.4f}; test/eer "
+              f"{test_a['test/eer']:.4f}, test/mindcf {test_a['test/mindcf']:.4f}; whole loop {wall:.2f} s for "
+              f"{n_utt} training utterances ({n_utt / wall:.1f} utt/s, validation, checkpoints and "
+              f"verification included; {n_utt / (data_s + model_s):.1f} utt/s over the training steps "
+              f"alone); StepTimer data {data_s:.3f} s / model {model_s:.3f} s over {2 * steps} steps; "
+              f"epoch 2 wall {ts_[1] - ts_[0]:.2f} s (train record to train record: 11 steps, epoch 1's "
+              f"validation and checkpoint); peak memory {peak / 2**30:.2f} GiB {tag}")
+
+        # run B: one epoch, then resumed for the second
+        cli.train(trainer_config(root, f"b-{route}", 1, augmented))
+        cli.train(trainer_config(root, f"b-{route}", 2, augmented, resume=True))
+        rec_b = read_jsonl(os.path.join(root, f"b-{route}", "metrics.jsonl"))
+        got = {**epoch_record(rec_b, 2, "train/"), **epoch_record(rec_b, 2, "val/"),
+               **epoch_record(rec_b, 2, "test/")}
+        ref = {**tr[1], **epoch_record(rec_a, 2, "val/"), **test_a}
+        diffs = {k: abs(got[k] - ref[k]) for k in RESUME_KEYS}
+        if route == "pallas":
+            if any(got[k] != ref[k] for k in RESUME_KEYS):
+                raise AssertionError(f"trainer pallas: resumed epoch 2 differs from the straight run: {diffs}")
+        elif any(diffs[k] > RESUME_XLA_RTOL * max(abs(ref[k]), 1e-3) for k in RESUME_KEYS):
+            raise AssertionError(f"trainer xla: resumed epoch 2 differs beyond {RESUME_XLA_RTOL}: {diffs}")
+        print(f"trainer {route}: resumed run (1 epoch, then resume: true) vs straight run at epoch 2: "
+              f"{'identical bits' if all(v == 0 for v in diffs.values()) else 'differences'} "
+              f"{json.dumps(diffs)} {tag}")
+
+    # eval: the saved checkpoint of run A, whole utterances, masked pooling
+    metrics, counts = counted(lambda: cli.evaluate_checkpoint(
+        trainer_config(root, "a-pallas", 2, augmented), os.path.join(root, "a-pallas")))
+    if not (0.0 <= metrics["test/eer"] <= 1.0 and 0.0 <= metrics["test/mindcf"] <= 1.0):
+        raise AssertionError(f"evaluate_checkpoint: {metrics}")
+    if counts["logmel"] != test_batches or counts["pool_fwd"] != 0:
+        raise AssertionError(f"evaluate_checkpoint: launches {counts}")
+    print(f"evaluate_checkpoint (run A pallas, epoch 2): test/eer {metrics['test/eer']:.4f}, test/mindcf "
+          f"{metrics['test/mindcf']:.4f}; launches {counts} (masked pooling runs plain) {tag}")
+    os.environ.pop("TITANET_DW_BWD", None)
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -378,7 +756,6 @@ def main() -> int:
     del embedder, m16
 
     # 6. attentive-pool backward kernel vs plain, every gradient
-    grad_names = ("dh", "da", "dc", "dwa", "dba", "dwb", "dbb")
     g32 = torch.from_numpy(rng.standard_normal((B, 2 * ch)).astype(np.float32)).to(dev)
     h32 = torch.from_numpy(rng.standard_normal((B, t_frames, ch)).astype(np.float32)).to(dev)
     for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
@@ -387,23 +764,7 @@ def main() -> int:
             args = (h, a, c, wa, ba, wb, bb, g, 1e-6, fold)
             got, ref = attentive_pool_bwd(*args), attentive_pool_bwd_plain(*args)
             torch.cuda.synchronize()
-            errs = {}
-            for gname, x, r in zip(grad_names, got, ref):
-                if not torch.isfinite(x).all() or x.shape != r.shape or x.dtype != r.dtype:
-                    raise AssertionError(f"pool backward {dt} fold={fold}: {gname} bad shape, dtype or value")
-                if gname in ("da", "dc") and not fold:
-                    if x.any() or r.any():
-                        raise AssertionError(f"pool backward {dt}: {gname} not zero without the fold")
-                    continue
-                # dbb is zero in exact arithmetic (softmax over T ignores a
-                # per-channel shift): both are noise, held below tol of max |dWb|
-                scale = ref[5].abs().max().item() if gname == "dbb" else r.float().abs().max().item()
-                err = (x.float() - r.float()).abs().max().item()
-                errs[gname] = err / scale
-                if gname == "dbb":
-                    err = max(x.abs().max().item(), r.abs().max().item())
-                if err > tol * scale:
-                    raise AssertionError(f"pool backward {dt} fold={fold}: {gname} error {err} > {tol} x {scale}")
+            errs = pool_bwd_errors(got, ref, fold, tol, f"pool backward {dt} fold={fold}")
             ms, timed_by = device_ms(lambda: attentive_pool_bwd(*args), names=POOL_KERNELS, iters=10)
             pms = cuda_ms(lambda: attentive_pool_bwd_plain(*args), iters=3)
             ops = 12 * B * t_frames * ch * hid
@@ -810,6 +1171,9 @@ def main() -> int:
     print(f"SpeakerEmbedder(quantized=True): 4 requests (1.2/3/7/40 s); padded vs solo cosines "
           f"{np.array2string(cosines, precision=7)} {tag}")
     del embedder, qtree, m32, model
+
+    # 13. the trainer as users run it
+    trainer_phase(tag)
 
     kernels = []
     for key, name_, src, line, path_launches in (

@@ -499,3 +499,30 @@ def test_small_fused_and_quantized_serving_run_on_the_card(cuda_device, dtype):
     if dtype is None:
         q = embed_step_quantized(quantize_titanet(model), wav, lengths, frontend=fe, device=cuda_device)
         assert torch.nn.functional.cosine_similarity(q, ref, dim=-1).min() > 0.99
+
+
+@pytest.mark.cuda
+def test_device_prefetch_batches_equal_host_batches_under_a_concurrent_step(cuda_device):
+    """Batches staged on the side stream reach the compute stream intact
+    while it is busy: each staged tensor is read only after a long kernel
+    on the compute stream, by which time the prefetcher has staged the next
+    batches. Without ``record_stream`` the allocator could hand a batch's
+    memory to a later copy before the compute stream has read it."""
+    from titanet_torch.data import ChunkConfig, DataLoader, SyntheticSpeakerDataset, device_prefetch
+
+    ds = SyntheticSpeakerDataset(n_speakers=4, utterances_per_speaker=8, min_seconds=1.0, max_seconds=2.0)
+    loader = DataLoader(ds, batch_size=4, chunk=ChunkConfig(enabled=False), transport_dtype="int16",
+                        prefetch=0, seed=3)
+    host = list(loader)
+    copies = []
+    for tensors, batch in device_prefetch(loader, device=cuda_device, size=2):
+        assert all(t.is_cuda for t in tensors.values())
+        torch.cuda._sleep(20_000_000)  # a step's worth of work on the compute stream
+        copies.append(({k: v.clone() for k, v in tensors.items()}, batch))
+        del tensors
+    torch.cuda.synchronize()
+    assert len(copies) == len(host) == len(loader)
+    for (got, batch), ref in zip(copies, host):
+        for key in ("waveform", "lengths", "speaker_ids"):
+            np.testing.assert_array_equal(got[key].cpu().numpy(), getattr(ref, key), err_msg=key)
+            np.testing.assert_array_equal(getattr(batch, key), getattr(ref, key), err_msg=key)

@@ -8,7 +8,10 @@
   loss -> gradients -> ONE running-statistics update over every BatchNorm
   site -> optimizer update -> optional angular-head renormalization and
   weight EMA. Optional masked statistics, margin warmup and distillation
-  from a frozen teacher, as in the JAX step. Augmentation is not ported.
+  from a frozen teacher, as in the JAX step. ``augment`` (an
+  :class:`~titanet_torch.ops.augment.AugmentConfig`) adds noise to the
+  waveform and runs the SpecAugment frontend in the step, each from a
+  generator of its own.
 - :func:`eval_step`, :class:`MetricsAcc` / :func:`accumulate_metrics`.
 - :func:`make_optimizer`: Adam or SGD with optax's semantics (see
   :class:`Optimizer`).
@@ -24,12 +27,14 @@ import math
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from titanet_torch._device import resolve_device
 from titanet_torch.losses.heads import renormalize_params
 from titanet_torch.models import l2_normalize
+from titanet_torch.ops.augment import AugmentConfig, add_noise, log_mel_specaugment
 from titanet_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from titanet_torch.ops.norm import ema_update_batch_stats
 
@@ -92,6 +97,19 @@ def embed_step_quantized(
         mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
         emb = titanet_apply_quantized(qtree, mel, mask=mask if masked else None)
         return l2_normalize(emb)
+
+
+def _as_augment_config(augment) -> Optional[AugmentConfig]:
+    """Normalize the ``augment`` argument: an AugmentConfig, or the legacy
+    5-tuple (freq_ratio, freq_n, time_ratio, time_n, prob), which is masking
+    and time stretch at the reference's 0.95-1.05 rates."""
+    if augment is None or isinstance(augment, AugmentConfig):
+        return augment
+    fr, fn, tr, tn, prob = augment
+    return AugmentConfig(
+        freq_mask_ratio=fr, freq_mask_num=fn,
+        time_mask_ratio=tr, time_mask_num=tn, probability=prob,
+    )
 
 
 # --------------------------------------------------------------- optimizer
@@ -248,16 +266,27 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 @dataclass
 class TrainState:
     """Everything a train step reads and advances: the backbone, the head,
-    the optimizer and its state, the step count, the dropout generator and
-    the optional weight-EMA copies (one per parameter of :meth:`params`)."""
+    the optimizer and its state, the step count, the dropout generator, the
+    SpecAugment and noise generators and the optional weight-EMA copies
+    (one per parameter of :meth:`params`).
+
+    The three generators are apart, as the JAX step's keys are: the dropout
+    draws do not depend on whether augmentation is on, and the SpecAugment
+    draws not on whether noise is on."""
 
     model: nn.Module
     head: nn.Module
     optimizer: Optimizer
     opt_state: OptState
     generator: torch.Generator
+    aug_generator: torch.Generator
+    noise_generator: torch.Generator
     step: int = 0
     ema: Optional[List[torch.Tensor]] = None
+
+    def generators(self) -> dict:
+        return {"dropout": self.generator, "specaugment": self.aug_generator,
+                "noise": self.noise_generator}
 
     def params(self) -> List[torch.Tensor]:
         """Backbone then head parameters, in module order."""
@@ -273,13 +302,20 @@ def create_train_state(
     ema: bool = False,
 ) -> TrainState:
     """State for ``model`` and ``head`` (on one device, already initialized);
-    the dropout generator lives on that device and is seeded with ``seed``."""
+    the generators live on that device: dropout's is seeded with ``seed``,
+    SpecAugment's and the noise's with seeds derived from it."""
     dev = next(model.parameters()).device
     if next(head.parameters()).device != dev:
         raise ValueError("model and head must be on one device")
+
+    def stream(k):
+        derived = int(np.random.SeedSequence([seed, k]).generate_state(1, np.uint64)[0])
+        return torch.Generator(device=dev).manual_seed(derived)
+
     state = TrainState(
         model=model, head=head, optimizer=optimizer, opt_state=None,
         generator=torch.Generator(device=dev).manual_seed(seed),
+        aug_generator=stream(1), noise_generator=stream(2),
     )
     params = state.params()
     state.opt_state = optimizer.init(params)
@@ -300,7 +336,8 @@ def ema_eval_state(state: TrainState) -> TrainState:
             p.copy_(e)
     return TrainState(model=model, head=head, optimizer=state.optimizer,
                       opt_state=state.opt_state, generator=state.generator,
-                      step=state.step, ema=state.ema)
+                      step=state.step, ema=state.ema, aug_generator=state.aug_generator,
+                      noise_generator=state.noise_generator)
 
 
 def _as_device_tensors(state: TrainState, waveform, lengths, speakers):
@@ -317,6 +354,7 @@ def loss_and_grads(
     speakers,
     *,
     frontend: FrontendConfig,
+    augment=None,
     masked: bool = False,
     margin_warmup_steps: Optional[int] = None,
     teacher_model: Optional[nn.Module] = None,
@@ -327,8 +365,19 @@ def loss_and_grads(
     ``state.params()`` (None where the loss does not reach it). The
     BatchNorm sites publish their batch moments."""
     wav, lens, spk = _as_device_tensors(state, waveform, lengths, speakers)
+    aug = _as_augment_config(augment)
     with torch.no_grad():
-        mel, mask = log_mel_spectrogram(wav, frontend, lengths=lens)
+        if aug is not None and aug.noise_prob > 0.0:
+            wav = add_noise(
+                state.noise_generator, wav, lens, probability=aug.noise_prob,
+                snr_min=aug.noise_snr_min, snr_max=aug.noise_snr_max, color=aug.noise_color,
+            )
+        if aug is not None and aug.specaugment:
+            # gated time stretch on the spectrogram + frequency/time masking,
+            # mel in plain torch (the fused log-mel kernel has no stretch)
+            mel, mask = log_mel_specaugment(state.aug_generator, wav, frontend, aug, lengths=lens)
+        else:
+            mel, mask = log_mel_spectrogram(wav, frontend, lengths=lens)
     model_mask = mask if masked else None
     state.model.train()
     state.head.train()
@@ -368,11 +417,12 @@ def train_step(
     metrics)`` with ``loss``, ``grad_norm`` (before clipping), ``preds``
     (None for GE2E) and the unit-norm ``embeddings``; ``state`` is updated
     in place. With ``teacher_model`` the loss is ``(1-alpha)*head_loss +
-    alpha*(1 - cos(student, teacher))`` on the same mel."""
-    if augment is not None:
-        raise NotImplementedError("augmentation is not ported to titanet_torch yet")
+    alpha*(1 - cos(student, teacher))`` on the same mel. ``augment`` (an
+    AugmentConfig or the legacy 5-tuple) adds noise first, from
+    ``state.noise_generator``, then computes the mel with SpecAugment from
+    ``state.aug_generator``."""
     loss, grads, emb, preds = loss_and_grads(
-        state, waveform, lengths, speakers, frontend=frontend, masked=masked,
+        state, waveform, lengths, speakers, frontend=frontend, augment=augment, masked=masked,
         margin_warmup_steps=margin_warmup_steps, teacher_model=teacher_model,
         distill_alpha=distill_alpha,
     )
@@ -455,12 +505,15 @@ def accumulate_metrics(acc: MetricsAcc, loss, preds, targets) -> MetricsAcc:
     acc.nonfinite |= ~torch.isfinite(loss)
     if preds is None:
         return acc
-    n_classes = acc.tp.shape[0]
+    # index_add_ keeps every count on the device: no host read (a masked
+    # index or bincount on a CUDA tensor reads a size back)
     targets = torch.as_tensor(targets, device=acc.tp.device).long()
     preds = torch.as_tensor(preds, device=acc.tp.device).long()
-    acc.correct += (preds == targets).sum().to(torch.int32)
+    hit = (preds == targets).to(torch.int32)
+    ones = torch.ones_like(hit)
+    acc.correct += hit.sum().to(torch.int32)
     acc.n_examples += targets.shape[0]
-    acc.tp += torch.bincount(targets[preds == targets], minlength=n_classes).to(torch.int32)
-    acc.pred_count += torch.bincount(preds, minlength=n_classes).to(torch.int32)
-    acc.true_count += torch.bincount(targets, minlength=n_classes).to(torch.int32)
+    acc.tp.index_add_(0, targets, hit)
+    acc.pred_count.index_add_(0, preds, ones)
+    acc.true_count.index_add_(0, targets, ones)
     return acc
