@@ -79,7 +79,34 @@ Phases (any failure exits non-zero and prints no result):
      in every step); ``cli.evaluate_checkpoint`` on run A (EER and minDCF in
      [0, 1], the log-mel kernel in the verification embeddings); utt/s of
      the whole loop, the ``StepTimer`` data/model split, epoch wall time
-     and peak memory.
+     and peak memory;
+  14. the serving entry points as users run them, on run A's checkpoint
+     (TitaNet-S at full width, bf16; phase 13's 2 epochs resumed to 8 by
+     ``cli.train``): ``cli.main`` in process for ``infer --audio`` (the
+     test split's 32 utterances as WAV files and a 40 s file: finite
+     unit-norm rows equal to ``SpeakerEmbedder.embed`` called directly,
+     1e-6), ``infer --split test -n 32`` (equal to ``loop.infer``),
+     ``trials`` on all 496 pairs (the plain and the AS-norm scores files,
+     cohort ``infer -o``'s, top 8, equal to the scores recomputed from
+     trials' own embeddings as written, pair by pair, and spread far
+     beyond what they are held to; the plain scores within each pair's
+     bound of the cosine of infer's embeddings; a Kaldi-format list gives
+     the same scores; EER, minDCF in [0, 1]) and ``diarize`` on a 30-45 s
+     conversation of 3 speakers (NME-SC, known k, AHC, VAD: the RTTM reads
+     back; DER reported) and ``OnlineDiarizer`` in 1.5 s chunks; then the
+     speaker service (``titanet_torch.serve``: default,
+     ``--fast-frontend``, ``--quantized --fast-frontend``) on 127.0.0.1 in
+     a thread: /embed, /enroll, /verify, /identify -> 200, a malformed
+     body -> 400, /embed equal to a direct embed (1e-6). Every embedding
+     call of a command runs the fused log-mel kernel (f32 on the CLI, the
+     bf16 tensor-core kernel under ``--fast-frontend``; the default
+     service's frontend is plain torch), and the kernel matches its plain
+     version on every launch's own operands (bucket widths, lengths,
+     filler rows of length 1; phase 2's tolerances); ``infer --split``'s
+     one (``loop.infer`` pools unmasked) also runs the pool forward
+     kernel, held as in phase 13, and no other command does. Printed: the
+     median ms of an /embed of a 3 s WAV per variant, ``trials`` files/s
+     and ``diarize``'s real-time factor.
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
@@ -96,6 +123,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -286,6 +314,24 @@ def epoch_record(records, epoch, prefix):
     return out
 
 
+def pool_fwd_vs_plain(args, eps, fold, path_out, what: str) -> float:
+    """Replays the pool-forward kernel on the operands a path gave it
+    (``attentive_pool_fwd``'s): the replay must give the path's own output
+    bit for bit (it saw the path's inputs) and match
+    ``attentive_pool_fwd_plain`` at phase 3's tolerance (rtol and atol
+    2e-2). Raises on a miss; returns the max abs error."""
+    import torch
+
+    from titanet_torch.ops.kernels import pool as pk
+
+    out, ref = pk.attentive_pool_fwd(*args, eps, fold), pk.attentive_pool_fwd_plain(*args, eps, fold)
+    torch.cuda.synchronize()
+    if not torch.equal(out, path_out):
+        raise AssertionError(f"{what}: the replay differs from the path's output")
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    return (out.float() - ref.float()).abs().max().item()
+
+
 def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
     """Phase 13's kernel checks: each of the four kernels of the trainer's
     path against its plain version on the tensors that path gives it.
@@ -323,17 +369,14 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
     staged = {kind: list(loop._staged_batches(ld, dev)) for kind, ld in loaders.items()}
 
     # the log-mel kernel on every batch, with the lengths each step passes
-    _, _, _, basis, fb = tf._constants(frontend, dev, torch.float32)
-    hop = frontend.hop_length
     mel_err, mel_calls, ragged = 0.0, 0, 0
     for kind, batches in staged.items():
         for (wav, lengths, _), batch in batches:
             uniform = int(batch.lengths.min()) == wav.shape[1]
-            lens = None if kind == "train" and uniform else lengths.to(torch.int32).contiguous()
-            buf, n_frames, _ = tf._framing_buffer(ts._dequantize_waveform(wav), frontend.n_fft, hop, lens)
-            args = (buf.contiguous(), lens, basis, fb)
-            out = log_mel_fused(*args, n_frames=n_frames, hop=hop, win_length=frontend.win_length)
-            ref = log_mel_fused_plain(*args, n_frames=n_frames, hop=hop)
+            lens = None if kind == "train" and uniform else lengths
+            args, kw = tf.log_mel_fused_operands(ts._dequantize_waveform(wav), frontend, lens)
+            out = log_mel_fused(*args, **kw)
+            ref = log_mel_fused_plain(*args, n_frames=kw["n_frames"], hop=kw["hop"])
             err = (out - ref).abs().max().item()
             if not torch.isfinite(out).all() or err > 1e-4:
                 raise AssertionError(f"trainer log-mel f32 on a {kind} batch {tuple(wav.shape)}: "
@@ -400,13 +443,9 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
 
     for rec, where in zip(kept["pool"], ("train step", "eval_step")):
         args, eps, fold = rec["args"], rec["eps"], rec["fold"]
-        out, ref = pk.attentive_pool_fwd(*args, eps, fold), pk.attentive_pool_fwd_plain(*args, eps, fold)
-        torch.cuda.synchronize()
-        if not torch.equal(out, rec["out"]):
-            raise AssertionError(f"trainer pool forward ({where}): the replay differs from the path's output")
-        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        err = pool_fwd_vs_plain(args, eps, fold, rec["out"], f"trainer pool forward ({where})")
         line = (f"trainer kernels vs plain: pool forward ({where}, {args[0].dtype}, h {tuple(args[0].shape)}, "
-                f"fold={fold}): max abs err {(out.float() - ref.float()).abs().max().item():.3e} (rtol 2e-2)")
+                f"fold={fold}): max abs err {err:.3e} (rtol 2e-2)")
         if "g" in rec:
             g = rec["g"].to(args[0].dtype).contiguous()
             got, bref = pk.attentive_pool_bwd(*args, g, eps, fold), pk.attentive_pool_bwd_plain(*args, g, eps, fold)
@@ -436,9 +475,12 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
     os.environ.pop("TITANET_DW_BWD", None)
 
 
-def trainer_phase(tag: str) -> None:
+def trainer_phase(tag: str):
     """Phase 13: ``titanet_torch.cli.train`` as a user runs it, then
-    ``cli.evaluate_checkpoint``; raises on any failed check."""
+    ``cli.evaluate_checkpoint``; raises on any failed check. Returns
+    ``(root, n_speakers)``: the directory that holds the runs (run A under
+    ``a-pallas``, which phase 14 serves; the caller removes it) and the
+    number of training speakers."""
     import tempfile
 
     import numpy as np
@@ -561,9 +603,455 @@ def trainer_phase(tag: str) -> None:
     print(f"evaluate_checkpoint (run A pallas, epoch 2): test/eer {metrics['test/eer']:.4f}, test/mindcf "
           f"{metrics['test/mindcf']:.4f}; launches {counts} (masked pooling runs plain) {tag}")
     os.environ.pop("TITANET_DW_BWD", None)
-    import shutil
+    return root, n_speakers
 
-    shutil.rmtree(root, ignore_errors=True)
+
+# Serving phase (14): the entry points a user runs after training, on run
+# A of phase 13 (TitaNet-S at full width, bf16), resumed from its 2 epochs
+# to SERVE_EPOCHS: after 2 epochs (22 steps) its embeddings nearly
+# coincide (every pair of the test split scored a cosine within 3e-6 of
+# 1), too close to check a scores file written to 6 decimals. The entry
+# points run over WAV files of the synthetic corpus's test split (8
+# speakers x 4 utterances), a 40 s file of one speaker (past the largest
+# bucket: two windows) and a conversation of three speakers in turns. The
+# CLI's frontend is the f32 fused log-mel kernel; the service's
+# --fast-frontend is the bf16 tensor-core kernel.
+SERVE_EPOCHS = 8
+
+
+class embedding_calls:
+    """Counts the embedding steps that ``SpeakerEmbedder`` and
+    ``loop.infer`` run and the launches of the two kernels an embedding
+    step can reach (the fused log-mel kernel; the pool forward, which runs
+    where the pooling is unmasked), with every counter set to 0 on entry.
+    It keeps what each kernel call was given, cloned, by wrapping the names
+    the path looks the kernels up by (``frontend._log_mel_fused`` with the
+    waveform, config and lengths it turns into the kernel's operands;
+    ``pooling.attentive_pool_fused``) and the output. On exit ``calls``,
+    ``launches``, ``tc_launches``, ``pool_launches``, ``mel`` and ``pool``
+    hold them."""
+
+    def __enter__(self):
+        from titanet_torch.ops import frontend, pooling
+        from titanet_torch.ops.kernels.melspec import log_mel_fused
+        from titanet_torch.ops.kernels.pool import attentive_pool_fwd
+        from titanet_torch.train import extractor, loop
+
+        self.calls, self.mel, self.pool, self._saved = 0, [], [], []
+        for mod in (extractor, loop):
+            for name in ("embed_step", "embed_step_quantized"):
+                if getattr(mod, name, None) is not None:
+                    self._wrap(mod, name, self._counted)
+        self._wrap(frontend, "_log_mel_fused", self._keep_mel)
+        self._wrap(pooling, "attentive_pool_fused", self._keep_pool)
+        self._mel_fn, self._pool_fn = log_mel_fused, attentive_pool_fwd
+        log_mel_fused.launches = log_mel_fused.tc_launches = attentive_pool_fwd.launches = 0
+        return self
+
+    def _wrap(self, mod, name, make):
+        fn = getattr(mod, name)
+        self._saved.append((mod, name, fn))
+        setattr(mod, name, make(fn))
+
+    def _counted(self, fn):
+        def call(*a, **k):
+            self.calls += 1
+            return fn(*a, **k)
+        return call
+
+    def _keep_mel(self, fn):
+        def call(waveform, cfg, lengths):
+            out = fn(waveform, cfg, lengths)
+            self.mel.append(dict(waveform=waveform.clone(), cfg=cfg, out=out.clone(),
+                                 lengths=None if lengths is None else lengths.clone()))
+            return out
+        return call
+
+    def _keep_pool(self, fn):
+        def call(h, a, c, wa, ba, wb, bb, eps, fold):
+            out = fn(h, a, c, wa, ba, wb, bb, eps, fold)
+            dt = h.dtype  # the operands as the pool's autograd function hands them to the kernel
+            args = (h.contiguous(), a.float().contiguous(), c.float().contiguous(), wa.to(dt).contiguous(),
+                    ba.float().contiguous(), wb.to(dt).contiguous(), bb.float().contiguous())
+            self.pool.append(dict(args=tuple(t.clone() for t in args), eps=eps, fold=fold, out=out.clone()))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self.launches, self.tc_launches = self._mel_fn.launches, self._mel_fn.tc_launches
+        self.pool_launches = self._pool_fn.launches
+        return False
+
+
+def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel: str = "f32",
+                          fillers: bool = True, pool: bool = False) -> dict:
+    """The kernels a command's embedding calls went through, held against
+    their plain versions on the tensors the command gave them; raises on a
+    miss, returns the summary.
+
+    ``mel`` ``"f32"`` or ``"bf16"``: every embedding call launched the fused
+    log-mel kernel once (bf16: the tensor-core one), and each launch,
+    replayed on its own operands (the bucket width, the lengths, the filler
+    rows of length 1 that ``SpeakerEmbedder`` pads a group with, which
+    ``fillers`` requires to be among them), gives the command's output bit
+    for bit and matches ``log_mel_fused_plain``: f32 atol 1e-4, bf16 2e-3,
+    as phase 2. ``mel`` None: no launch (a plain torch frontend).
+
+    ``pool``: every embedding call pooled unmasked through the pool-forward
+    kernel once, and each launch holds as phase 13's
+    (:func:`pool_fwd_vs_plain`); otherwise no launch."""
+    import torch
+
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
+
+    want_mel = calls.calls if mel else 0
+    want_pool = calls.calls if pool else 0
+    if calls.calls == 0 or calls.launches != want_mel or len(calls.mel) != want_mel \
+            or calls.tc_launches != (want_mel if mel == "bf16" else 0) \
+            or calls.pool_launches != want_pool or len(calls.pool) != want_pool:
+        raise AssertionError(f"{what}: {calls.calls} embedding calls; {calls.launches} log-mel launches "
+                             f"({calls.tc_launches} tensor-core, {len(calls.mel)} kept), expected {want_mel} "
+                             f"{mel}; {calls.pool_launches} pool-forward launches ({len(calls.pool)} kept), "
+                             f"expected {want_pool}")
+    summary = {"calls": calls.calls, "launches": calls.launches, "pool_launches": calls.pool_launches}
+    line = f"  {what}: {calls.calls} embedding calls"
+    if mel:
+        atol = 2e-3 if mel == "bf16" else 1e-4
+        err, n_fillers, widths = 0.0, 0, set()
+        for rec in calls.mel:
+            args, kw = tf.log_mel_fused_operands(rec["waveform"], rec["cfg"], rec["lengths"])
+            if args[0].dtype != (torch.bfloat16 if mel == "bf16" else torch.float32):
+                raise AssertionError(f"{what}: log-mel kernel ran on {args[0].dtype}, expected {mel}")
+            out = log_mel_fused(*args, **kw)
+            ref = log_mel_fused_plain(*args, n_frames=kw["n_frames"], hop=kw["hop"])
+            torch.cuda.synchronize()
+            if not torch.equal(out, rec["out"]):
+                raise AssertionError(f"{what}: the log-mel replay on {tuple(args[0].shape)} differs from the "
+                                     "command's output")
+            e = (out - ref).abs().max().item()
+            if not torch.isfinite(out).all() or e > atol:
+                raise AssertionError(f"{what}: log-mel kernel vs plain on {tuple(args[0].shape)} "
+                                     f"{args[0].dtype}: max abs err {e} > {atol}")
+            err = max(err, e)
+            n_fillers += int((args[1] == 1).sum().item()) if args[1] is not None else 0
+            widths.add(tuple(args[0].shape))
+        if fillers and n_fillers == 0:
+            raise AssertionError(f"{what}: no launch held filler rows")
+        summary["max_abs_err"] = err
+        route = "logmel_tc_kernel, bf16" if mel == "bf16" else "logmel_kernel, f32"
+        line += (f", all through the log-mel kernel ({route});"
+                 f" replayed on every launch's operands, the command's output bit for bit, vs plain (buffers "
+                 f"{sorted(widths)}, {n_fillers} filler rows of length 1): max abs err {err:.3e} (atol {atol})")
+    else:
+        line += ", no log-mel kernel launch (plain torch frontend)"
+    if pool:
+        errs = [pool_fwd_vs_plain(rec["args"], rec["eps"], rec["fold"], rec["out"], f"{what}: pool forward")
+                for rec in calls.pool]
+        summary["pool_max_abs_err"] = max(errs)
+        shapes = sorted({(tuple(r["args"][0].shape), str(r["args"][0].dtype), r["fold"]) for r in calls.pool})
+        line += (f"; unmasked pooling, all through the pool-forward kernel, replayed on every launch's operands "
+                 f"(h, dtype, fold {shapes}), the command's output bit for bit, vs plain: max abs err "
+                 f"{max(errs):.3e} (rtol 2e-2)")
+    else:
+        line += "; masked pooling (plain torch), no pool-forward launch"
+    print(f"{line} {tag}")
+    return summary
+
+
+def serving_phase(root: str, n_speakers: int, tag: str) -> None:
+    """Phase 14: ``python -m titanet_torch infer | trials | diarize``
+    through ``cli.main`` in process, and the speaker service
+    (``titanet_torch.serve``) in a thread, on run A of phase 13 resumed to
+    ``SERVE_EPOCHS``. Raises on any failed check."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import HTTPServer
+
+    import numpy as np
+    import torch
+
+    from titanet_torch import cli, serve
+    from titanet_torch.config import Config
+    from titanet_torch.data.audio_io import read_mono, write_wav
+    from titanet_torch.train import diarize as td
+    from titanet_torch.train.enroll import SpeakerRegistry
+    from titanet_torch.train.extractor import SpeakerEmbedder
+    from titanet_torch.train.loop import infer as loop_infer
+    from titanet_torch.train.trials import embed_trial_files, trial_scores
+
+    sr = SR
+    augmented = ("chunk", "specaugment", "noise")
+    t0 = time.perf_counter()
+    cli.train(trainer_config(root, "a-pallas", SERVE_EPOCHS, augmented, resume=True))
+    cfg = trainer_config(root, "a-pallas", SERVE_EPOCHS, augmented)
+    run = os.path.join(root, "a-pallas")
+    losses = [epoch_record(read_jsonl(os.path.join(run, "metrics.jsonl")), e, "train/")["train/avg_loss"]
+              for e in (2, SERVE_EPOCHS)]
+    print(f"serving set-up: run A resumed from epoch 2 to {SERVE_EPOCHS} (cli.train, resume: true) in "
+          f"{time.perf_counter() - t0:.2f} s; train/avg_loss {losses[0]:.4f} -> {losses[1]:.4f} {tag}")
+    work = os.path.join(root, "serving")
+    utt_dir = os.path.join(work, "utts")
+    os.makedirs(utt_dir)
+    params = os.path.join(work, "params.json")
+    with open(params, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    if Config.from_yaml(params).to_dict() != cfg.to_dict():
+        raise AssertionError("serving: the JSON config does not read back to the trainer's")
+
+    # the test split as WAV files, a 40 s file, a conversation
+    test_ds = cli._datasets(cfg, True)[2]
+    wave_of = lambda i: np.asarray(test_ds[i]["waveform"], np.float32).reshape(-1)  # noqa: E731
+    files, spk_of = [], {}
+    speakers = sorted(test_ds.speakers_utterances)
+    for s, spk in enumerate(speakers):
+        for i, idx in enumerate(test_ds.speakers_utterances[spk]):
+            path = os.path.join(utt_dir, f"spk{s}_{i}.wav")
+            write_wav(path, wave_of(idx), sr)
+            files.append(path)
+            spk_of[path] = s
+    per_spk = {s: [p for p in files if spk_of[p] == s] for s in range(len(speakers))}
+    long_wav = np.concatenate([wave_of(i) for i in test_ds.speakers_utterances[speakers[0]]] * 10)
+    long_wav = long_wav[: 40 * sr]
+    long_path = os.path.join(work, "long40.wav")
+    write_wav(long_path, long_wav, sr)
+    probe_path = os.path.join(work, "probe3s.wav")
+    write_wav(probe_path, long_wav[: 3 * sr], sr)
+    pieces, truth, t = [], [], 0.0
+    turn = 0
+    while t < 32.0:
+        s = turn % 3 + 1
+        wav = wave_of(test_ds.speakers_utterances[speakers[s]][turn // 3 % 4])
+        pieces.append(wav)
+        truth.append((t, t + len(wav) / sr, s))
+        t += len(wav) / sr
+        turn += 1
+    conv_path = os.path.join(work, "conversation.wav")
+    write_wav(conv_path, np.concatenate(pieces), sr)
+    conv_s = t
+    if len(files) != 32 or not 30.0 <= conv_s <= 45.0:
+        raise AssertionError(f"serving set-up: {len(files)} files, conversation {conv_s:.1f} s")
+    print(f"serving set-up: {len(files)} test utterances ({len(speakers)} speakers) as WAV, a 40 s file, "
+          f"a {conv_s:.2f} s conversation of 3 speakers in {len(truth)} turns {tag}")
+
+    base = ["-p", params, "-c", run]
+    # infer --audio: the directory and the 40 s file
+    npz = os.path.join(work, "a.npz")
+    with embedding_calls() as calls:
+        emb, labels = cli.main(["infer", *base, "--audio", utt_dir, long_path, "-o", npz])
+    check_command_kernels(calls, "infer --audio", tag)
+    state, frontend, _ = cli._restore_for_eval(cfg, n_speakers, run, None, "cuda")
+    paths = files + [long_path]
+    direct = SpeakerEmbedder(state.model, frontend, device="cuda").embed([read_mono(p, sr) for p in paths])
+    norm_err = np.abs(np.linalg.norm(emb, axis=-1) - 1).max()
+    diff = np.abs(emb - direct).max()
+    if emb.shape != (33, 192) or not np.isfinite(emb).all() or norm_err > 1e-5 or diff > 1e-6 \
+            or list(labels) != [os.path.splitext(os.path.basename(p))[0] for p in paths]:
+        raise AssertionError(f"infer --audio: shape {emb.shape}, norm error {norm_err}, vs direct embed {diff}")
+    print(f"infer --audio (32 utterances + the 40 s file): [33, 192] finite, unit norm ({norm_err:.1e}); vs "
+          f"SpeakerEmbedder.embed called directly max abs {diff:.1e} (limit 1e-6) {tag}")
+    with embedding_calls() as calls:
+        emb_split, spk_split = cli.main(["infer", *base, "--split", "test", "-n", "32"])
+    check_command_kernels(calls, "infer --split test -n 32 (the loader's batches: no filler rows; loop.infer "
+                                 "pools unmasked)", tag, fillers=False, pool=True)
+    want, want_spk = loop_infer(state, test_ds, list(range(32)), frontend=frontend, sample_rate=sr,
+                                batch_size=cfg.validation.batch_size)
+    diff = np.abs(emb_split - want).max()
+    if diff > 1e-6 or list(spk_split) != list(want_spk):
+        raise AssertionError(f"infer --split: vs loop.infer max abs {diff}")
+    print(f"infer --split test -n 32: vs train/loop.py::infer max abs {diff:.1e} {tag}")
+
+    # trials: every pair of the 32 utterances
+    names = [os.path.relpath(p, work) for p in files]
+    pairs = [(i, j) for i in range(32) for j in range(i + 1, 32)]
+    vox, kaldi = os.path.join(work, "veri.txt"), os.path.join(work, "trials")
+    with open(vox, "w") as f:
+        f.writelines(f"{int(spk_of[files[i]] == spk_of[files[j]])} {names[i]} {names[j]}\n" for i, j in pairs)
+    with open(kaldi, "w") as f:
+        f.writelines(f"{names[i]} {names[j]} {'target' if spk_of[files[i]] == spk_of[files[j]] else 'nontarget'}\n"
+                     for i, j in pairs)
+    tbase = ["trials", *base, "--audio-root", work]
+
+    def read_scores(path):
+        """The scores file's third column, as written (6 decimals)."""
+        with open(path) as f:
+            return [line.split()[2] for line in f]
+
+    t0 = time.perf_counter()
+    with embedding_calls() as calls:
+        plain = cli.main([*tbase, "--trial-file", vox, "-o", os.path.join(work, "plain.txt")])
+    trials_s = time.perf_counter() - t0
+    check_command_kernels(calls, "trials", tag)
+    with embedding_calls() as calls:
+        normed = cli.main([*tbase, "--trial-file", vox, "--cohort", npz, "--cohort-topk", "8",
+                           "-o", os.path.join(work, "vox.txt")])
+    check_command_kernels(calls, "trials --cohort --cohort-topk 8", tag)
+    normed_k = cli.main([*tbase, "--trial-file", kaldi, "--cohort", npz, "--cohort-topk", "8",
+                         "-o", os.path.join(work, "kaldi.txt")])
+    # Both scores files are recomputed from the embeddings trials itself
+    # computes (embed_trial_files through the same embedder, the same
+    # batches: the same bits) and must equal them as written, 6 decimals,
+    # pair by pair: a score written for the wrong pair or in the wrong order
+    # shows as long as the scores are spread well beyond that rounding,
+    # which is checked too. The plain scores are also held to the cosine of
+    # infer's embeddings. infer embeds in batches of 32 and trials in the
+    # validation's 64, so the bf16 model rounds a file's embedding apart in
+    # the two; for unit vectors |a.b - a'.b'| <= |a - a'| + |b - b'|, which
+    # bounds each score's distance from infer's cosine by its two files'
+    # distances between the commands (each within bf16's rounding: cosine
+    # >= 0.999). AS-norm divides each score by its sides' spread over their
+    # top 8 cohort scores, so it is held only to the recomputation.
+    enrolls, tests = [names[i] for i, _ in pairs], [names[j] for _, j in pairs]
+    trial_emb = embed_trial_files(enrolls + tests, SpeakerEmbedder(
+        state.model, frontend, batch_size=cfg.validation.batch_size, device="cuda"), audio_root=work, sample_rate=sr)
+    written = {k: read_scores(os.path.join(work, f"{k}.txt")) for k in ("plain", "vox", "kaldi")}
+    want = {"plain": trial_scores(trial_emb, enrolls, tests),
+            "vox": trial_scores(trial_emb, enrolls, tests, cohort_embeddings=emb, cohort_topk=8)}
+    exact = {k: [f"{x:.6f}" for x in want[k]] == written[k] for k in want}
+    s_plain = np.array([float(x) for x in written["plain"]])
+    span = s_plain.max() - s_plain.min()
+    s_norm = np.array([float(x) for x in written["vox"]])
+    unit = emb[:32].astype(np.float64)
+    unit /= np.linalg.norm(unit, axis=-1, keepdims=True)
+    unit_t = np.stack([trial_emb[n] for n in names]).astype(np.float64)
+    unit_t /= np.linalg.norm(unit_t, axis=-1, keepdims=True)
+    apart, agree = np.linalg.norm(unit - unit_t, axis=-1), (unit * unit_t).sum(-1).min()
+    bound = np.array([apart[i] + apart[j] for i, j in pairs]) + 1e-6  # + the file's rounding
+    d_plain = np.abs(s_plain - np.array([unit[i] @ unit[j] for i, j in pairs]))
+    coh = unit_t @ (emb / np.linalg.norm(emb, axis=-1, keepdims=True)).T.astype(np.float64)
+    spread = np.partition(coh, coh.shape[1] - 8, axis=1)[:, -8:].std(axis=1)
+    scores_line = (f"plain scores span {s_plain.min():.6f}..{s_plain.max():.6f} (max - min {span:.3e}, "
+                   f"{len(set(written['plain']))} distinct of 496 as written); AS-norm scores span "
+                   f"{s_norm.min():.6f}..{s_norm.max():.6f} ({len(set(written['vox']))} distinct)")
+    for m in (plain, normed, normed_k):
+        if not (0.0 <= m["eer"] <= 1.0 and 0.0 <= m["mindcf"] <= 1.0 and np.isfinite(m["min_cllr"])) \
+                or (m["n_trials"], m["n_files"]) != (496, 32):
+            raise AssertionError(f"trials: {m}")
+    infer_line = (f"plain vs infer's cosine max abs {d_plain.max():.3e}, within each pair's bound (max "
+                  f"{bound.max():.3e}; the commands' embeddings of a file: min cosine {agree:.7f})")
+    if not all(exact.values()) or agree < 0.999 or (d_plain > bound).any() or written["vox"] != written["kaldi"] \
+            or normed_k != normed:
+        raise AssertionError(f"trials: scores files equal the recomputation as written {exact}; {infer_line}, "
+                             f"{int((d_plain > bound).sum())} pairs past it; Kaldi vs VoxCeleb list equal: "
+                             f"{written['vox'] == written['kaldi']}; {scores_line}")
+    if span < 20 * bound.max():
+        raise AssertionError(f"trials: the plain scores span {span:.3e}, not 20x the {bound.max():.3e} they are "
+                             f"held to: the checks could not see scores written for the wrong pairs; {scores_line}")
+    print(f"trials (496 pairs of 32 files): EER {plain['eer']:.4f}, minDCF {plain['mindcf']:.4f}, min-Cllr "
+          f"{plain['min_cllr']:.4f}; {scores_line}; both files equal the scores recomputed from trials' own "
+          f"embeddings as written (6 decimals), pair by pair; {infer_line}; AS-norm (cohort a.npz, top 8; each "
+          f"file's top-8 spread {spread.min():.2e}-{spread.max():.2e}): EER {normed['eer']:.4f}, minDCF "
+          f"{normed['mindcf']:.4f}, min-Cllr {normed['min_cllr']:.4f}, Kaldi list identical; {32 / trials_s:.1f} files/s "
+          f"({trials_s:.3f} s a command, restore included) {tag}")
+
+    # diarize: NME-SC, known k, AHC, VAD
+    rttm = os.path.join(work, "out.rttm")
+    dbase = ["diarize", *base, "--audio", conv_path, "--rttm", rttm]
+    for extra in ([], ["--known-k", "3"], ["--clustering", "ahc"], ["--vad"]):
+        t0 = time.perf_counter()
+        with embedding_calls() as calls:
+            segs = cli.main([*dbase, *extra])[conv_path]
+        wall = time.perf_counter() - t0
+        check_command_kernels(calls, f"diarize {' '.join(extra) or '(NME-SC)'}", tag)
+        back = td.read_rttm(rttm)["conversation"]
+        if not segs or len(back) != len(segs) or any(
+                abs(a.start - b.start) > 1e-3 or abs(a.end - b.end) > 1e-3 or a.speaker != b.speaker
+                for a, b in zip(segs, back)):
+            raise AssertionError(f"diarize {extra}: RTTM does not read back to the segments")
+        der = td.diarization_error_rate(truth, segs)
+        print(f"diarize {' '.join(extra) or '(NME-SC)'}: {len(segs)} segments, "
+              f"{len({s.speaker for s in segs})} speakers (truth 3), DER {der:.4f} (reported, not gated: "
+              f"{SERVE_EPOCHS} epochs of a synthetic corpus); RTTM reads back; real-time factor {conv_s / wall:.1f} "
+              f"({conv_s:.2f} s of audio in {wall:.3f} s, restore included) {tag}")
+    online = td.OnlineDiarizer(SpeakerEmbedder(state.model, frontend, batch_size=cfg.validation.batch_size,
+                                               device="cuda"), sr)
+    conv = read_mono(conv_path, sr)
+    for start in range(0, len(conv), int(1.5 * sr)):
+        online.feed(conv[start:start + int(1.5 * sr)])
+    osegs = online.finish()
+    if not osegs or not all(isinstance(s.speaker, int) and s.speaker >= 0 and np.isfinite([s.start, s.end]).all()
+                            for s in osegs):
+        raise AssertionError(f"OnlineDiarizer: {osegs[:3]}")
+    print(f"OnlineDiarizer (1.5 s chunks): {len(osegs)} segments, {len({s.speaker for s in osegs})} speakers, "
+          f"DER {td.diarization_error_rate(truth, osegs):.4f} (reported) {tag}")
+    del state
+
+    # the service, three variants, in a thread
+    def post(url, body):
+        req = urllib.request.Request(url, data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def body(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    for variant in ([], ["--fast-frontend"], ["--quantized", "--fast-frontend"]):
+        label = " ".join(variant) or "default"
+        args = serve.build_parser().parse_args(["--checkpoint-dir", run, "--n-classes", str(n_speakers),
+                                                "--port", "0", *variant])
+        embedder = serve.build_embedder(args)
+        registry = SpeakerRegistry(threshold=args.threshold)
+        httpd = HTTPServer(("127.0.0.1", 0), serve.make_handler(embedder, registry))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_port}"
+        try:
+            with embedding_calls() as calls:
+                codes = [post(url + "/embed", body(probe_path))]
+                for s in range(3):
+                    codes += [post(url + f"/enroll?name=spk{s}", body(p)) for p in per_spk[s][:2]]
+                codes += [post(url + "/verify?name=spk0", body(per_spk[0][2])),
+                          post(url + "/verify?name=spk0", body(per_spk[1][2]))]
+                probes = [(s, p) for s in range(3) for p in per_spk[s][2:]]
+                idents = [post(url + "/identify", body(p)) for _, p in probes]
+                bad = post(url + "/embed", b"this is not a wav file")
+            if any(c != 200 for c, _ in codes + idents) or bad[0] != 400:
+                raise AssertionError(f"service {label}: codes {[c for c, _ in codes + idents]}, malformed {bad[0]}")
+            direct = embedder.embed([read_mono(probe_path, sr)])[0]
+            diff = np.abs(np.asarray(codes[0][1]["embedding"]) - direct).max()
+            if diff > 1e-6:
+                raise AssertionError(f"service {label}: /embed vs direct embed {diff}")
+            fast = "--fast-frontend" in variant
+            # without --fast-frontend the service's frontend is plain torch (FrontendConfig.from_ms())
+            check_command_kernels(calls, f"service {label}", tag, mel="bf16" if fast else None)
+            top1 = np.mean([r[1]["candidates"][0]["speaker"] == f"spk{s}" for (s, _), r in zip(probes, idents)])
+            accept_same, accept_other = codes[7][1]["accept"], codes[8][1]["accept"]
+            ms, embed_ms = [], []
+            probe, wav3 = body(probe_path), read_mono(probe_path, sr)
+            for i in range(23):
+                t0 = time.perf_counter()
+                status, _ = post(url + "/embed", probe)
+                if status != 200:
+                    raise AssertionError(f"service {label}: /embed {status}")
+                t1 = time.perf_counter()
+                embedder.embed([wav3])
+                if i >= 3:
+                    ms.append((t1 - t0) * 1e3)
+                    embed_ms.append((time.perf_counter() - t1) * 1e3)
+            dev_ms, timed_by = device_ms(lambda: embedder.embed([wav3]), iters=5)
+            print(f"service {label} ({'log-mel kernel bf16' if fast else 'plain torch frontend, f32'}"
+                  f"{', int8 encoder' if '--quantized' in variant else ''}; {calls.calls} embedding calls): "
+                  f"/embed /enroll x6 /verify x2 /identify x{len(probes)} -> 200, malformed body -> 400; /embed vs "
+                  f"direct embed max abs {diff:.1e}; verify same {accept_same}, other {accept_other}; identify "
+                  f"top-1 {top1:.3f} (reported); /embed of a 3 s WAV median {statistics.median(ms):.3f} ms "
+                  f"(min {min(ms):.3f}, max {max(ms):.3f}, 20 requests after 3), of which embed() "
+                  f"{statistics.median(embed_ms):.3f} ms (median of 20 direct calls, batch {args.batch_size} x "
+                  f"{embedder._bucket_for(len(wav3))} samples) and device time {dev_ms:.3f} ms a call ({timed_by}; "
+                  f"idle {1 - dev_ms / statistics.median(embed_ms):.2f}) {tag}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=10)
 
 
 def main() -> int:
@@ -1172,8 +1660,14 @@ def main() -> int:
           f"{np.array2string(cosines, precision=7)} {tag}")
     del embedder, qtree, m32, model
 
-    # 13. the trainer as users run it
-    trainer_phase(tag)
+    # 13. the trainer as users run it; 14. the serving entry points on its run A
+    root, n_speakers = trainer_phase(tag)
+    try:
+        t0 = time.perf_counter()
+        serving_phase(root, n_speakers, tag)
+        print(f"serving phase: {time.perf_counter() - t0:.1f} s wall {tag}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     kernels = []
     for key, name_, src, line, path_launches in (

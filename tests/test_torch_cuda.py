@@ -526,3 +526,53 @@ def test_device_prefetch_batches_equal_host_batches_under_a_concurrent_step(cuda
         for key in ("waveform", "lengths", "speaker_ids"):
             np.testing.assert_array_equal(got[key].cpu().numpy(), getattr(ref, key), err_msg=key)
             np.testing.assert_array_equal(getattr(batch, key), getattr(ref, key), err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,atol", [("highest", 1e-4), ("default", 2e-3)])
+def test_speaker_embedder_requests_through_the_fused_log_mel_kernel(cuda_device, monkeypatch, precision, atol):
+    """``SpeakerEmbedder`` on the fused route (the serving entry points'
+    frontend): requests of 0.3, 1.2, 7 and 40 s in one call, each bucket a
+    group of one row (two windows for 40 s) padded to ``batch_size`` with
+    filler rows of length 1. Every log-mel launch of the call runs the
+    kernel (bf16: the tensor-core kernel) and matches its plain version on
+    the launch's own operands; each padded embedding equals the
+    request's solo ``embed_step`` (no filler rows, no other requests)."""
+    from titanet_torch.models import get_titanet
+    from titanet_torch.train.extractor import SpeakerEmbedder
+    from titanet_torch.train.state import embed_step
+
+    bf16 = precision == "default"
+    model = get_titanet(n_mega_blocks=3, dtype=torch.bfloat16 if bf16 else None, device=cuda_device)
+    fe = tf.FrontendConfig.from_ms(precision=precision, use_pallas_fused=True)
+    embedder = SpeakerEmbedder(model, fe, batch_size=4, device=cuda_device)
+    rng = np.random.default_rng(11)
+    reqs = [(rng.standard_normal(int(s * 16000)) * 0.1).astype(np.float32) for s in (0.3, 1.2, 7.0, 40.0)]
+    record, frontend_call = [], tf._log_mel_fused
+
+    def keep(waveform, cfg, lengths):  # what the frontend hands the kernel, and its output
+        out = frontend_call(waveform, cfg, lengths)
+        record.append((tf.log_mel_fused_operands(waveform.clone(), cfg, lengths.clone()), out.clone()))
+        return out
+
+    monkeypatch.setattr(tf, "_log_mel_fused", keep)
+    log_mel_fused.launches = log_mel_fused.tc_launches = 0
+    batched = embedder.embed(reqs)
+    torch.cuda.synchronize()
+    assert len(record) == log_mel_fused.launches == 4
+    assert log_mel_fused.tc_launches == (4 if bf16 else 0)
+    for (args, kw), out in record:
+        assert (args[1][-2:] == 1).all()  # filler rows
+        assert torch.equal(log_mel_fused(*args, **kw), out)  # the operands are the launch's
+        ref = log_mel_fused_plain(*args, n_frames=kw["n_frames"], hop=kw["hop"])
+        err = (out - ref).abs().max().item()
+        assert torch.isfinite(out).all() and err <= atol, (args[0].shape, err)
+    for wav, got in zip(reqs[:3], batched[:3]):
+        bucket = embedder._bucket_for(len(wav))
+        padded = np.zeros((1, bucket), np.float32)
+        padded[0, : len(wav)] = wav
+        solo = embed_step(model, padded, np.array([len(wav)], np.int32), frontend=fe, masked=True,
+                          device=cuda_device).float().cpu().numpy()[0]
+        cos = float(got @ solo / (np.linalg.norm(got) * np.linalg.norm(solo)))
+        assert cos > (0.999 if bf16 else 1 - 1e-5), (len(wav), cos)
+    assert batched.shape == (4, 192) and np.isfinite(batched).all()

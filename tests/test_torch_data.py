@@ -210,7 +210,7 @@ def test_on_disk_corpora_read_like_jax(tmp_path, name):
 
 @pytest.mark.parametrize("cls", ["LibriSpeechDataset", "VCTKDataset", "VoxCelebDataset"])
 def test_fetching_a_missing_corpus_raises_and_names_the_roadmap_item(tmp_path, cls):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 1 \(corpus fetching\)"):
         getattr(td, cls)(str(tmp_path), download=True)
     with pytest.raises(FileNotFoundError):
         getattr(td, cls)(str(tmp_path))

@@ -1,10 +1,19 @@
-"""Command line of the port: ``python -m titanet_torch train -p params.yml``
-and ``python -m titanet_torch eval -p params.yml -c <run dir>`` (port of
-``titanet_tpu/cli.py``'s ``train`` and ``eval``).
+"""Command line of the port (port of ``titanet_tpu/cli.py``):
+
+    python -m titanet_torch train   -p params.yml
+    python -m titanet_torch eval    -p params.yml -c <run dir>
+    python -m titanet_torch infer   -p params.yml -c <run dir> --audio <files or dirs> -o emb.npz
+    python -m titanet_torch trials  -p params.yml -c <run dir> --trial-file veri_test2.txt
+    python -m titanet_torch diarize -p params.yml -c <run dir> --audio conv.wav --rttm out.rttm
 
 The same YAML schema as the JAX package drives the model, the loss, the
-data and the augmentation. Everything runs on the card (``--device cuda``,
-the default) unless the caller names the CPU.
+data and the augmentation (``-p`` also takes a ``.json`` file of the same
+schema, which needs no PyYAML). Everything runs on the card (``--device
+cuda``, the default) unless the caller names the CPU. ``infer``,
+``trials`` and ``diarize`` restore a checkpoint of ``train`` (the EMA
+weights when the run kept them) and embed through
+:class:`titanet_torch.train.extractor.SpeakerEmbedder`; the HTTP speaker
+service is :mod:`titanet_torch.serve`.
 
 The frontend always takes the fused log-mel route, on either device: the
 kernel on the card (at ``audio.frontend_precision: highest`` its f32 mode,
@@ -13,11 +22,12 @@ So a CPU run computes what the card's kernel does, and
 ``audio.use_pallas_fused`` (the JAX package's switch for its TPU kernel) is
 not read.
 
-Not ported yet; these raise with the ROADMAP item that holds them:
-``figures.enabled`` (Queue 1 item 8), ``generic.device_corpus`` (item 5),
-``mesh.num_devices`` above 1 (item 6), a model family other than TitaNet
-(item 7), corpus, RIR or noise ``download`` (item 3). The ``infer``,
-``trials`` and ``diarize`` subcommands wait for their modules (items 3-4).
+Not ported yet; these raise with the ROADMAP Queue 1 item that holds them:
+corpus, RIR or noise ``download`` (item 1, corpus fetching),
+``generic.device_corpus`` (item 5, data to device), ``mesh.num_devices``
+above 1 (item 6, parallel), a model family other than TitaNet (item 7,
+model zoo), ``figures.enabled``, ``infer --fig`` and ``trials --det-out``
+(item 8, utilities).
 """
 
 from __future__ import annotations
@@ -42,11 +52,13 @@ from titanet_torch.data import (
     Subset,
     get_datasets,
 )
+from titanet_torch.data.audio_io import read_mono
 from titanet_torch.losses.heads import build_head
 from titanet_torch.models import get_titanet
 from titanet_torch.ops.augment import AugmentConfig
 from titanet_torch.ops.frontend import FrontendConfig
 from titanet_torch.train import checkpoint as ckpt
+from titanet_torch.train.extractor import SpeakerEmbedder
 from titanet_torch.train.loop import run_verification, training_loop
 from titanet_torch.train.state import create_train_state, ema_eval_state, make_optimizer
 from titanet_torch.utils import (
@@ -137,7 +149,7 @@ def _noise_mix_config(cfg: Config) -> Optional[NoiseMixConfig]:
         return None
     paths = tuple(str(p) for p in sorted(Path(no.corpora_path).rglob("*.wav")))
     if not paths and no.download:
-        raise _not_ported("fetching MUSAN (augmentation.noise.download)", "3 (data/acquire.py)")
+        raise _not_ported("fetching MUSAN (augmentation.noise.download)", "1 (corpus fetching)")
     if not paths:
         raise FileNotFoundError(
             f"augmentation.noise.source=files but no wavs under {no.corpora_path!r}"
@@ -173,11 +185,11 @@ def _cohort_loader(cfg: Config, train_ds):
 
 def _check_ported(cfg: Config) -> None:
     if cfg.figures.enabled:
-        raise _not_ported("figures.enabled (embedding figures, utils/viz.py)", "8")
+        raise _not_ported("figures.enabled (embedding figures, utils/viz.py)", "8 (utilities)")
     if cfg.generic.device_corpus:
-        raise _not_ported("generic.device_corpus (the device-resident corpus)", "5")
+        raise _not_ported("generic.device_corpus (the device-resident corpus)", "5 (data to device)")
     if cfg.mesh.num_devices is not None and cfg.mesh.num_devices > 1:
-        raise _not_ported("training on more than one device (mesh.num_devices > 1)", "6")
+        raise _not_ported("training on more than one device (mesh.num_devices > 1)", "6 (parallel)")
 
 
 def _frontend(cfg: Config) -> FrontendConfig:
@@ -291,7 +303,7 @@ def _loaders(cfg: Config, train_ds, val_ds, test_ds, noise_mix):
         rir_root = cfg.augmentation.rir.corpora_path
         rir_paths = tuple(str(p) for p in sorted(Path(rir_root).rglob("*.wav")))
         if not rir_paths and cfg.augmentation.rir.download:
-            raise _not_ported("fetching the RIR corpus (augmentation.rir.download)", "3 (data/acquire.py)")
+            raise _not_ported("fetching the RIR corpus (augmentation.rir.download)", "1 (corpus fetching)")
     reverb = ReverbConfig(
         rir_paths=rir_paths, probability=cfg.augmentation.probability,
         enabled="reverb" in enabled and bool(rir_paths),
@@ -394,11 +406,10 @@ def _rebuild_state(cfg: Config, n_speakers: int, device="cuda"):
     return model, head, _frontend(cfg), state
 
 
-def evaluate_checkpoint(cfg: Config, checkpoint_dir: str, epoch: Optional[int] = None, device="cuda"):
-    """Verification EER/minDCF of a saved checkpoint (the newest under
-    ``checkpoint_dir`` unless ``epoch`` is given), with the EMA weights when
-    the run kept them."""
-    train_ds, _, test_ds, n_speakers = _datasets(cfg, True)
+def _restore_for_eval(cfg: Config, n_speakers: int, checkpoint_dir: str, epoch: Optional[int], device):
+    """``(state, frontend, epoch)``: the checkpoint of ``epoch`` (the newest
+    under ``checkpoint_dir`` when None) restored into a state built as
+    training built it, with the EMA weights when the run kept them."""
     _, _, frontend, state = _rebuild_state(cfg, n_speakers, device=device)
     if epoch is None:
         restored, epoch = ckpt.restore_latest(checkpoint_dir, state)
@@ -406,6 +417,15 @@ def evaluate_checkpoint(cfg: Config, checkpoint_dir: str, epoch: Optional[int] =
             raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
     else:
         ckpt.restore_checkpoint(checkpoint_dir, epoch, state)
+    return ema_eval_state(state), frontend, epoch
+
+
+def evaluate_checkpoint(cfg: Config, checkpoint_dir: str, epoch: Optional[int] = None, device="cuda"):
+    """Verification EER/minDCF of a saved checkpoint (the newest under
+    ``checkpoint_dir`` unless ``epoch`` is given), with the EMA weights when
+    the run kept them."""
+    train_ds, _, test_ds, n_speakers = _datasets(cfg, True)
+    state, frontend, _ = _restore_for_eval(cfg, n_speakers, checkpoint_dir, epoch, device)
     loader = DataLoader(
         test_ds, batch_size=cfg.validation.batch_size, shuffle=False,
         drop_last=False, chunk=ChunkConfig(enabled=False),
@@ -413,7 +433,7 @@ def evaluate_checkpoint(cfg: Config, checkpoint_dir: str, epoch: Optional[int] =
     )
     cohort_loader, cohort_topk = _cohort_loader(cfg, train_ds)
     metrics = run_verification(
-        ema_eval_state(state), loader, frontend=frontend,
+        state, loader, frontend=frontend,
         mindcf_p_target=cfg.test.mindcf_p_target,
         mindcf_c_fa=cfg.test.mindcf_c_fa, mindcf_c_miss=cfg.test.mindcf_c_miss,
         console=ConsoleLogger(enabled=True),
@@ -424,24 +444,225 @@ def evaluate_checkpoint(cfg: Config, checkpoint_dir: str, epoch: Optional[int] =
     return metrics
 
 
+def infer_checkpoint(
+    cfg: Config,
+    checkpoint_dir: str,
+    epoch: Optional[int] = None,
+    audio_paths: Optional[list] = None,
+    split: str = "test",
+    num_utterances: int = 64,
+    out_path: Optional[str] = None,
+    fig_path: Optional[str] = None,
+    device="cuda",
+):
+    """Embed utterances with a saved checkpoint (reference ``learn.infer``,
+    src/learn.py:462-493). With ``audio_paths``, wav/flac files of any
+    length through ``SpeakerEmbedder`` (labels: the file stems); otherwise
+    the first ``num_utterances`` of the config's ``split`` through
+    :func:`titanet_torch.train.loop.infer` (labels: speaker ids). Saves
+    ``embeddings`` and ``labels`` to ``out_path`` (.npz) when given.
+    Returns ``(embeddings [N, E] f32, labels [N])``."""
+    if fig_path:
+        raise _not_ported("the projection figure (infer --fig, utils/viz.py)", "8 (utilities)")
+    _, val_ds, test_ds, n_speakers = _datasets(cfg, True)
+    state, frontend, _ = _restore_for_eval(cfg, n_speakers, checkpoint_dir, epoch, device)
+    if audio_paths:
+        wavs = [read_mono(p, cfg.audio.sample_rate) for p in audio_paths]
+        embeddings = SpeakerEmbedder(state.model, frontend, device=device).embed(wavs)
+        labels = np.asarray([os.path.splitext(os.path.basename(p))[0] for p in audio_paths])
+    else:
+        from titanet_torch.train.loop import infer
+
+        dataset = {"val": val_ds, "test": test_ds}.get(split)
+        if dataset is None or len(dataset) == 0:
+            raise ValueError(f"split {split!r} is empty or disabled in the config")
+        embeddings, speakers = infer(
+            state, dataset, list(range(min(num_utterances, len(dataset)))),
+            frontend=frontend, sample_rate=cfg.audio.sample_rate,
+            batch_size=cfg.validation.batch_size,
+        )
+        labels = np.asarray(speakers)
+    if out_path:
+        np.savez(out_path, embeddings=embeddings, labels=labels)
+        print(f"[saved {len(embeddings)} embeddings -> {out_path}]")
+    return embeddings, labels
+
+
+def trials_checkpoint(
+    cfg: Config,
+    checkpoint_dir: str,
+    trial_file: str,
+    epoch: Optional[int] = None,
+    audio_root: Optional[str] = None,
+    cohort_npz: Optional[str] = None,
+    cohort_topk: Optional[int] = None,
+    scores_out: Optional[str] = None,
+    det_out: Optional[str] = None,
+    device="cuda",
+):
+    """Score a VoxCeleb (``veri_test2.txt``) or Kaldi (``trials``) trial
+    list with a saved checkpoint (:mod:`titanet_torch.train.trials`).
+    ``cohort_npz`` (an ``infer -o`` output) turns on S-norm, and
+    ``cohort_topk`` AS-norm. Returns the metrics dict (EER, minDCF,
+    min-Cllr, counts)."""
+    from titanet_torch.train.trials import evaluate_trials
+
+    if det_out:
+        raise _not_ported("the DET-curve figure (trials --det-out, utils/viz.py)", "8 (utilities)")
+    _, _, _, n_speakers = _datasets(cfg, True)
+    state, frontend, epoch = _restore_for_eval(cfg, n_speakers, checkpoint_dir, epoch, device)
+    cohort = np.load(cohort_npz)["embeddings"] if cohort_npz else None
+    metrics = evaluate_trials(
+        trial_file, SpeakerEmbedder(state.model, frontend, batch_size=cfg.validation.batch_size, device=device),
+        audio_root=audio_root, sample_rate=cfg.audio.sample_rate,
+        cohort_embeddings=cohort, cohort_topk=cohort_topk,
+        p_target=cfg.test.mindcf_p_target, c_fa=cfg.test.mindcf_c_fa,
+        c_miss=cfg.test.mindcf_c_miss, scores_out=scores_out,
+    )
+    print(
+        f"[trials epoch {epoch}] eer={metrics['eer']:.4f} "
+        f"mindcf@{cfg.test.mindcf_p_target}={metrics['mindcf']:.4f} "
+        f"min_cllr={metrics['min_cllr']:.4f} "
+        f"({metrics['n_trials']} trials / {metrics['n_target']} target / "
+        f"{metrics['n_files']} files)"
+    )
+    return metrics
+
+
+def diarize_checkpoint(
+    cfg: Config,
+    checkpoint_dir: str,
+    audio_paths: list,
+    epoch: Optional[int] = None,
+    window_s: float = 1.5,
+    hop_s: float = 0.75,
+    n_speakers: Optional[int] = None,
+    max_speakers: int = 8,
+    vad: bool = False,
+    clustering: str = "nmesc",
+    ahc_threshold: float = 0.6,
+    overlap_threshold: Optional[float] = None,
+    overlap_margin: float = 0.15,
+    rttm_out: Optional[str] = None,
+    device="cuda",
+):
+    """Who spoke when in each audio file, with a saved checkpoint (windowed
+    embeddings and clustering, :mod:`titanet_torch.train.diarize`). Prints
+    the segments of each file and, with ``rttm_out``, writes one RTTM file
+    (uri: the file's stem). Returns ``{path: [Segment, ...]}``."""
+    from titanet_torch.train.diarize import diarize, write_rttm
+
+    _, _, _, n_train_speakers = _datasets(cfg, True)
+    state, frontend, _ = _restore_for_eval(cfg, n_train_speakers, checkpoint_dir, epoch, device)
+    embedder = SpeakerEmbedder(state.model, frontend, batch_size=cfg.validation.batch_size, device=device)
+    if rttm_out and os.path.exists(rttm_out):
+        os.remove(rttm_out)  # write_rttm appends per uri
+    results = {}
+    for path in audio_paths:
+        segments = diarize(
+            read_mono(path, cfg.audio.sample_rate), cfg.audio.sample_rate, embedder,
+            window_s=window_s, hop_s=hop_s, n_speakers=n_speakers, max_speakers=max_speakers,
+            vad=vad, clustering=clustering, ahc_threshold=ahc_threshold,
+            overlap_threshold=overlap_threshold, overlap_margin=overlap_margin,
+        )
+        results[path] = segments
+        print(f"[{path}: {len(segments)} segments, {len({s.speaker for s in segments})} speakers]")
+        for seg in segments:
+            print(f"  {seg.start:8.2f}s - {seg.end:8.2f}s  speaker {seg.speaker}")
+        if rttm_out:
+            write_rttm(segments, rttm_out, uri=os.path.splitext(os.path.basename(path))[0])
+    if rttm_out:
+        print(f"[rttm written to {rttm_out}]")
+    return results
+
+
+def _audio_files(paths) -> list:
+    """Files as given; a directory expands to its wav/flac files, walked in
+    sorted order."""
+    out = []
+    for p in paths:
+        if os.path.isdir(p):
+            for root, _, files in sorted(os.walk(p)):
+                out += [os.path.join(root, f) for f in sorted(files) if f.lower().endswith((".wav", ".flac"))]
+        else:
+            out.append(p)
+    return out
+
+
 def main(argv: Optional[list] = None):
     parser = argparse.ArgumentParser(prog="python -m titanet_torch", description="titanet_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_train = sub.add_parser("train", help="train a model (reference-compatible YAML)")
     p_train.add_argument("-p", "--params", default=None, help="path to parameters .yml")
     p_eval = sub.add_parser("eval", help="verification EER/minDCF from a checkpoint")
-    p_eval.add_argument("-p", "--params", default=None)
-    p_eval.add_argument("-c", "--checkpoint-dir", required=True)
-    p_eval.add_argument("-e", "--epoch", type=int, default=None)
-    for p in (p_train, p_eval):
+    p_infer = sub.add_parser("infer", help="embed utterances/audio files with a checkpoint "
+                             "(reference learn.infer)")
+    p_trials = sub.add_parser("trials", help="score a standard trial list (VoxCeleb veri_test2 / "
+                              "Kaldi format) with a checkpoint")
+    p_diar = sub.add_parser("diarize", help="who-spoke-when over audio files (windowed "
+                            "embeddings + clustering), optional RTTM output")
+    for p in (p_eval, p_infer, p_trials, p_diar):
+        p.add_argument("-p", "--params", default=None)
+        p.add_argument("-c", "--checkpoint-dir", required=True)
+        p.add_argument("-e", "--epoch", type=int, default=None)
+    p_infer.add_argument("--audio", nargs="*", default=None,
+                         help="wav/flac files (or directories) to embed; omit to embed dataset utterances")
+    p_infer.add_argument("--split", choices=("val", "test"), default="test")
+    p_infer.add_argument("-n", "--num-utterances", type=int, default=64)
+    p_infer.add_argument("-o", "--out", default=None, help="output .npz (embeddings + labels)")
+    p_infer.add_argument("--fig", default=None, help="save a 2-D projection scatter PNG")
+    p_trials.add_argument("--trial-file", required=True,
+                          help="'<0|1> <enroll> <test>' or '<enroll> <test> target|nontarget' per line")
+    p_trials.add_argument("--audio-root", default=None, help="directory trial paths are relative to")
+    p_trials.add_argument("--cohort", default=None,
+                          help="impostor-cohort .npz from `infer -o` (enables S-norm)")
+    p_trials.add_argument("--cohort-topk", type=int, default=None,
+                          help="AS-norm: use only each side's top-K cohort scores")
+    p_trials.add_argument("--det-out", default=None, help="write a DET-curve PNG for the trial scores")
+    p_trials.add_argument("-o", "--scores-out", default=None, help="write '<enroll> <test> <score>' lines")
+    p_diar.add_argument("--audio", nargs="+", required=True, help="wav/flac files to diarize")
+    p_diar.add_argument("--rttm", default=None,
+                        help="write NIST RTTM SPEAKER lines here (uri = audio file stem)")
+    p_diar.add_argument("--window", type=float, default=1.5)
+    p_diar.add_argument("--hop", type=float, default=0.75)
+    p_diar.add_argument("--known-k", type=int, default=None,
+                        help="fix the speaker count (default: NME-SC auto)")
+    p_diar.add_argument("--max-speakers", type=int, default=8)
+    p_diar.add_argument("--vad", action="store_true", help="place windows only inside energy-VAD speech")
+    p_diar.add_argument("--clustering", choices=("nmesc", "ahc"), default="nmesc")
+    p_diar.add_argument("--ahc-threshold", type=float, default=0.6)
+    p_diar.add_argument("--overlap", type=float, default=None, metavar="TH",
+                        help="emit overlapped second speakers (runner-up centroid threshold; calibrate "
+                        "via train.diarize.calibrate_overlap_threshold)")
+    p_diar.add_argument("--overlap-margin", type=float, default=0.15)
+    for p in (p_train, p_eval, p_infer, p_trials, p_diar):
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     cfg = load_config(args.params)
     if args.cmd == "train":
-        train(cfg, device=args.device)
-    elif args.cmd == "eval":
-        evaluate_checkpoint(cfg, args.checkpoint_dir, args.epoch, device=args.device)
-
+        return train(cfg, device=args.device)
+    if args.cmd == "eval":
+        return evaluate_checkpoint(cfg, args.checkpoint_dir, args.epoch, device=args.device)
+    if args.cmd == "infer":
+        return infer_checkpoint(
+            cfg, args.checkpoint_dir, args.epoch,
+            audio_paths=_audio_files(args.audio) if args.audio else None,
+            split=args.split, num_utterances=args.num_utterances,
+            out_path=args.out, fig_path=args.fig, device=args.device,
+        )
+    if args.cmd == "trials":
+        return trials_checkpoint(
+            cfg, args.checkpoint_dir, args.trial_file, args.epoch,
+            audio_root=args.audio_root, cohort_npz=args.cohort, cohort_topk=args.cohort_topk,
+            scores_out=args.scores_out, det_out=args.det_out, device=args.device,
+        )
+    return diarize_checkpoint(
+        cfg, args.checkpoint_dir, args.audio, args.epoch,
+        window_s=args.window, hop_s=args.hop, n_speakers=args.known_k,
+        max_speakers=args.max_speakers, vad=args.vad, clustering=args.clustering,
+        ahc_threshold=args.ahc_threshold, overlap_threshold=args.overlap,
+        overlap_margin=args.overlap_margin, rttm_out=args.rttm, device=args.device,
+    )
 
 if __name__ == "__main__":
     main()

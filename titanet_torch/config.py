@@ -505,6 +505,13 @@ class Config:
 
     @classmethod
     def from_yaml(cls, path: str) -> "Config":
+        """Read a YAML file; a ``.json`` file (JSON is a subset of YAML) is
+        read with the standard library, so it needs no PyYAML."""
+        if path.lower().endswith(".json"):
+            import json
+
+            with open(path, "r") as f:
+                return cls.from_dict(json.load(f) or {})
         try:
             import yaml
         except ImportError as e:

@@ -107,3 +107,19 @@ def read_audio(path: str) -> Tuple[np.ndarray, int]:
     if ext not in _EXT_READERS:
         raise ValueError(f"Unsupported audio extension {ext!r} for {path}")
     return _EXT_READERS[ext](path)
+
+
+def read_mono(path: str, sample_rate: int) -> np.ndarray:
+    """Decode a wav/flac file to a mono f32 waveform ``[T]`` at
+    ``sample_rate``: ``[C, T]`` downmixed as the loader does, resampled when
+    the file's rate differs."""
+    from titanet_torch.data.loader import _resample_host
+
+    wav, sr = read_audio(path)
+    wav = np.asarray(wav, np.float32)
+    if wav.ndim == 2:
+        wav = wav.mean(axis=0)
+    wav = wav.reshape(-1)
+    if sr != sample_rate:
+        wav = _resample_host(wav, sr, sample_rate)
+    return wav

@@ -11,8 +11,8 @@ waveforms and the same splits in both packages.
 - datasets yield RAW WAVEFORMS; the mel frontend runs on the device
   (``titanet_torch.ops.frontend``),
 - corpus fetching (``download=True``) is not ported: it raises and names
-  ROADMAP Queue 1 item 3 (``data/acquire.py``); place the extracted corpus
-  under ``root`` instead,
+  ROADMAP Queue 1 item 1 (corpus fetching, ``data/acquire.py``); place
+  the extracted corpus under ``root`` instead,
 - verification pairs are returned as (indices, labels) for batched scoring
   (one matmul) rather than materialized O(N^2) example pairs.
 """
@@ -33,8 +33,8 @@ from titanet_torch.data.audio_io import read_audio
 def _refuse_download(download: bool, corpus: str) -> None:
     if download:
         raise NotImplementedError(
-            f"fetching {corpus} is not ported to titanet_torch (ROADMAP Queue 1 "
-            "item 3, data/acquire.py); place the extracted corpus under root"
+            f"fetching {corpus} is not ported to titanet_torch yet (ROADMAP Queue 1 "
+            "item 1 (corpus fetching), data/acquire.py); place the extracted corpus under root"
         )
 
 

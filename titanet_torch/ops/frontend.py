@@ -227,19 +227,30 @@ def frame_mask(lengths: torch.Tensor, n_frames: int, hop_length: int) -> torch.T
     return (frame_ids < valid).to(torch.float32)
 
 
+def log_mel_fused_operands(
+    waveform: torch.Tensor, cfg: FrontendConfig, lengths: Optional[torch.Tensor]
+):
+    """``(args, kwargs)`` of the fused log-mel kernel
+    (:func:`titanet_torch.ops.kernels.melspec.log_mel_fused`) for
+    ``waveform [B, T]`` f32: the framing buffer in the kernel's dtype, the
+    int32 lengths, the basis and the filterbank; ``n_frames``, ``hop`` and
+    ``win_length``."""
+    dtype = torch.float32 if cfg.precision == "highest" else torch.bfloat16
+    buf, n_frames, _ = _framing_buffer(waveform, cfg.n_fft, cfg.hop_length, lengths)
+    _, _, _, basis, fb = _constants(cfg, waveform.device, dtype)
+    lens = None if lengths is None else lengths.to(torch.int32).contiguous()
+    return (buf.to(dtype).contiguous(), lens, basis, fb), dict(
+        n_frames=n_frames, hop=cfg.hop_length, win_length=cfg.win_length
+    )
+
+
 def _log_mel_fused(
     waveform: torch.Tensor, cfg: FrontendConfig, lengths: Optional[torch.Tensor]
 ) -> torch.Tensor:
     from titanet_torch.ops.kernels.melspec import log_mel_fused
 
-    dtype = torch.float32 if cfg.precision == "highest" else torch.bfloat16
-    buf, n_frames, _ = _framing_buffer(waveform, cfg.n_fft, cfg.hop_length, lengths)
-    _, _, _, basis, fb = _constants(cfg, waveform.device, dtype)
-    lens = None if lengths is None else lengths.to(torch.int32).contiguous()
-    return log_mel_fused(
-        buf.to(dtype).contiguous(), lens, basis, fb,
-        n_frames=n_frames, hop=cfg.hop_length, win_length=cfg.win_length,
-    )
+    args, kwargs = log_mel_fused_operands(waveform, cfg, lengths)
+    return log_mel_fused(*args, **kwargs)
 
 
 def log_mel_spectrogram(

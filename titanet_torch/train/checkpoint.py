@@ -105,12 +105,17 @@ def latest_epoch(path: str) -> Optional[int]:
     return epochs[-1] if epochs else None
 
 
+def read_checkpoint(path: str, epoch: int) -> dict:
+    """The saved dict of ``path/<epoch>`` (CPU tensors), as
+    :func:`state_dict` made it."""
+    return torch.load(os.path.join(path, str(int(epoch)), FILENAME), map_location="cpu",
+                      weights_only=True)
+
+
 def restore_checkpoint(path: str, epoch: int, state: TrainState) -> TrainState:
     """Load ``path/<epoch>`` into ``state`` (built as training built it, on
     the device to restore to) in place; returns ``state``."""
-    data = torch.load(os.path.join(path, str(int(epoch)), FILENAME), map_location="cpu",
-                      weights_only=True)
-    return load_state_dict(state, data)
+    return load_state_dict(state, read_checkpoint(path, epoch))
 
 
 def restore_latest(path: str, state: TrainState):
