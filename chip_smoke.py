@@ -108,10 +108,34 @@ Phases (any failure exits non-zero and prints no result):
      median ms of an /embed of a 3 s WAV per variant, ``trials`` files/s
      and ``diarize``'s real-time factor.
 
+  15. the model zoo (every family but TitaNet, at its published width:
+     ECAPA-TDNN C=512 and C=1024, x-vector H=512/P=1500, ResNet34 base 32,
+     MFA-Conformer 6 x 256 FF 2048, d-vector LSTM 3 x 768, the smoke
+     convnet 10 x 256; bf16, seed 0), one line a family: ``cli.train`` for
+     one epoch of phase 13's corpus with ``[chunk]`` only under
+     ``TITANET_DW_BWD=pallas`` (finite loss, the checkpoint) and
+     ``cli.evaluate_checkpoint`` (EER, minDCF in [0, 1]); 20 ``train_step``s
+     on one batch of 64 x 3 s (every gradient finite, the last loss below
+     the first; median ms a step, kernels and device ms a step, idle share,
+     peak memory); ``embed_step`` at B=128 x 3 s (median and device ms,
+     idle share); ``SpeakerEmbedder`` padded == solo (cosine > 0.999) on
+     1.2, 3, 7 and 40 s requests; ``infer --audio`` on the trained
+     checkpoint equal to a direct ``SpeakerEmbedder.embed`` (1e-6); the
+     service ``--model-size <family> --checkpoint-dir <run>`` (default and
+     ``--fast-frontend``) answering /embed with 200 (the d-vector and the
+     convnet have no ``--model-size``). Every log-mel launch of the family
+     is replayed on its own operands against its plain version (phase 2's
+     tolerances); the Conformer's pool forward and backward of a train
+     step (C = 1536, H = 128, T' = 151) and its pool-forward launches of
+     ``infer --split`` likewise (phases 3 and 6); every other family
+     launches no pool kernel, and no family the depthwise backward.
+
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
 kernels, the pallas-route training step for the backward kernels, the
-fused serving call for the frames and mega-block kernels), error
+fused serving call for the frames and mega-block kernels; rows 1-4 also
+``zoo_trainer_launches``: each zoo family's launches in its phase-15
+trainer run), error
 vs its plain version, time, plain time, bound and library time, every number
 from this run, and ``timed_by``: ``"profiler"`` (device time of the
 kernel's launches), or ``"events"`` (CUDA events around its wrapper) where
@@ -189,7 +213,7 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names=None, iters=10, warmup=3, attempts=3):
+def device_profile(fn, names=None, iters=10, warmup=3, attempts=3):
     """Device time of one ``fn()`` in ms: the CUDA kernels that
     ``torch.profiler`` records over ``iters`` calls (those whose name holds
     one of ``names``, or all), summed and divided by ``iters``. A trace can
@@ -199,8 +223,10 @@ def device_ms(fn, names=None, iters=10, warmup=3, attempts=3):
     are traced after a traced warm-up cycle of as many calls, which takes the
     first loss, and a trace is taken again (``attempts`` in all) unless it
     holds the same whole number of records for every call. Returns
-    ``(ms, "profiler")``, or CUDA-event time and ``"events"`` where no trace
-    was whole."""
+    ``(ms, busy ms, kernels a call, "profiler")``, or CUDA-event time
+    twice, None and ``"events"`` where no trace was whole. ``busy`` is the
+    union of the kernels' time spans: kernels that overlap on several
+    streams (cuDNN's LSTM runs its layers as a wavefront) count once."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -216,11 +242,41 @@ def device_ms(fn, names=None, iters=10, warmup=3, attempts=3):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and (names is None or any(n in e.name for n in names))]
-        if us and len(us) % iters == 0:
-            return sum(us) / iters / 1e3, "profiler"
-    return cuda_ms(fn, iters=iters, warmup=0), "events"
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and (names is None or any(n in e.name for n in names)))
+        if spans and len(spans) % iters == 0:
+            busy, reach = 0.0, float("-inf")
+            for start, end in spans:
+                busy += max(end, reach) - max(start, reach)
+                reach = max(reach, end)
+            total = sum(end - start for start, end in spans)
+            return total / iters / 1e3, busy / iters / 1e3, len(spans) // iters, "profiler"
+    ms = cuda_ms(fn, iters=iters, warmup=0)
+    return ms, ms, None, "events"
+
+
+def device_ms(fn, names=None, iters=10, warmup=3, attempts=3):
+    """:func:`device_profile` without the kernel count: ``(ms, timed_by)``."""
+    ms, _, _, timed_by = device_profile(fn, names, iters, warmup, attempts)
+    return ms, timed_by
+
+
+
+
+def median_ms(fn, runs=10, warmup=3):
+    """Median, min and max wall ms of a synchronized ``fn()`` over ``runs``
+    calls after ``warmup``."""
+    import torch
+
+    times = []
+    for i in range(warmup + runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
 
 
 def library_dw_conv(x, w, b):
@@ -282,10 +338,12 @@ RESUME_KEYS = ("train/avg_loss", "train/accuracy", "val/avg_loss", "val/accuracy
                "test/eer", "test/mindcf")
 
 
-def trainer_config(root: str, run: str, epochs: int, enable, resume: bool = False):
+def trainer_config(root: str, run: str, epochs: int, enable, resume: bool = False, model=None):
+    """Phase 13's trainer config; ``model`` (config sections, e.g.
+    ``{"ecapa": {"enabled": True}}``) selects another family (phase 15)."""
     from titanet_torch.config import Config
 
-    return Config.from_dict({
+    return Config.from_dict({**(model or {}),
         "dataset": {"name": "synthetic", "synthetic_speakers": TRAIN_SPEAKERS,
                     "synthetic_utterances": TRAIN_UTTERANCES},
         "training": {"batch_size": TRAIN_BATCH, "epochs": epochs, "dtype": "bfloat16", "loss": "ce",
@@ -332,6 +390,65 @@ def pool_fwd_vs_plain(args, eps, fold, path_out, what: str) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
 
+def keep_grad(out, rec: dict) -> None:
+    """Keep the gradient that reaches ``out`` in ``rec["g"]`` (a train
+    step's output: the backward kernels run on that gradient)."""
+    if out.requires_grad:
+        out.register_hook(lambda g: rec.__setitem__("g", g.detach().clone()))
+
+
+def keep_pool_calls(model, kept: list) -> list:
+    """Forward hooks on every ``AttentiveStatsPooling`` of ``model`` that
+    append to ``kept``, for each unmasked call, the operands the pool
+    kernels are handed (``attentive_pool_fwd``'s, cloned), the output and,
+    in a train step, the output's gradient. Returns the hooks."""
+    import torch
+
+    from titanet_torch.ops.pooling import AttentiveStatsPooling
+
+    def on_pool(mod, args, kwargs, out):
+        x, prescale, preshift = args[0], kwargs.get("prescale"), kwargs.get("preshift")
+        if kwargs.get("mask") is not None:
+            return  # masked pooling runs plain
+        dt = mod.dtype or torch.promote_types(x.dtype, torch.float32)
+        fold = prescale is not None
+        zeros = torch.zeros(x.shape[-1], device=x.device)
+        vec = lambda v: (v if fold else zeros).detach().float().clone()  # noqa: E731
+        rec = {"out": out.detach().clone(), "eps": mod.eps, "fold": fold, "args": (
+            x.detach().to(dt).contiguous().clone(), vec(prescale), vec(preshift),
+            mod.in_linear.weight.detach().t().to(dt).contiguous(), mod.in_linear.bias.detach().float().clone(),
+            mod.out_linear.weight.detach().t().to(dt).contiguous(), mod.out_linear.bias.detach().float().clone())}
+        kept.append(rec)
+        keep_grad(out, rec)
+
+    return [m.register_forward_hook(on_pool, with_kwargs=True)
+            for m in model.modules() if isinstance(m, AttentiveStatsPooling)]
+
+
+def replay_pool(rec: dict, where: str) -> str:
+    """A call kept by :func:`keep_pool_calls` replayed: the pool forward
+    kernel (:func:`pool_fwd_vs_plain`, phase 3's tolerance) and, where the
+    gradient was kept, the backward kernel against its plain version
+    (phase 6's 2e-2 of each gradient's largest entry). Raises on a miss;
+    returns the line to print."""
+    import torch
+
+    from titanet_torch.ops.kernels import pool as pk
+
+    args, eps, fold = rec["args"], rec["eps"], rec["fold"]
+    err = pool_fwd_vs_plain(args, eps, fold, rec["out"], f"pool forward ({where})")
+    line = (f"pool forward ({where}, {args[0].dtype}, h {tuple(args[0].shape)}, "
+            f"fold={fold}): max abs err {err:.3e} (rtol 2e-2)")
+    if "g" in rec:
+        g = rec["g"].to(args[0].dtype).contiguous()
+        got, bref = pk.attentive_pool_bwd(*args, g, eps, fold), pk.attentive_pool_bwd_plain(*args, g, eps, fold)
+        torch.cuda.synchronize()
+        errs = pool_bwd_errors(got, bref, fold, 2e-2, f"pool backward ({where})")
+        line += (f"; pool backward: error / max per gradient "
+                 f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol 2e-2)")
+    return line
+
+
 def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
     """Phase 13's kernel checks: each of the four kernels of the trainer's
     path against its plain version on the tensors that path gives it.
@@ -355,9 +472,7 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
     from titanet_torch.ops import frontend as tf
     from titanet_torch.ops.conv import SamePadConv1d
     from titanet_torch.ops.kernels import dwconv
-    from titanet_torch.ops.kernels import pool as pk
     from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
-    from titanet_torch.ops.pooling import AttentiveStatsPooling
     from titanet_torch.train import loop
     from titanet_torch.train import state as ts
 
@@ -393,25 +508,6 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
     _, _, state = cli._new_state(cfg, n_speakers, dev, len(loaders["train"]))
     kept = {"pool": [], "dw": []}
 
-    def keep_grad(out, rec):
-        if out.requires_grad:  # the train step's: the backward kernels run on its gradient
-            out.register_hook(lambda g: rec.__setitem__("g", g.detach().clone()))
-
-    def on_pool(mod, args, kwargs, out):
-        x, prescale, preshift = args[0], kwargs.get("prescale"), kwargs.get("preshift")
-        if kwargs.get("mask") is not None:
-            return  # masked pooling runs plain
-        dt = mod.dtype or torch.promote_types(x.dtype, torch.float32)
-        fold = prescale is not None
-        zeros = torch.zeros(x.shape[-1], device=x.device)
-        vec = lambda v: (v if fold else zeros).detach().float().clone()  # noqa: E731
-        rec = {"out": out.detach().clone(), "eps": mod.eps, "fold": fold, "args": (
-            x.detach().to(dt).contiguous().clone(), vec(prescale), vec(preshift),
-            mod.in_linear.weight.detach().t().to(dt).contiguous(), mod.in_linear.bias.detach().float().clone(),
-            mod.out_linear.weight.detach().t().to(dt).contiguous(), mod.out_linear.bias.detach().float().clone())}
-        kept["pool"].append(rec)
-        keep_grad(out, rec)
-
     def on_dw(mod, args, out):
         x = args[0].to(mod.dtype) if mod.dtype is not None else args[0]
         if not out.requires_grad or mod.groups != x.shape[-1] or not dwconv.kernel_supports(x.shape[1], x.shape[-1], mod.kernel_size,
@@ -421,8 +517,7 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
         kept["dw"].append(rec)
         keep_grad(out, rec)
 
-    hooks = [m.register_forward_hook(on_pool, with_kwargs=True)
-             for m in state.model.modules() if isinstance(m, AttentiveStatsPooling)]
+    hooks = keep_pool_calls(state.model, kept["pool"])
     hooks += [m.register_forward_hook(on_dw) for m in state.model.modules()
               if isinstance(m, SamePadConv1d) and m.groups > 1]
     (wav, lengths, speakers), batch = staged["train"][0]
@@ -442,18 +537,7 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
                              f"depthwise convs for {dw_launches} dw_bwd launches")
 
     for rec, where in zip(kept["pool"], ("train step", "eval_step")):
-        args, eps, fold = rec["args"], rec["eps"], rec["fold"]
-        err = pool_fwd_vs_plain(args, eps, fold, rec["out"], f"trainer pool forward ({where})")
-        line = (f"trainer kernels vs plain: pool forward ({where}, {args[0].dtype}, h {tuple(args[0].shape)}, "
-                f"fold={fold}): max abs err {err:.3e} (rtol 2e-2)")
-        if "g" in rec:
-            g = rec["g"].to(args[0].dtype).contiguous()
-            got, bref = pk.attentive_pool_bwd(*args, g, eps, fold), pk.attentive_pool_bwd_plain(*args, g, eps, fold)
-            torch.cuda.synchronize()
-            errs = pool_bwd_errors(got, bref, fold, 2e-2, f"trainer pool backward ({where})")
-            line += (f"; pool backward: error / max per gradient "
-                     f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tol 2e-2)")
-        print(f"{line} {tag}")
+        print(f"trainer kernels vs plain: {replay_pool(rec, where)} {tag}")
 
     worst = {"dx": 0.0, "dk": 0.0, "db": 0.0}
     shapes = set()
@@ -620,8 +704,8 @@ SERVE_EPOCHS = 8
 
 
 class embedding_calls:
-    """Counts the embedding steps that ``SpeakerEmbedder`` and
-    ``loop.infer`` run and the launches of the two kernels an embedding
+    """Counts the embedding steps that ``SpeakerEmbedder``, ``loop.infer``
+    and direct calls of ``state.embed_step`` run and the launches of the two kernels an embedding
     step can reach (the fused log-mel kernel; the pool forward, which runs
     where the pooling is unmasked), with every counter set to 0 on entry.
     It keeps what each kernel call was given, cloned, by wrapping the names
@@ -635,10 +719,10 @@ class embedding_calls:
         from titanet_torch.ops import frontend, pooling
         from titanet_torch.ops.kernels.melspec import log_mel_fused
         from titanet_torch.ops.kernels.pool import attentive_pool_fwd
-        from titanet_torch.train import extractor, loop
+        from titanet_torch.train import extractor, loop, state
 
         self.calls, self.mel, self.pool, self._saved = 0, [], [], []
-        for mod in (extractor, loop):
+        for mod in (extractor, loop, state):
             for name in ("embed_step", "embed_step_quantized"):
                 if getattr(mod, name, None) is not None:
                     self._wrap(mod, name, self._counted)
@@ -688,8 +772,43 @@ class embedding_calls:
         return False
 
 
+def replay_mel(records, what: str, dtype=None):
+    """Every log-mel launch kept by :class:`embedding_calls` replayed on its
+    own operands (the waveform, config and lengths the path turned into
+    them): the replay gives the path's output bit for bit and matches
+    ``log_mel_fused_plain`` within phase 2's tolerance (f32 atol 1e-4, bf16
+    2e-3); ``dtype``, when given, is the operands' required dtype. Raises on
+    a miss; returns ``(max abs err, filler rows of length 1, buffer
+    shapes)``."""
+    import torch
+
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
+
+    err, n_fillers, widths = 0.0, 0, set()
+    for rec in records:
+        args, kw = tf.log_mel_fused_operands(rec["waveform"], rec["cfg"], rec["lengths"])
+        if dtype is not None and args[0].dtype != dtype:
+            raise AssertionError(f"{what}: log-mel kernel ran on {args[0].dtype}, expected {dtype}")
+        atol = 2e-3 if args[0].dtype == torch.bfloat16 else 1e-4
+        out = log_mel_fused(*args, **kw)
+        ref = log_mel_fused_plain(*args, n_frames=kw["n_frames"], hop=kw["hop"])
+        torch.cuda.synchronize()
+        if not torch.equal(out, rec["out"]):
+            raise AssertionError(f"{what}: the log-mel replay on {tuple(args[0].shape)} differs from the "
+                                 "path's output")
+        e = (out - ref).abs().max().item()
+        if not torch.isfinite(out).all() or e > atol:
+            raise AssertionError(f"{what}: log-mel kernel vs plain on {tuple(args[0].shape)} "
+                                 f"{args[0].dtype}: max abs err {e} > {atol}")
+        err = max(err, e)
+        n_fillers += int((args[1] == 1).sum().item()) if args[1] is not None else 0
+        widths.add(tuple(args[0].shape))
+    return err, n_fillers, widths
+
+
 def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel: str = "f32",
-                          fillers: bool = True, pool: bool = False) -> dict:
+                          fillers: bool = True, pool: bool = False, echo: bool = True) -> dict:
     """The kernels a command's embedding calls went through, held against
     their plain versions on the tensors the command gave them; raises on a
     miss, returns the summary.
@@ -707,9 +826,6 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
     (:func:`pool_fwd_vs_plain`); otherwise no launch."""
     import torch
 
-    from titanet_torch.ops import frontend as tf
-    from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
-
     want_mel = calls.calls if mel else 0
     want_pool = calls.calls if pool else 0
     if calls.calls == 0 or calls.launches != want_mel or len(calls.mel) != want_mel \
@@ -723,24 +839,7 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
     line = f"  {what}: {calls.calls} embedding calls"
     if mel:
         atol = 2e-3 if mel == "bf16" else 1e-4
-        err, n_fillers, widths = 0.0, 0, set()
-        for rec in calls.mel:
-            args, kw = tf.log_mel_fused_operands(rec["waveform"], rec["cfg"], rec["lengths"])
-            if args[0].dtype != (torch.bfloat16 if mel == "bf16" else torch.float32):
-                raise AssertionError(f"{what}: log-mel kernel ran on {args[0].dtype}, expected {mel}")
-            out = log_mel_fused(*args, **kw)
-            ref = log_mel_fused_plain(*args, n_frames=kw["n_frames"], hop=kw["hop"])
-            torch.cuda.synchronize()
-            if not torch.equal(out, rec["out"]):
-                raise AssertionError(f"{what}: the log-mel replay on {tuple(args[0].shape)} differs from the "
-                                     "command's output")
-            e = (out - ref).abs().max().item()
-            if not torch.isfinite(out).all() or e > atol:
-                raise AssertionError(f"{what}: log-mel kernel vs plain on {tuple(args[0].shape)} "
-                                     f"{args[0].dtype}: max abs err {e} > {atol}")
-            err = max(err, e)
-            n_fillers += int((args[1] == 1).sum().item()) if args[1] is not None else 0
-            widths.add(tuple(args[0].shape))
+        err, n_fillers, widths = replay_mel(calls.mel, what, torch.bfloat16 if mel == "bf16" else torch.float32)
         if fillers and n_fillers == 0:
             raise AssertionError(f"{what}: no launch held filler rows")
         summary["max_abs_err"] = err
@@ -760,8 +859,22 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
                  f"{max(errs):.3e} (rtol 2e-2)")
     else:
         line += "; masked pooling (plain torch), no pool-forward launch"
-    print(f"{line} {tag}")
+    if echo:
+        print(f"{line} {tag}")
     return summary
+
+
+def post(url: str, body: bytes):
+    """POST ``body`` to the service: ``(status, decoded JSON reply)``."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
 
 
 def serving_phase(root: str, n_speakers: int, tag: str) -> None:
@@ -770,8 +883,6 @@ def serving_phase(root: str, n_speakers: int, tag: str) -> None:
     (``titanet_torch.serve``) in a thread, on run A of phase 13 resumed to
     ``SERVE_EPOCHS``. Raises on any failed check."""
     import threading
-    import urllib.error
-    import urllib.request
     from http.server import HTTPServer
 
     import numpy as np
@@ -983,14 +1094,6 @@ def serving_phase(root: str, n_speakers: int, tag: str) -> None:
     del state
 
     # the service, three variants, in a thread
-    def post(url, body):
-        req = urllib.request.Request(url, data=body, method="POST")
-        try:
-            with urllib.request.urlopen(req, timeout=60) as r:
-                return r.status, json.loads(r.read())
-        except urllib.error.HTTPError as e:
-            return e.code, json.loads(e.read() or b"{}")
-
     def body(path):
         with open(path, "rb") as f:
             return f.read()
@@ -1052,6 +1155,277 @@ def serving_phase(root: str, n_speakers: int, tag: str) -> None:
             httpd.shutdown()
             httpd.server_close()
             thread.join(timeout=10)
+
+
+# Zoo phase (15): every family of the model zoo but TitaNet at its
+# published width, bf16, weights from seed 0 (generic.seed 0), on phase 13's
+# corpus: (name, config sections, --model-size of the service or None: the
+# JAX service names no size for the d-vector or the convnet).
+ZOO_FAMILIES = (
+    ("ecapa512", {"ecapa": {"enabled": True, "channels": 512}}, "ecapa512"),
+    ("ecapa1024", {"ecapa": {"enabled": True, "channels": 1024}}, "ecapa1024"),
+    ("xvector", {"xvector": {"enabled": True, "hidden_size": 512, "frame_out": 1500}}, "xvector"),
+    ("resnet34", {"resnet": {"enabled": True, "depth": 34, "base_channels": 32}}, "resnet"),
+    ("conformer", {"conformer": {"enabled": True, "num_blocks": 6, "dim": 256, "num_heads": 4,
+                                 "ff_hidden": 2048}}, "conformer"),
+    ("dvector", {"baseline": {"enabled": True, "n_layers": 3, "hidden_size": 768}}, None),
+    ("dumb", {"dumb": {"enabled": True, "n_layers": 10, "hidden_size": 256}}, None),
+)
+ZOO_STEPS = 20  # train steps on one batch of TRAIN_BATCH x SECONDS s
+
+
+def zoo_phase(tag: str) -> dict:
+    """Phase 15: each family of :data:`ZOO_FAMILIES` through the trainer
+    (``cli.train``, one epoch of ``[chunk]`` only, so the f32 log-mel kernel
+    runs in every step, then ``cli.evaluate_checkpoint``), ``ZOO_STEPS``
+    train steps on one batch, ``embed_step`` at B=128 x 3 s, the
+    ``SpeakerEmbedder`` on 1.2, 3, 7 and 40 s requests, ``infer --audio``
+    and the speaker service (``--model-size``, default and
+    ``--fast-frontend``) on the trained checkpoint. Every log-mel launch is
+    replayed on its own operands against its plain version; the
+    Conformer's pool-forward and pool-backward launches of a train step
+    (C = 1536, T' = 151) and of ``infer --split`` too; every other family
+    launches no pool kernel. Raises on any failed check; returns each
+    family's launches of the four kernels in its trainer run."""
+    import tempfile
+    import threading
+    from http.server import HTTPServer
+
+    import numpy as np
+    import torch
+
+    from titanet_torch import cli, serve
+    from titanet_torch.data.audio_io import read_mono, write_wav
+    from titanet_torch.models import count_params
+    from titanet_torch.ops.frontend import FrontendConfig
+    from titanet_torch.ops.kernels import dwconv
+    from titanet_torch.ops.kernels.melspec import log_mel_fused
+    from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
+    from titanet_torch.train import checkpoint as ckpt
+    from titanet_torch.train import state as ts
+    from titanet_torch.train.extractor import SpeakerEmbedder
+
+    dev = torch.device("cuda")
+    counters = {"logmel": log_mel_fused, "pool_fwd": attentive_pool_fwd, "pool_bwd": attentive_pool_bwd,
+                "dw_bwd": dwconv.dw_bwd}
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: c.launches for k, c in counters.items()}
+
+    rng = np.random.default_rng(15)
+    wav = torch.from_numpy((rng.standard_normal((B, SECONDS * SR)) * 0.1).astype(np.float32)).to(dev)
+    lengths = torch.full((B,), SECONDS * SR, dtype=torch.int32, device=dev)
+    reqs = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in (1.2, 3, 7, 40)]
+    cfg16 = FrontendConfig.from_ms(precision="default", use_pallas_fused=True)
+    root = tempfile.mkdtemp(prefix="titanet_torch_zoo_")
+    out = {}
+    try:
+        # set-up: phase 13's corpus, 8 test utterances as WAV files, a 3 s
+        # probe, and one batch of 64 training utterances spread over the
+        # split, each repeated to 3 s
+        train_ds, val_ds, test_ds, n_speakers = cli._datasets(trainer_config(root, "probe", 1, ("chunk",)), True)
+        steps = len(train_ds) // TRAIN_BATCH
+        val_batches, test_batches = -(-len(val_ds) // TRAIN_BATCH), -(-len(test_ds) // TRAIN_BATCH)
+        utt_dir = os.path.join(root, "utts")
+        os.makedirs(utt_dir)
+        for i in range(8):
+            write_wav(os.path.join(utt_dir, f"utt{i}.wav"), np.asarray(test_ds[i]["waveform"], np.float32).reshape(-1),
+                      SR)
+        probe_path = os.path.join(root, "probe3s.wav")
+        write_wav(probe_path, np.resize(np.asarray(test_ds[0]["waveform"], np.float32).reshape(-1), SECONDS * SR), SR)
+        with open(probe_path, "rb") as f:
+            probe = f.read()
+        picks = np.linspace(0, len(train_ds) - 1, TRAIN_BATCH).astype(int).tolist()
+        batch_wav = torch.from_numpy(np.stack([
+            np.resize(np.asarray(train_ds[i]["waveform"], np.float32).reshape(-1), SECONDS * SR)
+            for i in picks])).to(dev)
+        batch_spk = torch.tensor([train_ds[i]["speaker_id"] for i in picks], device=dev)
+        print(f"zoo set-up: {len(train_ds)} train utterances ({steps} steps of {TRAIN_BATCH}), {len(val_ds)} "
+              f"validation, {len(test_ds)} test; {len(set(batch_spk.tolist()))} speakers in the step batch {tag}")
+
+        for name, model_cfg, size in ZOO_FAMILIES:
+            t_family = time.perf_counter()
+            conformer = "conformer" in model_cfg
+            cfg = trainer_config(root, name, 1, ("chunk",), model=model_cfg)
+            run = os.path.join(root, name)
+            os.environ["TITANET_DW_BWD"] = "pallas"
+
+            # 1. the trainer: one epoch, then the verification of its checkpoint
+            zero()
+            t0 = time.perf_counter()
+            with embedding_calls() as calls:
+                cli.train(cfg)
+                train_s = time.perf_counter() - t0
+                metrics = cli.evaluate_checkpoint(cfg, run)
+            trainer = read()
+            want = {"logmel": steps + val_batches + 2 * test_batches,
+                    "pool_fwd": steps + val_batches if conformer else 0, "pool_bwd": steps if conformer else 0,
+                    "dw_bwd": 0}
+            if trainer != want or len(calls.mel) != want["logmel"]:
+                raise AssertionError(f"zoo {name} trainer: launches {trainer} ({len(calls.mel)} log-mel kept), "
+                                     f"expected {want}")
+            mel_err, _, _ = replay_mel(calls.mel, f"zoo {name} trainer", torch.float32)
+            loss = epoch_record(read_jsonl(os.path.join(run, "metrics.jsonl")), 1, "train/")["train/avg_loss"]
+            if not np.isfinite(loss) or ckpt.latest_epoch(run) != 1:
+                raise AssertionError(f"zoo {name} trainer: loss {loss}, checkpoint {ckpt.latest_epoch(run)}")
+            if not (0.0 <= metrics["test/eer"] <= 1.0 and 0.0 <= metrics["test/mindcf"] <= 1.0):
+                raise AssertionError(f"zoo {name} evaluate_checkpoint: {metrics}")
+            n_mel = len(calls.mel)
+            del calls
+
+            # 2. ZOO_STEPS train steps on one batch (all rows full length:
+            # the pooling unmasked), the Conformer's pool kept by hooks in
+            # the first
+            _, _, state = cli._new_state(cfg, n_speakers, dev, 1)
+            frontend = cli._frontend(cfg)
+            kept = []
+            hooks = keep_pool_calls(state.model, kept) if conformer else []
+            step = lambda: ts.train_step(state, batch_wav, None, batch_spk, frontend=frontend)  # noqa: E731
+            losses, norms, step_ms = [], [], []
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            for i in range(ZOO_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, met = step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                for h in hooks:
+                    h.remove()
+                hooks = []
+                losses.append(met["loss"].item())
+                norms.append(met["grad_norm"].item())
+            per_step = read()
+            peak = torch.cuda.max_memory_allocated()
+            if not (np.isfinite(losses).all() and np.isfinite(norms).all()) or losses[-1] >= losses[0] \
+                    or not all(torch.isfinite(p).all() for p in state.params()):
+                raise AssertionError(f"zoo {name} train steps: losses {losses}, grad norms {norms}")
+            want = {"logmel": ZOO_STEPS, "pool_fwd": ZOO_STEPS if conformer else 0,
+                    "pool_bwd": ZOO_STEPS if conformer else 0, "dw_bwd": 0}
+            if per_step != want:
+                raise AssertionError(f"zoo {name} train steps: launches {per_step}, expected {want}")
+            pool_line = ""
+            if conformer:
+                t_half = -(-(1 + SECONDS * SR // 160) // 2)  # T' = ceil(F / 2) of F = 301 frames: 151
+                width = cfg.conformer.num_blocks * cfg.conformer.dim  # 1536
+                if len(kept) != 1 or "g" not in kept[0] or tuple(kept[0]["args"][0].shape) != (TRAIN_BATCH, t_half, width):
+                    raise AssertionError(f"zoo {name}: kept {len(kept)} pool calls "
+                                         f"{[tuple(r['args'][0].shape) for r in kept]}")
+                pool_line = "; " + replay_pool(kept[0], "train step")
+            step_dev, step_busy, step_kernels, timed_by = device_profile(step, iters=3, warmup=1)
+            step_med = statistics.median(step_ms[1:])
+
+            # 3. embedding: embed_step at B=128 x 3 s (the bf16 tensor-core
+            # log-mel kernel; unmasked, so the Conformer pools through the
+            # pool kernel) and the SpeakerEmbedder (masked, the CLI's f32
+            # log-mel kernel)
+            model = state.model.eval()
+            embed = lambda: ts.embed_step(model, wav, lengths, frontend=cfg16, device=dev)  # noqa: E731
+            with embedding_calls() as calls:
+                e = embed()
+            if e.shape != (B, 192) or not torch.isfinite(e.float()).all() \
+                    or (torch.linalg.vector_norm(e.float(), dim=-1) - 1).abs().max().item() > 1e-2:
+                raise AssertionError(f"zoo {name} embed_step: not finite unit rows [B, 192]")
+            embed_k = check_command_kernels(calls, f"zoo {name} embed_step", tag, mel="bf16", fillers=False,
+                                            pool=conformer, echo=False)
+            emb_med, _, _ = median_ms(embed, runs=5, warmup=1)
+            emb_dev, emb_busy, emb_kernels, _ = device_profile(embed, iters=3, warmup=1)
+            embedder = SpeakerEmbedder(model, frontend, device=dev)
+            with embedding_calls() as calls:
+                batched = embedder.embed(reqs)
+                solo = np.concatenate([embedder.embed([r]) for r in reqs])
+            cos = np.sum(batched * solo, -1) / (np.linalg.norm(batched, axis=-1) * np.linalg.norm(solo, axis=-1))
+            if batched.shape != (4, 192) or not np.isfinite(batched).all() or cos.min() <= 0.999:
+                raise AssertionError(f"zoo {name} SpeakerEmbedder: padded vs solo cosines {cos}")
+            check_command_kernels(calls, f"zoo {name} SpeakerEmbedder", tag, echo=False)
+            n_params = count_params(model)
+            cls = type(model).__name__
+            del state, model, embedder, step, embed
+
+            # 4. the entry points on the trained checkpoint
+            params = os.path.join(root, f"{name}.json")
+            with open(params, "w") as f:
+                json.dump(cfg.to_dict(), f)
+            with embedding_calls() as calls:
+                emb, labels = cli.main(["infer", "-p", params, "-c", run, "--audio", utt_dir])
+            check_command_kernels(calls, f"zoo {name} infer --audio", tag, echo=False)
+            restored, rfront, _ = cli._restore_for_eval(cfg, n_speakers, run, None, dev)
+            direct = SpeakerEmbedder(restored.model, rfront, device=dev).embed(
+                [read_mono(os.path.join(utt_dir, f"{lab}.wav"), SR) for lab in labels])
+            infer_diff = np.abs(emb - direct).max()
+            if emb.shape != (8, 192) or not np.isfinite(emb).all() or infer_diff > 1e-6:
+                raise AssertionError(f"zoo {name} infer --audio: shape {emb.shape}, vs direct embed {infer_diff}")
+            split_line = ""
+            if conformer:
+                with embedding_calls() as calls:
+                    cli.main(["infer", "-p", params, "-c", run, "--split", "test", "-n", "32"])
+                split = check_command_kernels(calls, f"zoo {name} infer --split", tag, fillers=False, pool=True,
+                                              echo=False)
+                shapes = sorted({tuple(r["args"][0].shape) for r in calls.pool})
+                split_line = (f"; infer --split test -n 32: {split['pool_launches']} pool-forward launches (h "
+                              f"{shapes}) replayed, max abs err {split['pool_max_abs_err']:.3e} (rtol 2e-2)")
+            del restored
+            serve_line = "; service: none (no --model-size)"
+            if size is not None:
+                serve_ms = {}
+                for variant in ([], ["--fast-frontend"]):
+                    args = serve.build_parser().parse_args(["--model-size", size, "--checkpoint-dir", run,
+                                                            "--n-classes", str(n_speakers), "--port", "0", *variant])
+                    served = serve.build_embedder(args)
+                    httpd = HTTPServer(("127.0.0.1", 0), serve.make_handler(served))
+                    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+                    thread.start()
+                    url = f"http://127.0.0.1:{httpd.server_port}/embed"
+                    try:
+                        with embedding_calls() as calls:
+                            status, reply = post(url, probe)
+                        fast = "--fast-frontend" in variant
+                        check_command_kernels(calls, f"zoo {name} service", tag, mel="bf16" if fast else None,
+                                              echo=False)
+                        diff = np.abs(np.asarray(reply.get("embedding", [np.nan])) -
+                                      served.embed([read_mono(probe_path, SR)])[0]).max()
+                        if status != 200 or not diff <= 1e-6:
+                            raise AssertionError(f"zoo {name} service {variant}: /embed {status}, vs direct {diff}")
+                        times = []
+                        for _ in range(6):
+                            t0 = time.perf_counter()
+                            post(url, probe)
+                            times.append((time.perf_counter() - t0) * 1e3)
+                        serve_ms[" ".join(variant) or "default"] = statistics.median(times[1:])
+                    finally:
+                        httpd.shutdown()
+                        httpd.server_close()
+                        thread.join(timeout=10)
+                    del served
+                serve_line = (f"; service --model-size {size}: /embed -> 200 equal to a direct embed (1e-6), median "
+                              + ", ".join(f"{k} {v:.2f} ms" for k, v in serve_ms.items()))
+            shutil.rmtree(run, ignore_errors=True)
+            torch.cuda.empty_cache()
+            os.environ.pop("TITANET_DW_BWD", None)
+            out[name] = trainer
+            print(f"zoo {name} ({cls}, {n_params / 1e6:.2f}M params, bf16): cli.train 1 epoch ({steps} steps of "
+                  f"{TRAIN_BATCH}, [chunk]) {train_s:.2f} s, train/avg_loss {loss:.4f}, test/eer "
+                  f"{metrics['test/eer']:.4f}, test/mindcf {metrics['test/mindcf']:.4f}, launches {trainer}, "
+                  f"all {n_mel} log-mel launches replayed vs plain max abs err {mel_err:.3e} (atol 1e-4); "
+                  f"train_step x{ZOO_STEPS} on B={TRAIN_BATCH} x {SECONDS} s: loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}, grad norms finite, median {step_med:.2f} ms a step (min {min(step_ms[1:]):.2f}, "
+                  f"max {max(step_ms[1:]):.2f}), device {step_dev:.2f} ms, busy {step_busy:.2f} ms ({timed_by}), "
+                  f"{step_kernels} kernels a step, idle {1 - step_busy / step_med:.2f}, peak {peak / 2**30:.2f} GiB, launches "
+                  f"{ {k: v // ZOO_STEPS for k, v in per_step.items()} } a step{pool_line}; embed_step B={B} x "
+                  f"{SECONDS} s median {emb_med:.2f} ms, device {emb_dev:.2f} ms, busy {emb_busy:.2f} ms, {emb_kernels} kernels, idle "
+                  f"{1 - emb_busy / emb_med:.2f}, log-mel bf16 err {embed_k['max_abs_err']:.2e}"
+                  f"{', pool ' + format(embed_k['pool_max_abs_err'], '.2e') if conformer else ''}; SpeakerEmbedder "
+                  f"padded vs solo min cosine {cos.min():.7f}; infer --audio vs direct {infer_diff:.1e}{split_line}"
+                  f"{serve_line}; {time.perf_counter() - t_family:.1f} s wall {tag}")
+        return out
+    finally:
+        os.environ.pop("TITANET_DW_BWD", None)
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1440,17 +1814,6 @@ def main() -> int:
 
     cosine_rows = torch.nn.functional.cosine_similarity
 
-    def median_ms(fn, runs=10, warmup=3):
-        times = []
-        for i in range(warmup + runs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            if i >= warmup:
-                times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times), min(times), max(times)
-
     def check_embeddings(e, tol, what):
         if e.shape != (B, 192) or not torch.isfinite(e).all():
             raise AssertionError(f"{what}: embeddings are not finite [B, 192]")
@@ -1669,27 +2032,34 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # 15. the model zoo: every other family through the trainer, the steps and the entry points
+    t0 = time.perf_counter()
+    zoo_launches = zoo_phase(tag)
+    print(f"zoo phase: {time.perf_counter() - t0:.1f} s wall {tag}")
+
     kernels = []
-    for key, name_, src, line, path_launches in (
+    for key, name_, src, line, path_launches, zoo_key in (
         (("logmel", torch.bfloat16), "logmel_fused", "titanet_torch/csrc/logmel.cu",
-         "titanet_tpu/ops/pallas/melspec.py:271", launches["logmel"]),
+         "titanet_tpu/ops/pallas/melspec.py:271", launches["logmel"], "logmel"),
         (("pool", torch.bfloat16, True), "attentive_pool_fwd", "titanet_torch/csrc/attn_pool.cu",
-         "titanet_tpu/ops/pallas/pool.py:234", launches["pool"]),
+         "titanet_tpu/ops/pallas/pool.py:234", launches["pool"], "pool_fwd"),
         (("pool_bwd", torch.bfloat16, True), "attentive_pool_bwd", "titanet_torch/csrc/attn_pool.cu",
-         "titanet_tpu/ops/pallas/pool.py:270", train_launches["pallas"]["pool_bwd"]),
+         "titanet_tpu/ops/pallas/pool.py:270", train_launches["pallas"]["pool_bwd"], "pool_bwd"),
         (("dw_bwd", 3), "dw_bwd", "titanet_torch/csrc/dw_bwd.cu",
-         "titanet_tpu/ops/pallas/dwconv.py:102", train_launches["pallas"]["dw_bwd"]),
+         "titanet_tpu/ops/pallas/dwconv.py:102", train_launches["pallas"]["dw_bwd"], "dw_bwd"),
         (("megablock", 256, torch.bfloat16), "fused_sub_blocks", "titanet_torch/csrc/megablock.cu",
-         "titanet_tpu/ops/pallas/megablock.py:110", fused_launches["bf16"]["megablock"]),
+         "titanet_tpu/ops/pallas/megablock.py:110", fused_launches["bf16"]["megablock"], None),
         (("mel_frames", torch.bfloat16), "log_mel_frames", "titanet_torch/csrc/mel_frames.cu",
-         "titanet_tpu/ops/pallas/melspec.py:109", fused_launches["bf16"]["mel_frames"]),
+         "titanet_tpu/ops/pallas/melspec.py:109", fused_launches["bf16"]["mel_frames"], None),
     ):
         r = report[key]
+        zoo = {fam: n[zoo_key] for fam, n in zoo_launches.items()} if zoo_key else {}
         kernels.append({
             "name": name_, "route": "cuda", "source": src, "replaces": line,
             "launches": path_launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "timed_by": r.get("timed_by", "events"),
+            "zoo_trainer_launches": zoo,
         })
     print(json.dumps({"kernels": kernels}))
     print(name)

@@ -229,6 +229,36 @@ def test_pool_backward_kernel_matches_plain(cuda_device, dtype, fold, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [151, 1])
+@pytest.mark.parametrize("fold", [False, True])
+def test_pool_kernels_at_the_conformer_shape(cuda_device, fold, t):
+    """The MFA-Conformer's pooling: C = 6 x 256 = 1536, H = 128, bf16, at
+    its half-rate frame counts (T' = ceil(T/2): 151 for a 3 s chunk, odd,
+    a partial last 64-frame tile; 1). The forward within phase 3's 2e-2 of
+    chip_smoke.py, each gradient of the backward within phase 6's 2e-2 of
+    its largest entry (dbb, zero in exact arithmetic, below 2e-2 of max
+    |dWb|)."""
+    args = _pool_args(cuda_device, torch.bfloat16, b=4, t=t, c=1536, h=128, seed=t)
+    out = attentive_pool_fwd(*args, 1e-6, fold).float()
+    ref = attentive_pool_fwd_plain(*args, 1e-6, fold).float()
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+    g = torch.from_numpy(np.random.default_rng(t).standard_normal((4, 3072)).astype(np.float32))
+    g = g.to(cuda_device).to(torch.bfloat16)
+    got = attentive_pool_bwd(*args, g, 1e-6, fold)
+    torch.cuda.synchronize()
+    want = attentive_pool_bwd_plain(*args, g, 1e-6, fold)
+    for name, a, r in zip(("dh", "da", "dc", "dwa", "dba", "dwb", "dbb"), got, want):
+        assert a.shape == r.shape and a.dtype == r.dtype and torch.isfinite(a).all(), name
+        if name in ("da", "dc") and not fold:
+            assert not a.any() and not r.any(), name
+        elif name == "dbb":
+            scale = want[5].abs().max().item()
+            assert a.abs().max().item() <= 2e-2 * scale and r.abs().max().item() <= 2e-2 * scale
+        else:
+            assert _rel_err(a, r) <= 2e-2, (name, _rel_err(a, r))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fold", [False, True])
 def test_pool_backward_bf16_is_deterministic(cuda_device, fold):
     """Two calls on the same inputs give the same bits in every gradient:

@@ -237,8 +237,6 @@ def test_cli_train_and_eval_end_to_end_on_the_cpu(tmp_path, monkeypatch):
     ({"figures": {"enabled": True}}, "item 8"),
     ({"generic": {"device_corpus": True}}, "item 5"),
     ({"mesh": {"num_devices": 2}}, "item 6"),
-    ({"dumb": {"enabled": True}}, "item 7"),
-    ({"ecapa": {"enabled": True}}, "item 7"),
     ({"augmentation": {"enable": ["noise"], "noise": {"source": "files", "download": True,
                                                       "corpora_path": "no-such-dir"}}}, r"item 1 \(corpus fetching\)"),
     ({"augmentation": {"enable": ["reverb"], "rir": {"download": True, "corpora_path": "no-such-dir"}}},

@@ -2,7 +2,7 @@
 cases of tests/test_serve.py on ``titanet_torch.serve.make_handler`` over
 a real local HTTP server, the port's ``SpeakerEmbedder`` behind the
 handler (``/embed`` equals a direct embed), and ``build_embedder``'s
-checkpoint restore, refusals and device rule."""
+model families, checkpoint restore, refusals and device rule."""
 
 import json
 import threading
@@ -164,10 +164,51 @@ def test_build_embedder_restores_a_checkpoint_and_refuses_another(tmp_path, monk
         serve.build_embedder(_args("--checkpoint-dir", str(tmp_path / "none"), "--device", "cpu"))
 
 
-@pytest.mark.parametrize("size", ["ecapa512", "ecapa1024", "xvector", "resnet", "conformer"])
-def test_other_model_families_are_not_ported(size):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.build_embedder(_args("--model-size", size, "--device", "cpu"))
+FAMILY_SIZES = {"ecapa512": ("EcapaTdnn", 6189568), "ecapa1024": ("EcapaTdnn", 14654784),
+                "xvector": ("XVector", 3394644), "resnet": ("SpeakerResNet", 6306592),
+                "conformer": ("MfaConformer", 20021952)}
+
+
+@pytest.mark.parametrize("size", sorted(FAMILY_SIZES))
+def test_build_embedder_serves_every_model_size_family(size, monkeypatch):
+    """``--model-size ecapa512|ecapa1024|xvector|resnet|conformer`` builds
+    that family at its published width (the parameter counts of the JAX
+    package's models, tests/test_torch_<family>.py), random weights from
+    seed 0, warmed up; it embeds a request to a unit vector."""
+    warmed = []
+    monkeypatch.setattr(SpeakerEmbedder, "warmup", lambda self: warmed.append(self))
+    emb = serve.build_embedder(_args("--model-size", size, "--device", "cpu"))
+    cls, n_params = FAMILY_SIZES[size]
+    assert type(emb.model).__name__ == cls and sum(p.numel() for p in emb.model.parameters()) == n_params
+    assert warmed == [emb] and not emb.model.training
+    vec = emb.embed([np.random.default_rng(0).standard_normal(12000).astype(np.float32) * 0.1])
+    assert vec.shape == (1, 192) and abs(np.linalg.norm(vec) - 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("size", sorted(FAMILY_SIZES))
+def test_quantized_is_titanet_only(size):
+    with pytest.raises(SystemExit, match="TitaNet-only"):
+        serve.build_embedder(_args("--model-size", size, "--quantized", "--device", "cpu"))
+
+
+def test_build_embedder_restores_a_family_checkpoint_and_refuses_another(tmp_path, monkeypatch):
+    """An x-vector run's checkpoint serves under ``--model-size xvector``
+    with its weights; under ``resnet`` or ``s`` it fails to load."""
+    monkeypatch.setattr(SpeakerEmbedder, "warmup", lambda self: None)
+    from titanet_torch.models import get_xvector
+
+    model = get_xvector(device="cpu", generator=torch.Generator().manual_seed(3))
+    ckpt.save_checkpoint(str(tmp_path / "xv"), 1, create_train_state(model, build_head("ce", 192, 5, device="cpu"),
+                                                                     make_optimizer()))
+    emb = serve.build_embedder(_args("--model-size", "xvector", "--checkpoint-dir", str(tmp_path / "xv"),
+                                     "--n-classes", "5", "--device", "cpu"))
+    for (k, v), (_, w) in zip(emb.model.state_dict().items(), model.state_dict().items()):
+        assert torch.equal(v, w), k
+    with pytest.raises(RuntimeError, match="Missing key|Unexpected key"):
+        serve.build_embedder(_args("--model-size", "resnet", "--checkpoint-dir", str(tmp_path / "xv"),
+                                   "--n-classes", "5", "--device", "cpu"))
+    with pytest.raises(KeyError):
+        serve.build_embedder(_args("--checkpoint-dir", str(tmp_path / "xv"), "--n-classes", "5", "--device", "cpu"))
 
 
 def test_build_embedder_needs_a_card_unless_cpu(monkeypatch):

@@ -22,12 +22,12 @@ So a CPU run computes what the card's kernel does, and
 ``audio.use_pallas_fused`` (the JAX package's switch for its TPU kernel) is
 not read.
 
-Not ported yet; these raise with the ROADMAP Queue 1 item that holds them:
-corpus, RIR or noise ``download`` (item 1, corpus fetching),
-``generic.device_corpus`` (item 5, data to device), ``mesh.num_devices``
-above 1 (item 6, parallel), a model family other than TitaNet (item 7,
-model zoo), ``figures.enabled``, ``infer --fig`` and ``trials --det-out``
-(item 8, utilities).
+Every model family of the JAX package trains, evaluates and serves here
+(:func:`build_model`). Not ported yet; these raise with the ROADMAP Queue
+1 item that holds them: corpus, RIR or noise ``download`` (item 1, corpus
+fetching), ``generic.device_corpus`` (item 5, data to device),
+``mesh.num_devices`` above 1 (item 6, parallel), ``figures.enabled``,
+``infer --fig`` and ``trials --det-out`` (item 8, utilities).
 """
 
 from __future__ import annotations
@@ -54,7 +54,16 @@ from titanet_torch.data import (
 )
 from titanet_torch.data.audio_io import read_mono
 from titanet_torch.losses.heads import build_head
-from titanet_torch.models import get_titanet
+from titanet_torch.models import (
+    DumbConvNet,
+    DVectorBaseline,
+    get_conformer,
+    get_ecapa,
+    get_resnet,
+    get_titanet,
+    get_xvector,
+)
+from titanet_torch.models.common import finish
 from titanet_torch.ops.augment import AugmentConfig
 from titanet_torch.ops.frontend import FrontendConfig
 from titanet_torch.train import checkpoint as ckpt
@@ -70,9 +79,6 @@ from titanet_torch.utils import (
     set_seed,
 )
 
-_OTHER_FAMILIES = ("dumb", "baseline", "ecapa", "xvector", "resnet", "conformer")
-
-
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to titanet_torch yet (ROADMAP Queue 1 item {item})")
 
@@ -82,24 +88,40 @@ def _dtype(cfg: Config) -> Optional[torch.dtype]:
 
 
 def build_model(cfg: Config, dtype=None, device="cuda", generator: Optional[torch.Generator] = None):
-    """TitaNet S/M/L from ``cfg.titanet`` on ``device``, weights drawn from
-    ``generator``. The JAX package's model selection puts the other
-    families first when enabled (reference src/train.py:87-121); they are
-    not ported and raise."""
-    for family in _OTHER_FAMILIES:
-        if getattr(cfg, family).enabled:
-            raise _not_ported(f"the {family!r} model family", "7 (model zoo)")
+    """The model ``cfg`` selects, on ``device``, weights drawn from
+    ``generator``, with the JAX package's precedence (reference
+    src/train.py:87-121, the families beyond the reference slotted in
+    before the TitaNet default): ``dumb``, ``baseline`` (d-vector),
+    ``ecapa``, ``xvector``, ``resnet``, ``conformer``, then TitaNet S/M/L
+    from ``cfg.titanet``."""
+    widths = dict(embedding_size=cfg.generic.embedding_size, n_mels=cfg.audio.spectrogram.n_mels, dtype=dtype)
+    common = dict(widths, device=device, generator=generator)
+    if cfg.dumb.enabled:
+        model = DumbConvNet(hidden_size=cfg.dumb.hidden_size, n_layers=cfg.dumb.n_layers, **widths)
+        return finish(model, device, generator)
+    if cfg.baseline.enabled:
+        model = DVectorBaseline(n_lstm_layers=cfg.baseline.n_layers, hidden_size=cfg.baseline.hidden_size,
+                                lstm_average=cfg.baseline.average, segment_length=cfg.baseline.segment_length,
+                                **widths)
+        return finish(model, device, generator)
+    if cfg.ecapa.enabled:
+        return get_ecapa(channels=cfg.ecapa.channels, attention_hidden_size=cfg.ecapa.attention_hidden_size,
+                         **common)
+    if cfg.xvector.enabled:
+        return get_xvector(hidden_size=cfg.xvector.hidden_size, frame_out=cfg.xvector.frame_out, **common)
+    if cfg.resnet.enabled:
+        return get_resnet(depth=cfg.resnet.depth, base_channels=cfg.resnet.base_channels, **common)
+    if cfg.conformer.enabled:
+        c = cfg.conformer
+        return get_conformer(num_blocks=c.num_blocks, dim=c.dim, num_heads=c.num_heads, ff_hidden=c.ff_hidden,
+                             conv_kernel=c.conv_kernel, dropout=c.dropout, **common)
     return get_titanet(
-        embedding_size=cfg.generic.embedding_size,
-        n_mels=cfg.audio.spectrogram.n_mels,
         n_mega_blocks=cfg.titanet.n_mega_blocks,
         model_size=cfg.titanet.model_size,
         attention_hidden_size=cfg.titanet.attention_hidden_size,
         simple_pool=cfg.titanet.simple_pool,
         dropout=cfg.titanet.dropout,
-        dtype=dtype,
-        device=device,
-        generator=generator,
+        **common,
     )
 
 

@@ -6,8 +6,7 @@ by :meth:`Config.from_yaml`; a ``Config`` built in code needs no YAML.
 
 Keys the port reads but does not run yet raise where the trainer meets
 them (``titanet_torch/cli.py``): ``figures.enabled``,
-``generic.device_corpus``, a model family other than TitaNet, corpus
-``download``, more than one device. Keys that steer only the JAX package's
+``generic.device_corpus``, corpus ``download``, more than one device. Keys that steer only the JAX package's
 compiler (``generic.fast_prng``, ``generic.compilation_cache_dir``,
 ``titanet.scan_blocks``) are accepted and have no effect here.
 """

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from titanet_torch._device import resolve_device
+from titanet_torch.models import common
 from titanet_torch.ops.conv import DepthwiseSeparableConv1d, SamePadConv1d
 from titanet_torch.ops.dense import Dense
 from titanet_torch.ops.kernels.pool import kernel_supports
@@ -222,9 +223,7 @@ class TitaNet(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-draw every parameter in module order from ``generator``."""
-        for m in self.modules():
-            if isinstance(m, (SamePadConv1d, Dense, BatchNorm)):
-                m.reset_parameters(generator)
+        common.reset_parameters(self, generator)
 
     def forward(
         self,
@@ -274,7 +273,7 @@ def get_titanet(
     size = model_size.lower()
     if size not in _SIZE_PRESETS:
         raise ValueError(f"Unsupported model size {model_size!r}")
-    dev = resolve_device(device)
+    resolve_device(device)  # before the search below: no card, no model
     if n_mega_blocks is None:
         n_mega_blocks = find_n_mega_blocks(
             embedding_size, n_mels, size, attention_hidden_size=attention_hidden_size,
@@ -290,8 +289,7 @@ def get_titanet(
         dtype=dtype,
         **_SIZE_PRESETS[size],
     )
-    model.reset_parameters(generator or torch.Generator().manual_seed(0))
-    return model.to(dev).eval()
+    return common.finish(model, device, generator)
 
 
 def titanet_param_count(

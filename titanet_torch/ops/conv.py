@@ -4,6 +4,10 @@
 - :class:`SamePadConv1d` — same-padding conv with the reference's padding
   formula. The pointwise case (K=1) is a matmul over ``[B*T, C]``.
 - :class:`DepthwiseSeparableConv1d` — grouped K-tap conv + 1x1 pointwise.
+- :class:`GroupedConv1d` — a grouped conv that never takes the kernel route
+  below (a plain flax ``nn.Conv`` in the JAX package).
+- :class:`Conv2d` — 2-D conv over ``[B, T, F, C]`` maps with fixed padding
+  (the ResNet and the Conformer's subsampling).
 
 A depthwise conv (groups == channels, stride 1) takes the one-pass
 backward kernel (:mod:`titanet_torch.ops.kernels.dwconv`) when
@@ -152,3 +156,60 @@ class DepthwiseSeparableConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))
+
+
+class GroupedConv1d(SamePadConv1d):
+    """A grouped same-padding conv that always runs the library conv: the
+    counterpart of a plain flax ``nn.Conv(feature_group_count=...)`` (the
+    MFA-Conformer's depthwise conv), which the JAX package never routes to
+    its depthwise-backward kernel, whatever ``TITANET_DW_BWD`` says."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        return conv1d_same(
+            x, self.weight.to(x.dtype), b, stride=self.stride, dilation=self.dilation, groups=self.groups
+        )
+
+
+class Conv2d(nn.Module):
+    """2-D convolution over channels-last maps ``[B, T, F, C]`` (the JAX
+    package's flax ``nn.Conv`` layout) with torch-style fixed padding of
+    ``padding`` on each side, so output row ``j`` of a stride-2 conv is
+    centred on input row ``2j`` whatever the length's parity.
+
+    Weights are stored in torch's ``Conv2d`` layout ``[out, in, kT, kF]``.
+    The map is handed to the library as the ``[B, C, T, F]`` view of its
+    channels-last memory and comes back the same way, so no transpose copy
+    is made. ``dtype`` is the compute dtype (default: the promotion of the
+    input's and f32); parameters stay f32."""
+
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        kernel_size: int,
+        stride: int = 1,
+        padding: int = 0,
+        use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.fan_in = in_features * kernel_size * kernel_size
+        self.weight = nn.Parameter(torch.empty(features, in_features, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        torch_conv_init_(self.weight, self.fan_in, generator)
+        if self.bias is not None:
+            torch_conv_init_(self.bias, self.fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        w = self.weight.to(dt).contiguous(memory_format=torch.channels_last)
+        b = self.bias.to(dt) if self.bias is not None else None
+        out = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, b, stride=self.stride, padding=self.padding)
+        return out.permute(0, 2, 3, 1).contiguous()

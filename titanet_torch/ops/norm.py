@@ -1,5 +1,5 @@
-"""BatchNorm over the channel (last) axis and dropout (port of
-``titanet_tpu/ops/norm.py``).
+"""BatchNorm over the channel (last) axis, dropout (port of
+``titanet_tpu/ops/norm.py``) and the LayerNorm of flax's ``nn.LayerNorm``.
 
 BatchNorm keeps torch's semantics, as the JAX module reproduces them:
 
@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -151,3 +152,26 @@ class FastDropout(nn.Module):
         else:
             keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
         return torch.where(keep, x * (1.0 / keep_p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: epsilon 1e-6 (torch's
+    default is 1e-5), statistics and the affine map in f32 whatever the
+    input's dtype, the result in ``dtype`` (default: the promotion of the
+    input's and f32). ``weight``/``bias`` are flax's ``scale``/``bias``."""
+
+    def __init__(self, num_features: int, epsilon: float = 1e-6, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.epsilon, self.dtype = epsilon, dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(), self.bias.float(), self.epsilon)
+        return y.to(dt)

@@ -13,10 +13,13 @@ HTTP server. Runs on the card unless ``--device cpu`` is given.
     curl -s --data-binary @utt2.wav 'http://127.0.0.1:8077/verify?name=ada'
     curl -s --data-binary @utt2.wav http://127.0.0.1:8077/identify
 
-``--fast-frontend`` runs the fused log-mel kernel with bf16 operands (the
-tensor-core ``logmel_tc_kernel``); the default frontend is plain torch in
-f32. ``--quantized`` embeds through the int8 encoder. Only TitaNet
-(``--model-size s|m|l``) is ported; the other families raise.
+``--model-size`` names the model: TitaNet ``s|m|l`` (default ``s``) or
+another family of the zoo at its published width, ``ecapa512``,
+``ecapa1024``, ``xvector``, ``resnet`` or ``conformer``, as the JAX
+package's ``examples/serve.py`` parses it. ``--fast-frontend`` runs the
+fused log-mel kernel with bf16 operands (the tensor-core
+``logmel_tc_kernel``); the default frontend is plain torch in f32.
+``--quantized`` embeds through the int8 encoder (TitaNet only).
 """
 
 from __future__ import annotations
@@ -27,15 +30,14 @@ import os
 from http.server import BaseHTTPRequestHandler, HTTPServer
 
 BUCKETS = (16000, 32000, 48000, 96000)
-_OTHER_FAMILIES = ("ecapa", "xvector", "resnet", "conformer")
+_FAMILIES = ("ecapa", "xvector", "resnet", "conformer")
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m titanet_torch.serve")
     parser.add_argument("--port", type=int, default=8077)
     parser.add_argument("--model-size", default="s",
-                        help="s|m|l (TitaNet); ecapa512|ecapa1024, xvector, resnet and conformer "
-                             "are not ported yet")
+                        help="s|m|l (TitaNet), ecapa512|ecapa1024, xvector, resnet or conformer")
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--checkpoint-dir", default=None)
     parser.add_argument("--n-classes", type=int, default=251)
@@ -54,23 +56,33 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def build_family(model_size: str, device):
+    """The model ``--model-size`` names with random weights from seed 0:
+    TitaNet ``s|m|l``, or a family of the zoo at its published width."""
+    from titanet_torch import models
+
+    if model_size.startswith("ecapa"):
+        return models.get_ecapa(channels=int(model_size[len("ecapa"):] or 512), device=device)
+    if model_size in ("xvector", "resnet", "conformer"):
+        return getattr(models, f"get_{model_size}")(device=device)
+    return models.get_titanet(model_size=model_size, device=device)
+
+
 def build_embedder(args):
-    """The service's ``SpeakerEmbedder`` from parsed arguments: TitaNet of
+    """The service's ``SpeakerEmbedder`` from parsed arguments: the model of
     ``--model-size`` with random weights from seed 0, or the newest
-    checkpoint under ``--checkpoint-dir`` (its depth and widths read from
-    its weights), warmed up on every bucket."""
+    checkpoint under ``--checkpoint-dir`` (a TitaNet's depth and widths
+    read from its weights; another family at its published width), warmed
+    up on every bucket."""
     import torch
 
     from titanet_torch._device import resolve_device
-    from titanet_torch.models import get_titanet
     from titanet_torch.ops.frontend import FrontendConfig
     from titanet_torch.train.extractor import SpeakerEmbedder
 
-    if args.model_size.startswith(_OTHER_FAMILIES):
-        raise NotImplementedError(
-            f"--model-size {args.model_size}: only TitaNet (s|m|l) is ported to titanet_torch yet "
-            "(ROADMAP Queue 1 item 7, model zoo)"
-        )
+    family = args.model_size.startswith(_FAMILIES)
+    if family and args.quantized:
+        raise SystemExit("--quantized is TitaNet-only (int8 PTQ tree)")
     dev = resolve_device(args.device)
     cfg = (
         FrontendConfig.from_ms(precision="default", use_pallas_fused=True)
@@ -78,7 +90,7 @@ def build_embedder(args):
         else FrontendConfig.from_ms()
     )
     if not args.checkpoint_dir:
-        model = get_titanet(model_size=args.model_size, device=dev)
+        model = build_family(args.model_size, dev)
     else:
         from titanet_torch.losses.heads import build_head
         from titanet_torch.models.titanet import _SIZE_PRESETS
@@ -90,15 +102,20 @@ def build_embedder(args):
         if epoch is None:
             raise FileNotFoundError(args.checkpoint_dir)
         data = ckpt.read_checkpoint(args.checkpoint_dir, epoch)
-        # the model as the run built it (depth and widths from its weights;
-        # --model-size must name its width), in the state a run of the
-        # default optimizer with a "ce" head of --n-classes saves: a
-        # checkpoint of another shape fails to load, never loads in part
-        model = titanet_from_state_dict(data["model"], device=dev)
-        hidden = _SIZE_PRESETS.get(args.model_size.lower(), {}).get("encoder_hidden_size")
-        if model.encoder.prolog.conv.weight.shape[0] != hidden:
-            raise ValueError(f"--model-size {args.model_size}: the checkpoint under {args.checkpoint_dir} "
-                             f"holds a TitaNet of hidden size {model.encoder.prolog.conv.weight.shape[0]}")
+        # the model as the run built it, in the state a run of the default
+        # optimizer with a "ce" head of --n-classes saves: a checkpoint of
+        # another family, shape or optimizer fails to load, never loads in
+        # part. A TitaNet's depth and widths come from its weights
+        # (--model-size must name its width); another family is built at
+        # the width --model-size names.
+        if family:
+            model = build_family(args.model_size, dev)
+        else:
+            model = titanet_from_state_dict(data["model"], device=dev)
+            hidden = _SIZE_PRESETS.get(args.model_size.lower(), {}).get("encoder_hidden_size")
+            if model.encoder.prolog.conv.weight.shape[0] != hidden:
+                raise ValueError(f"--model-size {args.model_size}: the checkpoint under {args.checkpoint_dir} "
+                                 f"holds a TitaNet of hidden size {model.encoder.prolog.conv.weight.shape[0]}")
         state = create_train_state(
             model, build_head("ce", model.embedding_size, args.n_classes, device=dev,
                               generator=torch.Generator().manual_seed(0)),

@@ -17,10 +17,10 @@ weight is transposed (the port keeps the JAX layout ``[E, n_classes]``).
   ``TitaNet`` (its architecture read from the keys and shapes), or its
   ``state_dict``, and the head's state dict when asked;
 - :func:`export_titanet_state_dict`, :func:`export_head_state_dict`,
-  :func:`save_reference_checkpoint`: the way back, to reference keys.
-
-The d-vector baseline's converter belongs to the model zoo, which is not
-ported yet (ROADMAP Queue 1 item 7).
+  :func:`save_reference_checkpoint`: the way back, to reference keys;
+- :func:`convert_dvector_state_dict`: the reference's d-vector baseline
+  (``recurrent.*`` of its ``nn.LSTM``, ``projection.*``) -> the port's
+  :class:`~titanet_torch.models.DVectorBaseline`.
 """
 
 from __future__ import annotations
@@ -99,6 +99,28 @@ def convert_titanet_state_dict(sd: Dict) -> Dict[str, torch.Tensor]:
         copy("decoder.pool.linear", "decoder.pool.2")
     copy("decoder.linear", "decoder.linear.0")
     bn("decoder.linear_norm", "decoder.linear.1")
+    return out
+
+
+def convert_dvector_state_dict(sd: Dict) -> Dict[str, torch.Tensor]:
+    """Reference ``DVectorBaseline.state_dict()`` (its ``src/models.py:70-159``:
+    ``recurrent`` an ``nn.LSTM``, ``projection`` a ``Linear``) -> the port's
+    ``DVectorBaseline`` state dict. Both keep torch's packed gate layout
+    (rows i, f, g, o); the port's layer ``k`` is ``lstm_{k}`` with one
+    bias, the sum of the reference's ``bias_ih_l{k}`` and ``bias_hh_l{k}``
+    (torch adds the two at run time)."""
+    out: Dict[str, torch.Tensor] = {}
+    layer = 0
+    while f"recurrent.weight_ih_l{layer}" in sd:
+        src, dst = "recurrent", f"lstm_{layer}"
+        out[f"{dst}.weight_ih"] = _tensor(sd[f"{src}.weight_ih_l{layer}"])
+        out[f"{dst}.weight_hh"] = _tensor(sd[f"{src}.weight_hh_l{layer}"])
+        out[f"{dst}.bias"] = _tensor(sd[f"{src}.bias_ih_l{layer}"]) + _tensor(sd[f"{src}.bias_hh_l{layer}"])
+        layer += 1
+    if not layer:
+        raise KeyError("no recurrent.weight_ih_l0: not a reference d-vector state dict")
+    out["projection.weight"] = _tensor(sd["projection.weight"])
+    out["projection.bias"] = _tensor(sd["projection.bias"])
     return out
 
 

@@ -5,10 +5,18 @@
 ``np.asarray`` reads) and fills the port's module by path: the port's
 module attribute names are the JAX tree's keys.
 
-- conv kernels, WIO ``[K, in/groups, out]`` -> ``weight [out, in/groups, K]``;
+- 1-D conv kernels, WIO ``[K, in/groups, out]`` -> ``weight [out, in/groups, K]``
+  (a grouped conv's ``[K, 1, C]`` -> ``[C, 1, K]``);
+- 2-D conv kernels ``[kT, kF, in, out]`` -> ``weight [out, in, kT, kF]``;
 - Dense kernels ``[in, out]`` -> ``weight [out, in]``;
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and ``mean``/``var``
   from ``batch_stats`` -> ``running_mean``/``running_var``;
+- LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
+- a flax ``OptimizedLSTMCell`` (per-gate ``i{i,f,g,o}/kernel [in, H]`` and
+  ``h{i,f,g,o}/kernel [H, H]``, ``h*/bias``) -> an ``LSTMLayer``'s packed
+  ``weight_ih [4H, in]``, ``weight_hh [4H, H]`` and ``bias [4H]``, gate
+  rows i, f, g, o (the inverse of the JAX package's
+  ``convert_dvector_state_dict``);
 - a parameter held directly by any other module (the angular-margin head's
   ``weight [E, N*K]``, GE2E's ``w`` and ``b``) -> the leaf of its own name,
   in the JAX layout.
@@ -28,9 +36,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from titanet_torch.ops.conv import SamePadConv1d
+from titanet_torch.models.baselines import LSTMLayer
+from titanet_torch.ops.conv import Conv2d, SamePadConv1d
 from titanet_torch.ops.dense import Dense
-from titanet_torch.ops.norm import BatchNorm
+from titanet_torch.ops.norm import BatchNorm, LayerNorm
+
+LSTM_GATES = ("i", "f", "g", "o")  # torch's packed row order
 
 
 def _node(tree: Mapping, path):
@@ -74,6 +85,27 @@ def load_jax_variables(
             if mod.bias is not None:
                 _assign(mod.bias, node["bias"], where + "/bias")
                 used_params += 1
+        elif isinstance(mod, Conv2d):
+            node = _node(params, path)
+            _assign(mod.weight, np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)), where + "/kernel")
+            used_params += 1
+            if mod.bias is not None:
+                _assign(mod.bias, node["bias"], where + "/bias")
+                used_params += 1
+        elif isinstance(mod, LayerNorm):
+            node = _node(params, path)
+            _assign(mod.weight, node["scale"], where + "/scale")
+            _assign(mod.bias, node["bias"], where + "/bias")
+            used_params += 2
+        elif isinstance(mod, LSTMLayer):
+            node = _node(params, path)
+            gate = lambda k, leaf: np.asarray(_node(node, [k, leaf]))  # noqa: E731
+            _assign(mod.weight_ih, np.concatenate([gate(f"i{g}", "kernel").T for g in LSTM_GATES]),
+                    where + "/i*/kernel")
+            _assign(mod.weight_hh, np.concatenate([gate(f"h{g}", "kernel").T for g in LSTM_GATES]),
+                    where + "/h*/kernel")
+            _assign(mod.bias, np.concatenate([gate(f"h{g}", "bias") for g in LSTM_GATES]), where + "/h*/bias")
+            used_params += 3 * len(LSTM_GATES)
         elif isinstance(mod, BatchNorm):
             node = _node(params, path)
             _assign(mod.weight, node["scale"], where + "/scale")
