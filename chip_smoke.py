@@ -129,13 +129,38 @@ Phases (any failure exits non-zero and prints no result):
      step (C = 1536, H = 128, T' = 151) and its pool-forward launches of
      ``infer --split`` likewise (phases 3 and 6); every other family
      launches no pool kernel, and no family the depthwise backward.
+  16. the device-resident corpus and the utilities: (a) phase 13's corpus
+     as one int16 CUDA tensor (MB, upload ms and GB/s), phase 13's four
+     trainer kernels held against their plain versions on the device
+     route's own batches, then ``cli.train`` (TitaNet-S at full width,
+     bf16, B=64, ``generic.device_corpus``, ``[chunk, specaugment]``, one
+     epoch, ``TITANET_DW_BWD=pallas``): the launches of the four kernels
+     against the count the batches give, every staged batch a
+     ``DeviceBatch`` gathered on the card, the train, validation and test
+     loaders on the one corpus, every batch replayed bit-equal to a host
+     loader with ``transport_dtype`` int16, no H2D copy as large as a
+     window in a profiler window of two steps, a finite loss; gather ms a
+     batch beside the host route's H2D copy of it as f32, utt/s and the
+     ``StepTimer`` split beside phase 13's host-fed run A; (b) run A
+     restored as an f32 model and exported (``export_titanet_embedder``,
+     B=8 x 3 s) with the default frontend and with ``use_pallas_fused``,
+     each loaded from bytes: per-row cosine vs ``embed_step`` > 0.99999,
+     and the fused log-mel kernel launched exactly once a call of the fused
+     artifact (none in the default one); (c) ``profiling.trace`` around
+     three ``embed_step`` calls (the trace names ``logmel_kernel``),
+     ``StepProfiler`` over ten, ``device_memory_stats`` (0 < in use <= peak
+     <= the card's memory); (d) an epoch with ``figures.enabled``, ``infer
+     --fig`` and ``trials --det-out``: the PNGs where matplotlib imports,
+     else the JAX package's message and no file, the runs complete. Corpus
+     fetching is host-only code and is not run on the card (no network).
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
 kernels, the pallas-route training step for the backward kernels, the
 fused serving call for the frames and mega-block kernels; rows 1-4 also
 ``zoo_trainer_launches``: each zoo family's launches in its phase-15
-trainer run), error
+trainer run, and ``device_corpus_trainer_launches``: phase 16's
+device-resident ``cli.train``), error
 vs its plain version, time, plain time, bound and library time, every number
 from this run, and ``timed_by``: ``"profiler"`` (device time of the
 kernel's launches), or ``"events"`` (CUDA events around its wrapper) where
@@ -449,7 +474,7 @@ def replay_pool(rec: dict, where: str) -> str:
     return line
 
 
-def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
+def trainer_kernels_vs_plain(cfg, datasets, tag: str, label: str = "trainer") -> None:
     """Phase 13's kernel checks: each of the four kernels of the trainer's
     path against its plain version on the tensors that path gives it.
     Every batch of the trainer's own train, validation and test loaders
@@ -464,8 +489,11 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
     backward and every ``dw_bwd`` launch of the step are replayed on those
     tensors and held against their plain versions, at the tolerances of
     phases 2, 3, 6 and 7. The replayed forward must give the path's own
-    output bit for bit (the replay saw the path's inputs). Raises on a
-    miss."""
+    output bit for bit (the replay saw the path's inputs). With
+    ``generic.device_corpus`` the loaders are switched to the device corpus
+    first (``cli._attach_device_corpus``), so every batch is a window
+    gathered on the card, as the device-resident trainer runs it. Raises on
+    a miss."""
     import torch
 
     from titanet_torch import cli
@@ -480,6 +508,8 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
     train_ds, val_ds, test_ds, n_speakers = datasets
     frontend = cli._frontend(cfg)
     loaders = dict(zip(("train", "val", "test"), cli._loaders(cfg, train_ds, val_ds, test_ds, None)))
+    if cfg.generic.device_corpus:
+        cli._attach_device_corpus(cfg, list(loaders.values()), dev)
     loaders["train"].set_epoch(1)
     staged = {kind: list(loop._staged_batches(ld, dev)) for kind, ld in loaders.items()}
 
@@ -498,7 +528,7 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
                                      f"max abs err {err} > 1e-4")
             mel_err, mel_calls = max(mel_err, err), mel_calls + 1
             ragged += lens is not None and not uniform
-    print(f"trainer kernels vs plain: log-mel f32 (logmel_kernel) on all {mel_calls} batches of the "
+    print(f"{label} kernels vs plain: log-mel f32 (logmel_kernel) on all {mel_calls} batches of the "
           f"trainer's train/validation/test loaders ({ragged} with ragged lengths), "
           f"max abs err {mel_err:.3e} (atol 1e-4) {tag}")
 
@@ -537,7 +567,7 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
                              f"depthwise convs for {dw_launches} dw_bwd launches")
 
     for rec, where in zip(kept["pool"], ("train step", "eval_step")):
-        print(f"trainer kernels vs plain: {replay_pool(rec, where)} {tag}")
+        print(f"{label} kernels vs plain: {replay_pool(rec, where)} {tag}")
 
     worst = {"dx": 0.0, "dk": 0.0, "db": 0.0}
     shapes = set()
@@ -553,10 +583,15 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str) -> None:
                                      f"error / max {err} > 3e-2")
             worst[gname] = max(worst[gname], err)
         shapes.add((tuple(x.shape), w.shape[-1]))
-    print(f"trainer kernels vs plain: dw_bwd, every one of the step's {len(kept['dw'])} launches "
+    print(f"{label} kernels vs plain: dw_bwd, every one of the step's {len(kept['dw'])} launches "
           f"({', '.join(f'{s} K={k}' for s, k in sorted(shapes))}, {kept['dw'][0]['x'].dtype}): worst error / "
           f"max {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})} (tol 3e-2) {tag}")
     os.environ.pop("TITANET_DW_BWD", None)
+
+
+# phase 13's host-fed run A (pallas route): steps, utterances, whole-loop
+# wall and the StepTimer split, printed beside phase 16's device-resident run
+HOST_FED_RUN_A: dict = {}
 
 
 def trainer_phase(tag: str):
@@ -642,11 +677,15 @@ def trainer_phase(tag: str):
                 os.path.isfile(os.path.join(run_a, str(e), ckpt.FILENAME)) for e in (1, 2)):
             raise AssertionError(f"trainer {route}: checkpoints of epochs 1 and 2 missing under {run_a}")
         falls = losses[1] < losses[0]
+        if route == "pallas":
+            HOST_FED_RUN_A.update(steps=2 * steps, wall=wall)
         tr = [epoch_record(rec_a, e, "train/") for e in (1, 2)]
         ts_ = [r["ts"] for r in rec_a if "train/avg_loss" in r]
         n_utt = 2 * steps * TRAIN_BATCH
         data_s = sum(r["train/total_data_time"] for r in tr)
         model_s = sum(r["train/total_model_time"] for r in tr)
+        if route == "pallas":
+            HOST_FED_RUN_A.update(data_s=data_s, model_s=model_s, utt=n_utt)
         test_a = epoch_record(rec_a, 2, "test/")
         print(f"trainer {route} (cli.train, TitaNet-S 17 blocks, bf16, B={TRAIN_BATCH}, {steps} steps an "
               f"epoch, chunk+specaugment+noise): launches {counts}; train/avg_loss epoch 1 {losses[0]:.4f} -> "
@@ -1428,6 +1467,344 @@ def zoo_phase(tag: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Utilities and device-resident corpus phase (16): phase 13's trainer
+# config (TitaNet-S at full width, bf16, CE, B=64, phase 13's corpus) with
+# generic.device_corpus and augmentation [chunk, specaugment], as
+# configs/bench21_scaled_eer.yml and bench22_easy_eer.yml set them; then
+# the export, profiling and figure utilities on phase 13's run A (phase 14
+# resumed it to SERVE_EPOCHS). Corpus fetching (data/acquire.py) is
+# host-only stdlib code and the card's machine has no network: it is not
+# run here; the CPU tests fetch local file:// archives through it.
+DC_ENABLE = ("chunk", "specaugment")
+EXPORT_B, EXPORT_SAMPLES = 8, 48000
+
+
+def traced_kernels(fn, attempts: int = 3) -> list:
+    """Names of the CUDA kernels ``torch.profiler`` records over one
+    ``fn()``, after a traced warm-up call (a trace can lose its first
+    records: see :func:`device_profile`). The trace is taken again, up to
+    ``attempts`` times, while it records no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = []
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def utilities_phase(root: str, n_speakers: int, tag: str) -> dict:
+    """Phase 16: (a) the trainer on the device-resident corpus, (b) the
+    exported embedder, (c) the profiling helpers, (d) the figures. Raises on
+    any failed check. Returns the launches of the log-mel, pool-forward,
+    pool-backward and depthwise-backward kernels in (a)'s ``cli.train``."""
+    import contextlib
+    import glob
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+
+    from titanet_torch import cli
+    from titanet_torch.data import device_corpus as tdc
+    from titanet_torch.data import loader as tld
+    from titanet_torch.ops.kernels import dwconv
+    from titanet_torch.ops.kernels.melspec import log_mel_fused
+    from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
+    from titanet_torch.train import state as ts
+    from titanet_torch.train.loop import _staged_batches
+    from titanet_torch.train.state import embed_step
+    from titanet_torch.utils import export as tx
+    from titanet_torch.utils import profiling as tp
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counters = {"logmel": log_mel_fused, "pool_fwd": attentive_pool_fwd,
+                "pool_bwd": attentive_pool_bwd, "dw_bwd": dwconv.dw_bwd}
+
+    def dc_config(run: str, figures: bool = False):
+        cfg = trainer_config(root, run, 1, DC_ENABLE)
+        cfg.generic.device_corpus = True
+        cfg.figures.enabled = figures
+        cfg.figures.path = os.path.join(root, "figures")
+        return cfg
+
+    # (a) the corpus, built as cli.train builds it (same cache key, so the
+    # trainer reuses it); the upload of its flat tensor timed again alone
+    cfg = dc_config("dc")
+    train_ds, val_ds, test_ds, n_train = cli._datasets(cfg, True)
+    base, _ = tdc.resolve_base(train_ds)
+    tdc._CORPUS_CACHE.clear()
+    t0 = time.perf_counter()
+    corpus = tdc.DeviceCorpus.build(base, SR, device=dev, cache_key=tdc.corpus_cache_key(base))
+    build_s = time.perf_counter() - t0
+    flat = corpus.flat
+    if not (flat.is_cuda and flat.dtype == torch.int16 and flat.dim() == 1 and flat.is_contiguous()):
+        raise AssertionError(f"device corpus: {flat.dtype} {tuple(flat.shape)} on {flat.device}")
+    host_flat = flat.cpu().numpy()
+    uploads = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = tdc._upload(host_flat, dev, 32 << 20)
+        uploads.append(time.perf_counter() - t0)
+        if not torch.equal(again, flat):
+            raise AssertionError("device corpus: a second upload differs from the first")
+        del again
+    upload_s = statistics.median(uploads)
+    mb = flat.numel() * 2 / 1e6
+    print(f"device corpus: one int16 CUDA tensor of {flat.numel()} samples ({mb:.1f} MB, {len(base)} utterances "
+          f"+ {400_000} tail zeros); built in {build_s:.2f} s (decode, quantize, upload); upload alone (32 MB "
+          f"slabs through pinned memory) median {upload_s * 1e3:.2f} ms of 3 ({min(uploads) * 1e3:.2f}-"
+          f"{max(uploads) * 1e3:.2f}), {mb / 1e3 / upload_s:.2f} GB/s {tag}")
+
+    steps = len(train_ds) // TRAIN_BATCH
+    val_batches = -(-len(val_ds) // TRAIN_BATCH)
+    test_batches = -(-len(test_ds) // TRAIN_BATCH)
+    trainer_kernels_vs_plain(dc_config("dc-kernels"), (train_ds, val_ds, test_ds, n_train), tag,
+                             label="device-corpus trainer")
+
+    # cli.train, counted: the loaders it attaches, the gathers, what is staged
+    os.environ["TITANET_DW_BWD"] = "pallas"
+    seen = {"loaders": [], "gathers": 0, "staged": []}
+    attach, gather, stage = cli._attach_device_corpus, tdc.gather_windows, tld._stage
+
+    def attach_kept(cfg_, loaders, device):
+        seen["loaders"] = list(loaders)
+        return attach(cfg_, loaders, device)
+
+    def gather_counted(*a, **k):
+        seen["gathers"] += 1
+        return gather(*a, **k)
+
+    def stage_kept(batch, device, stream):
+        seen["staged"].append(type(batch).__name__)
+        return stage(batch, device, stream)
+
+    cli._attach_device_corpus, tdc.gather_windows, tld._stage = attach_kept, gather_counted, stage_kept
+    try:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.train(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c.launches for k, c in counters.items()}
+    finally:
+        cli._attach_device_corpus, tdc.gather_windows, tld._stage = attach, gather, stage
+    batches = steps + val_batches + test_batches
+    expect = {"logmel": val_batches + test_batches, "pool_fwd": steps + val_batches, "pool_bwd": steps,
+              "dw_bwd": 51 * steps}
+    if counts != expect:
+        raise AssertionError(f"device-corpus trainer: launches {counts}, expected {expect}")
+    if len(seen["loaders"]) != 3 or any(l._device_corpus is not corpus for l in seen["loaders"]):
+        raise AssertionError("device-corpus trainer: the train, validation and test loaders do not share the "
+                             "corpus built above")
+    if seen["staged"] != ["DeviceBatch"] * batches or seen["gathers"] != batches:
+        raise AssertionError(f"device-corpus trainer: staged {sorted(set(seen['staged']))} x "
+                             f"{len(seen['staged'])}, {seen['gathers']} gathers, expected {batches} DeviceBatch")
+    rec = epoch_record(read_jsonl(os.path.join(root, "dc", "metrics.jsonl")), 1, "train/")
+    if not np.isfinite(rec["train/avg_loss"]):
+        raise AssertionError(f"device-corpus trainer: loss {rec['train/avg_loss']}")
+
+    # every batch of the run's own loaders, replayed (epoch 1), against the
+    # host loaders: the train loader's int16 batches (transport_dtype
+    # int16) equal bits; the validation and test loaders ship f32, which
+    # quantized as the corpus is (clip(x * 32768)) gives equal bits
+    host_cfg = trainer_config(root, "host16", 1, DC_ENABLE)
+    host_cfg.training.transport_dtype = "int16"
+    host_loaders = cli._loaders(host_cfg, train_ds, val_ds, test_ds, None)
+
+    def as_int16(w):
+        return w if w.dtype == np.int16 else np.clip(w * 32768.0, -32768, 32767).astype(np.int16)
+
+    compared, widths = 0, set()
+    for kind, dl, hl in zip(("train", "val", "test"), seen["loaders"], host_loaders):
+        dl.set_epoch(1)
+        hl.set_epoch(1)
+        pairs = list(zip(dl, hl))
+        if not len(pairs) == len(dl) == len(hl) > 0:
+            raise AssertionError(f"device-corpus replay {kind}: {len(pairs)} batches vs {len(dl)} / {len(hl)}")
+        for db, hb in pairs:
+            wav, lens, spk = db.gather()
+            if (tuple(wav.shape) != hb.waveform.shape or not np.array_equal(wav.cpu().numpy(), as_int16(hb.waveform))
+                    or not np.array_equal(lens.cpu().numpy(), hb.lengths)
+                    or not np.array_equal(spk.cpu().numpy(), hb.speaker_ids)):
+                raise AssertionError(f"device-corpus replay {kind}: a gathered batch differs from the host's")
+            compared += 1
+            widths.add(db.t)
+    # one train batch: the gather, and the host route's H2D copy of it as f32
+    dl = seen["loaders"][0]
+    dl.set_epoch(1)
+    db = next(iter(dl._iter_batches()))
+    gms = cuda_ms(lambda: tdc.gather_windows(corpus, db.starts, db.lengths, db.t))
+    w32 = (db.gather()[0].cpu().numpy().astype(np.float32) / 32768.0)
+    pinned = torch.from_numpy(w32).pin_memory()
+    hms = cuda_ms(lambda: pinned.to(dev, non_blocking=True))
+    # a profiler window of two device-fed train steps: no H2D copy as large
+    # as a window
+    _, _, state = cli._new_state(cfg, n_train, dev, steps)
+    frontend, augment = cli._frontend(cfg), cli._augment_config(cfg, None)
+    dl.set_epoch(2)
+    trace_path = os.path.join(root, "dc_steps_trace.json")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, ((wav, lens, spk), batch) in enumerate(_staged_batches(dl, dev)):
+            uniform = int(batch.lengths.min()) == wav.shape[1]
+            ts.train_step(state, wav, None if uniform else lens, spk, frontend=frontend, augment=augment)
+            if i == 1:
+                break
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    h2d = [e for e in events if "HtoD" in e.get("name", "") and e.get("ph") == "X"]
+    sizes = [e.get("args", {}).get("bytes") for e in h2d]
+    window_bytes = TRAIN_BATCH * db.t * 2
+    if not h2d or any(b is None for b in sizes) or max(sizes) >= window_bytes:
+        raise AssertionError(f"device-corpus steps: H2D copies {len(h2d)}, bytes {sorted(set(map(str, sizes)))[:8]} "
+                             f"(an int16 window is {window_bytes} B)")
+    os.environ.pop("TITANET_DW_BWD", None)
+    utt = steps * TRAIN_BATCH
+    a = HOST_FED_RUN_A
+    print(f"device-corpus trainer (cli.train, TitaNet-S 17 blocks, bf16, B={TRAIN_BATCH}, {steps} steps, "
+          f"[chunk, specaugment], TITANET_DW_BWD=pallas, 1 epoch): launches {counts}; {batches} batches staged, "
+          f"all DeviceBatch, {seen['gathers']} gathers, no waveform through the host; {compared} batches of the "
+          f"run's train/validation/test loaders replayed bit-equal to the host loaders' int16 batches (train: "
+          f"transport_dtype int16; validation, test: their f32 batches quantized as the corpus is) "
+          f"(bucket widths {sorted(widths)}); profiler window of 2 device-fed steps: {len(h2d)} H2D copies, "
+          f"largest {max(sizes)} B (an int16 [{TRAIN_BATCH}, {db.t}] window is {window_bytes} B); "
+          f"train/avg_loss {rec['train/avg_loss']:.4f} {tag}")
+    print(f"device-corpus trainer: gather {gms:.4f} ms a [{TRAIN_BATCH}, {db.t}] batch (CUDA events) vs the "
+          f"host route's H2D copy of the same batch as f32 ({w32.nbytes / 1e6:.2f} MB from pinned memory) "
+          f"{hms:.4f} ms; whole loop {wall:.2f} s for {utt} training utterances ({utt / wall:.1f} utt/s, "
+          f"validation, checkpoint and verification included; "
+          f"{utt / (rec['train/total_data_time'] + rec['train/total_model_time']):.1f} utt/s over the training "
+          f"steps alone); StepTimer data {rec['train/total_data_time'] / steps * 1e3:.2f} ms / model "
+          f"{rec['train/total_model_time'] / steps * 1e3:.2f} ms a step | beside phase 13's host-fed run A "
+          f"(pallas, [chunk, specaugment, noise], 2 epochs): {a['utt'] / a['wall']:.1f} utt/s whole loop, "
+          f"{a['utt'] / (a['data_s'] + a['model_s']):.1f} utt/s over the steps, data "
+          f"{a['data_s'] / a['steps'] * 1e3:.2f} ms / model {a['model_s'] / a['steps'] * 1e3:.2f} ms a step {tag}")
+
+    # (b) export: run A restored into an f32 model, B=8 x 3 s
+    run = os.path.join(root, "a-pallas")
+    cfg32 = trainer_config(root, "a-pallas", SERVE_EPOCHS, ("chunk", "specaugment", "noise"))
+    cfg32.training.dtype = "float32"
+    state, frontend, epoch = cli._restore_for_eval(cfg32, n_speakers, run, None, "cuda")
+    model = state.model.eval()
+    waves = [np.asarray(test_ds[i]["waveform"], np.float32).reshape(-1) for i in range(EXPORT_B)]
+    wav8 = np.zeros((EXPORT_B, EXPORT_SAMPLES), np.float32)
+    len8 = np.zeros(EXPORT_B, np.int32)
+    for i, w in enumerate(waves):
+        w = np.resize(w, EXPORT_SAMPLES) if i % 2 == 0 else w[:EXPORT_SAMPLES]  # whole rows and short rows
+        wav8[i, :len(w)], len8[i] = w, len(w)
+    wav8, len8 = torch.from_numpy(wav8).to(dev), torch.from_numpy(len8).to(dev)
+    for fused in (False, True):
+        fe = frontend._replace(use_pallas_fused=fused)
+        t0 = time.perf_counter()
+        blob = tx.export_titanet_embedder(model, None, fe, batch_size=EXPORT_B, num_samples=EXPORT_SAMPLES)
+        export_s = time.perf_counter() - t0
+        served = tx.load_embedder(blob)
+        with torch.no_grad():
+            out = served(wav8, len8)
+            before = log_mel_fused.launches
+            served(wav8, len8)
+            torch.cuda.synchronize()
+            op_launches = log_mel_fused.launches - before
+            names = traced_kernels(lambda: served(wav8, len8))
+        ref = embed_step(model, wav8, len8, frontend=fe, device=dev)
+        cos = torch.nn.functional.cosine_similarity(out.float(), ref.float(), dim=-1)
+        mel_kernels = [n for n in names if "logmel" in n]
+        want = 1 if fused else 0
+        if out.shape != (EXPORT_B, 192) or not torch.isfinite(out).all() or cos.min().item() <= 0.99999:
+            raise AssertionError(f"export (fused={fused}): shape {tuple(out.shape)}, cosines vs embed_step {cos}")
+        if op_launches != want or len(mel_kernels) != want or (fused and "logmel_kernel" not in mel_kernels[0]):
+            raise AssertionError(f"export (fused={fused}): {op_launches} log-mel wrapper launches, traced "
+                                 f"kernels {mel_kernels}, expected {want}")
+        med, lo, hi = median_ms(lambda: served(wav8, len8))
+        print(f"export (run A epoch {epoch} as f32 TitaNet-S, B={EXPORT_B} x {EXPORT_SAMPLES}, "
+              f"use_pallas_fused={fused}): torch.export in {export_s:.2f} s, artifact {len(blob) / 1e6:.2f} MB, "
+              f"loaded from bytes; per-row cosine vs embed_step min {cos.min().item():.9f} (limit 0.99999); "
+              f"log-mel kernel launches in a profiler window of one call {len(mel_kernels)} {mel_kernels} "
+              f"(wrapper count {op_launches}); {len(names)} kernels a call; median {med:.3f} ms a call "
+              f"({lo:.3f}-{hi:.3f}) {tag}")
+        del served, out, ref
+
+    # (c) profiling
+    logdir = os.path.join(root, "trace")
+    with tp.trace(logdir):
+        with tp.annotate("embed_step x3"):
+            for _ in range(3):
+                embed_step(model, wav8, len8, frontend=frontend, device=dev)
+        torch.cuda.synchronize()
+    traces = glob.glob(os.path.join(logdir, "*.json"))
+    text = open(traces[0]).read() if len(traces) == 1 else ""
+    if "logmel_kernel" not in text:
+        raise AssertionError(f"profiling: trace files {traces} do not name logmel_kernel")
+    sp, box = tp.StepProfiler(), {}
+    for _ in range(10):
+        with sp.step("embed_step_b8", lambda: box["e"]):
+            box["e"] = embed_step(model, wav8, len8, frontend=frontend, device=dev)
+    mem = tp.device_memory_stats()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    if not (0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"] <= mem["bytes_limit"] == total):
+        raise AssertionError(f"profiling: device_memory_stats {mem}, card memory {total}")
+    print(f"profiling: trace() of 3 embed_step calls wrote {os.path.basename(traces[0])} "
+          f"({len(text) / 1e6:.2f} MB, names logmel_kernel); StepProfiler over 10 steps {sp.summary()}; "
+          f"device_memory_stats {mem} {tag}")
+
+    # (d) figures: one epoch with figures.enabled, infer --fig, trials --det-out
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    params = os.path.join(root, "serving", "params.json")
+    utt_dir = os.path.join(root, "serving", "utts")
+    trial_file = os.path.join(root, "figures_trials.txt")
+    with open(trial_file, "w") as f:
+        for s_ in range(4):
+            f.write(f"1 spk{s_}_0.wav spk{s_}_1.wav\n0 spk{s_}_0.wav spk{s_ + 1}_0.wav\n")
+    fig, det = os.path.join(root, "figures", "infer.png"), os.path.join(root, "figures", "det.png")
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        cli.train(dc_config("dc-figures", figures=True))
+        with embedding_calls() as calls_infer:
+            cli.main(["infer", "-p", params, "-c", run, "--audio",
+                      *sorted(glob.glob(os.path.join(utt_dir, "*.wav")))[:16], "--fig", fig])
+        with embedding_calls() as calls_trials:
+            cli.main(["trials", "-p", params, "-c", run, "--trial-file", trial_file, "--audio-root", utt_dir,
+                      "--det-out", det])
+    sys.stdout.write(captured.getvalue())
+    check_command_kernels(calls_infer, "infer --fig", tag, fillers=False)
+    check_command_kernels(calls_trials, "trials --det-out", tag, fillers=False)
+    pngs = [os.path.join(root, "figures", "dc-figures", f"epoch_1_{k}.png") for k in ("train", "val")] + [fig, det]
+    disabled = captured.getvalue().count("[viz disabled: matplotlib unavailable]")
+    if have_mpl:
+        bad = [p for p in pngs if not (os.path.isfile(p) and open(p, "rb").read(4) == b"\x89PNG")]
+        if bad:
+            raise AssertionError(f"figures: matplotlib imports but {bad} are not PNG files")
+        case = f"matplotlib present: {len(pngs)} PNGs written"
+    else:
+        if any(os.path.exists(p) for p in pngs) or disabled < len(pngs):
+            raise AssertionError(f"figures without matplotlib: {disabled} messages, files "
+                                 f"{[p for p in pngs if os.path.exists(p)]}")
+        case = (f"matplotlib absent: the JAX package's message printed {disabled} times, no file written, "
+                "the epoch and both commands completed")
+    print(f"figures (an epoch with figures.enabled, infer --fig, trials --det-out): {case} {tag}")
+    print(f"utilities phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2029,13 +2406,16 @@ def main() -> int:
         t0 = time.perf_counter()
         serving_phase(root, n_speakers, tag)
         print(f"serving phase: {time.perf_counter() - t0:.1f} s wall {tag}")
+
+        # 15. the model zoo: every other family through the trainer, the steps and the entry points
+        t0 = time.perf_counter()
+        zoo_launches = zoo_phase(tag)
+        print(f"zoo phase: {time.perf_counter() - t0:.1f} s wall {tag}")
+
+        # 16. the device-resident corpus and the utilities, on phase 13's corpus and run A
+        dc_launches = utilities_phase(root, n_speakers, tag)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-
-    # 15. the model zoo: every other family through the trainer, the steps and the entry points
-    t0 = time.perf_counter()
-    zoo_launches = zoo_phase(tag)
-    print(f"zoo phase: {time.perf_counter() - t0:.1f} s wall {tag}")
 
     kernels = []
     for key, name_, src, line, path_launches, zoo_key in (
@@ -2060,6 +2440,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "timed_by": r.get("timed_by", "events"),
             "zoo_trainer_launches": zoo,
+            "device_corpus_trainer_launches": dc_launches[zoo_key] if zoo_key else None,
         })
     print(json.dumps({"kernels": kernels}))
     print(name)

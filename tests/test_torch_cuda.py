@@ -606,3 +606,70 @@ def test_speaker_embedder_requests_through_the_fused_log_mel_kernel(cuda_device,
         cos = float(got @ solo / (np.linalg.norm(got) * np.linalg.norm(solo)))
         assert cos > (0.999 if bf16 else 1 - 1e-5), (len(wav), cos)
     assert batched.shape == (4, 192) and np.isfinite(batched).all()
+
+
+@pytest.mark.cuda
+def test_device_corpus_gather_on_the_card_equals_the_cpu_gather(cuda_device):
+    """The device corpus uploaded in slabs through pinned memory holds the
+    CPU corpus's samples, and the gathered windows (a start near the tail,
+    rows cut short) equal the CPU gather bit for bit."""
+    from titanet_torch.data.dataset import SyntheticSpeakerDataset
+    from titanet_torch.data.device_corpus import DeviceCorpus, gather_windows
+
+    ds = SyntheticSpeakerDataset(n_speakers=3, utterances_per_speaker=4, seed=3, min_seconds=1.0, max_seconds=2.0)
+    cpu = DeviceCorpus.build(ds, 16000, device="cpu")
+    gpu = DeviceCorpus.build(ds, 16000, device=cuda_device, slab_bytes=1 << 16)
+    assert gpu.flat.is_cuda and gpu.flat.dtype == torch.int16
+    assert torch.equal(gpu.flat.cpu(), cpu.flat)
+    starts = np.array([0, int(cpu.offsets[5]) + 77, int(cpu.offsets[-1])], np.int64)
+    lengths = np.array([16000, 9000, int(cpu.lengths[-1])], np.int32)
+    got = gather_windows(gpu, starts, lengths, 32000)
+    assert got.is_cuda and got.shape == (3, 32000)
+    assert torch.equal(got.cpu(), gather_windows(cpu, starts, lengths, 32000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_log_mel_operator_equals_the_wrapper(cuda_device, precision):
+    """``torch.ops.titanet_torch.log_mel_fused`` (what an exported fused
+    embedder calls) launches the same kernel as ``log_mel_fused``: equal
+    bits, one launch each."""
+    from titanet_torch.ops.kernels import melspec
+
+    rng = np.random.default_rng(2)
+    wav = torch.from_numpy((rng.standard_normal((4, 24000)) * 0.1).astype(np.float32)).to(cuda_device)
+    lengths = torch.tensor([24000, 20000, 16000, 9000], device=cuda_device)
+    cfg = tf.FrontendConfig(precision=precision, use_pallas_fused=True)
+    args, kw = tf.log_mel_fused_operands(wav, cfg, lengths)
+    before = log_mel_fused.launches
+    direct = log_mel_fused(*args, **kw)
+    via_op = torch.ops.titanet_torch.log_mel_fused(*args, **kw)
+    assert melspec.log_mel_fused.launches - before == 2
+    assert torch.equal(direct, via_op)
+
+
+@pytest.mark.cuda
+def test_exported_fused_embedder_launches_the_kernel_and_bf16_export_refuses(cuda_device):
+    """An f32 model exported with the fused frontend launches the log-mel
+    kernel once a call and equals ``embed_step``; a bf16 model (its pool
+    kernel is reached through ctypes) refuses export on the card."""
+    from titanet_torch.models import get_titanet
+    from titanet_torch.train.state import embed_step
+    from titanet_torch.utils.export import export_titanet_embedder, load_embedder
+
+    gen = torch.Generator().manual_seed(0)
+    model = get_titanet(n_mega_blocks=1, device=cuda_device, generator=gen).eval()
+    fe = tf.FrontendConfig(use_pallas_fused=True)
+    served = load_embedder(export_titanet_embedder(model, None, fe, batch_size=2, num_samples=16000))
+    rng = np.random.default_rng(4)
+    wav = torch.from_numpy((rng.standard_normal((2, 16000)) * 0.1).astype(np.float32)).to(cuda_device)
+    lengths = torch.tensor([16000, 11000], dtype=torch.int32, device=cuda_device)
+    before = log_mel_fused.launches
+    with torch.no_grad():
+        out = served(wav, lengths)
+    assert log_mel_fused.launches - before == 1
+    ref = embed_step(model, wav, lengths, frontend=fe, device=cuda_device)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    bf16 = get_titanet(n_mega_blocks=1, dtype=torch.bfloat16, device=cuda_device, generator=gen)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        export_titanet_embedder(bf16, None, fe, batch_size=2, num_samples=16000)

@@ -208,12 +208,53 @@ def test_on_disk_corpora_read_like_jax(tmp_path, name):
             assert (y["speaker"], y["speaker_id"], y["sample_rate"]) == (x["speaker"], x["speaker_id"], x["sample_rate"])
 
 
+def _archive(src, member, dest):
+    """``src/member`` packed into ``dest`` (.tar.gz or .zip), paths kept
+    relative to ``src``."""
+    import shutil
+
+    fmt = "gztar" if str(dest).endswith(".tar.gz") else "zip"
+    base = str(dest)[: -len(".tar.gz")] if fmt == "gztar" else str(dest)[: -len(".zip")]
+    return shutil.make_archive(base, fmt, root_dir=src, base_dir=member)
+
+
 @pytest.mark.parametrize("cls", ["LibriSpeechDataset", "VCTKDataset", "VoxCelebDataset"])
 def test_fetching_a_missing_corpus_raises_and_names_the_roadmap_item(tmp_path, cls):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 1 \(corpus fetching\)"):
-        getattr(td, cls)(str(tmp_path), download=True)
+    """``download=True`` fetches a missing corpus through
+    ``titanet_torch.data.acquire`` from a local ``file://`` archive (the
+    VoxCeleb one in two parts), and the corpus then reads like the JAX
+    package's over the same directory; without ``download`` a missing
+    corpus still raises FileNotFoundError."""
+    src = tmp_path / "src"
+    _corpora(str(src), np.random.default_rng(0))
+    root = tmp_path / "root"
+    if cls == "LibriSpeechDataset":
+        url = "file://" + _archive(src, "LibriSpeech", tmp_path / "train-clean-100.tar.gz")
+        got = td.LibriSpeechDataset(str(root), download=True, source_url=url)
+        ref = jd.LibriSpeechDataset(str(root))
+    elif cls == "VCTKDataset":
+        url = "file://" + _archive(src, "wav48_silence_trimmed", tmp_path / "VCTK-Corpus-0.92.zip")
+        got = td.VCTKDataset(str(root), download=True, source_url=url)
+        ref = jd.VCTKDataset(str(root))
+    else:
+        blob = open(_archive(src, "wav", tmp_path / "vox1_dev_wav.zip"), "rb").read()
+        half = len(blob) // 2
+        parts = []
+        for i, piece in enumerate((blob[:half], blob[half:])):
+            part = tmp_path / f"vox1_dev_wav_parta{'ab'[i]}"
+            part.write_bytes(piece)
+            parts.append(f"file://{part}")
+        got = td.VoxCelebDataset(str(root), download=True, version=1, dev_urls=parts, test_url=None,
+                                 progress=False)
+        ref = jd.VoxCelebDataset(str(root))
+    assert len(got) == len(ref) > 0 and got.speakers == ref.speakers
+    for i in range(len(ref)):
+        x, y = ref.get_sample(i), got.get_sample(i)
+        np.testing.assert_array_equal(y[0], x[0])
+        assert y[1:] == x[1:]
+    assert not [p for p in os.listdir(root) if p.endswith((".zip", ".tar.gz"))]  # archives removed
     with pytest.raises(FileNotFoundError):
-        getattr(td, cls)(str(tmp_path))
+        getattr(td, cls)(str(tmp_path / "missing"))
 
 
 def test_set_seed_seeds_every_global_generator_and_returns_a_generator():

@@ -158,12 +158,18 @@ def test_diarize_writes_an_rttm_that_reads_back(setup, tmp_path):
 
 
 def test_figures_are_not_ported_and_cuda_needs_a_card(setup, tmp_path):
+    """``infer --fig`` writes the projection figure and ``trials --det-out``
+    the DET curve (matplotlib is installed here); every command refuses
+    the default ``--device cuda`` without a card."""
     base = ["-p", setup["yml"], "-c", setup["run"], "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["infer", *base, "--audio", setup["files"][0], "--fig", str(tmp_path / "f.png")])
-    (tmp_path / "t.txt").write_text(f"1 {setup['files'][0]} {setup['files'][1]}\n")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["trials", *base, "--trial-file", str(tmp_path / "t.txt"), "--det-out", str(tmp_path / "d.png")])
+    fig, det = tmp_path / "f.png", tmp_path / "d.png"
+    cli.main(["infer", *base, "--audio", *setup["files"][:3], "--fig", str(fig)])
+    assert fig.stat().st_size > 0 and fig.read_bytes()[:4] == b"\x89PNG"
+    (tmp_path / "t.txt").write_text(
+        f"1 {setup['files'][0]} {setup['files'][1]}\n0 {setup['files'][0]} {setup['files'][2]}\n"
+    )
+    cli.main(["trials", *base, "--trial-file", str(tmp_path / "t.txt"), "--det-out", str(det)])
+    assert det.stat().st_size > 0 and det.read_bytes()[:4] == b"\x89PNG"
     for cmd in (["infer", "--audio", setup["files"][0]], ["trials", "--trial-file", str(tmp_path / "t.txt")],
                 ["diarize", "--audio", setup["files"][0]]):
         if not torch.cuda.is_available():  # --device defaults to cuda

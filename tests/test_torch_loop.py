@@ -234,13 +234,7 @@ def test_cli_train_and_eval_end_to_end_on_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"figures": {"enabled": True}}, "item 8"),
-    ({"generic": {"device_corpus": True}}, "item 5"),
     ({"mesh": {"num_devices": 2}}, "item 6"),
-    ({"augmentation": {"enable": ["noise"], "noise": {"source": "files", "download": True,
-                                                      "corpora_path": "no-such-dir"}}}, r"item 1 \(corpus fetching\)"),
-    ({"augmentation": {"enable": ["reverb"], "rir": {"download": True, "corpora_path": "no-such-dir"}}},
-     r"item 1 \(corpus fetching\)"),
 ])
 def test_config_keys_that_are_not_ported_raise_with_their_roadmap_item(override, item):
     cfg = Config.from_dict({"dataset": {"name": "synthetic"}, **override})

@@ -254,8 +254,10 @@ def test_evaluate_trials_with_the_port_embedder_equals_jax(tmp_path):
     ref_rows = [line.split() for line in open(tmp_path / "ref.txt").read().strip().splitlines()]
     assert len(rows) == 7 and [r[:2] for r in rows] == [r[:2] for r in ref_rows]
     np.testing.assert_allclose([float(r[2]) for r in rows], [float(r[2]) for r in ref_rows], atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tt.evaluate_trials(trial_file, mine_emb, audio_root=str(tmp_path), det_out=str(tmp_path / "det.png"))
+    det = tmp_path / "det.png"
+    again = tt.evaluate_trials(trial_file, mine_emb, audio_root=str(tmp_path), det_out=str(det))
+    assert again["eer"] == mine["eer"]
+    assert det.read_bytes()[:4] == b"\x89PNG"
 
 
 # -- enrollment --------------------------------------------------------------

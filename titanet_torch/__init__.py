@@ -15,4 +15,7 @@ the caller passes ``device="cpu"`` (``--device cpu``).
 Nothing here imports JAX or ``titanet_tpu``.
 """
 
+__version__ = "0.1.0"
+
+from titanet_torch import config as config  # noqa: F401
 from titanet_torch._device import resolve_device  # noqa: F401

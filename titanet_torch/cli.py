@@ -23,11 +23,14 @@ So a CPU run computes what the card's kernel does, and
 not read.
 
 Every model family of the JAX package trains, evaluates and serves here
-(:func:`build_model`). Not ported yet; these raise with the ROADMAP Queue
-1 item that holds them: corpus, RIR or noise ``download`` (item 1, corpus
-fetching), ``generic.device_corpus`` (item 5, data to device),
-``mesh.num_devices`` above 1 (item 6, parallel), ``figures.enabled``,
-``infer --fig`` and ``trials --det-out`` (item 8, utilities).
+(:func:`build_model`). ``generic.device_corpus`` keeps one int16 corpus on
+the device and feeds the train, validation, test and cohort loaders from
+it (:func:`_attach_device_corpus`); ``augmentation.noise.download`` and
+``augmentation.rir.download`` fetch MUSAN and the RIR corpus when their
+directory holds no wav; ``figures.enabled``, ``infer --fig`` and ``trials
+--det-out`` draw their figures (:mod:`titanet_torch.utils.viz`). Not ported
+yet: ``mesh.num_devices`` above 1 raises with ROADMAP Queue 1 item 6
+(parallel).
 """
 
 from __future__ import annotations
@@ -171,10 +174,14 @@ def _noise_mix_config(cfg: Config) -> Optional[NoiseMixConfig]:
         return None
     paths = tuple(str(p) for p in sorted(Path(no.corpora_path).rglob("*.wav")))
     if not paths and no.download:
-        raise _not_ported("fetching MUSAN (augmentation.noise.download)", "1 (corpus fetching)")
+        from titanet_torch.data.acquire import fetch_musan
+
+        fetch_musan(no.corpora_path, subset="noise")
+        paths = tuple(str(p) for p in sorted(Path(no.corpora_path).rglob("*.wav")))
     if not paths:
         raise FileNotFoundError(
-            f"augmentation.noise.source=files but no wavs under {no.corpora_path!r}"
+            f"augmentation.noise.source=files but no wavs under {no.corpora_path!r} "
+            "(set augmentation.noise.download: true to fetch MUSAN)"
         )
     return NoiseMixConfig(
         paths=paths, probability=cfg.augmentation.probability,
@@ -205,11 +212,26 @@ def _cohort_loader(cfg: Config, train_ds):
     return loader, topk
 
 
+def _attach_device_corpus(cfg: Config, loaders, device) -> None:
+    """``generic.device_corpus``: build ONE flat int16 corpus on ``device``
+    for each root dataset the loaders read (train, validation, test and
+    cohort share one) and switch every loader to descriptor batches
+    (:mod:`titanet_torch.data.device_corpus`). Process-cached, so runs
+    that rebuild an identical synthetic corpus reuse the uploaded tensor.
+    One process; the per-process corpus shard of a multi-process run waits
+    for ROADMAP Queue 1 item 6 (parallel)."""
+    from titanet_torch.data.device_corpus import DeviceCorpus, corpus_cache_key, resolve_base
+
+    corpora = {}
+    for loader in loaders:
+        root, _ = resolve_base(loader.dataset)
+        if id(root) not in corpora:
+            corpora[id(root)] = DeviceCorpus.build(root, cfg.audio.sample_rate, device=device,
+                                                   cache_key=corpus_cache_key(root))
+        loader.attach_device_corpus(corpora[id(root)])
+
+
 def _check_ported(cfg: Config) -> None:
-    if cfg.figures.enabled:
-        raise _not_ported("figures.enabled (embedding figures, utils/viz.py)", "8 (utilities)")
-    if cfg.generic.device_corpus:
-        raise _not_ported("generic.device_corpus (the device-resident corpus)", "5 (data to device)")
     if cfg.mesh.num_devices is not None and cfg.mesh.num_devices > 1:
         raise _not_ported("training on more than one device (mesh.num_devices > 1)", "6 (parallel)")
 
@@ -323,9 +345,11 @@ def _loaders(cfg: Config, train_ds, val_ds, test_ds, noise_mix):
     rir_paths: tuple = ()
     if "reverb" in enabled:
         rir_root = cfg.augmentation.rir.corpora_path
+        if cfg.augmentation.rir.download and not list(Path(rir_root).rglob("*.wav")):
+            from titanet_torch.data.acquire import fetch_rir_corpus
+
+            fetch_rir_corpus(rir_root)
         rir_paths = tuple(str(p) for p in sorted(Path(rir_root).rglob("*.wav")))
-        if not rir_paths and cfg.augmentation.rir.download:
-            raise _not_ported("fetching the RIR corpus (augmentation.rir.download)", "1 (corpus fetching)")
     reverb = ReverbConfig(
         rir_paths=rir_paths, probability=cfg.augmentation.probability,
         enabled="reverb" in enabled and bool(rir_paths),
@@ -366,6 +390,10 @@ def train(cfg: Config, device="cuda"):
     noise_mix = _noise_mix_config(cfg)
     train_loader, val_loader, test_loader = _loaders(cfg, train_ds, val_ds, test_ds, noise_mix)
     cohort_loader, cohort_topk = _cohort_loader(cfg, train_ds) if cfg.test.enabled else (None, None)
+    if cfg.generic.device_corpus:
+        _attach_device_corpus(
+            cfg, [l for l in (train_loader, val_loader, test_loader, cohort_loader) if l is not None], dev,
+        )
 
     model, head, state = _new_state(cfg, n_speakers, dev, max(len(train_loader), 1))
     if cfg.generic.chart_dependencies:
@@ -402,6 +430,8 @@ def train(cfg: Config, device="cuda"):
             test_loader=test_loader,
             val_loader=val_loader,
             val_every=cfg.validation.every if cfg.validation.enabled else None,
+            figures_path=cfg.figures.path if cfg.figures.enabled else None,
+            reduction_method=cfg.figures.reduction_method,
             checkpoints_frequency=cfg.training.checkpoints_frequency,
             resume=cfg.training.resume,
             track_best=cfg.training.track_best,
@@ -484,8 +514,6 @@ def infer_checkpoint(
     :func:`titanet_torch.train.loop.infer` (labels: speaker ids). Saves
     ``embeddings`` and ``labels`` to ``out_path`` (.npz) when given.
     Returns ``(embeddings [N, E] f32, labels [N])``."""
-    if fig_path:
-        raise _not_ported("the projection figure (infer --fig, utils/viz.py)", "8 (utilities)")
     _, val_ds, test_ds, n_speakers = _datasets(cfg, True)
     state, frontend, _ = _restore_for_eval(cfg, n_speakers, checkpoint_dir, epoch, device)
     if audio_paths:
@@ -507,6 +535,12 @@ def infer_checkpoint(
     if out_path:
         np.savez(out_path, embeddings=embeddings, labels=labels)
         print(f"[saved {len(embeddings)} embeddings -> {out_path}]")
+    if fig_path:
+        from titanet_torch.utils.viz import visualize_embeddings
+
+        if visualize_embeddings(embeddings, labels, reduction_method=cfg.figures.reduction_method,
+                                save=fig_path):
+            print(f"[saved projection figure -> {fig_path}]")
     return embeddings, labels
 
 
@@ -529,8 +563,6 @@ def trials_checkpoint(
     min-Cllr, counts)."""
     from titanet_torch.train.trials import evaluate_trials
 
-    if det_out:
-        raise _not_ported("the DET-curve figure (trials --det-out, utils/viz.py)", "8 (utilities)")
     _, _, _, n_speakers = _datasets(cfg, True)
     state, frontend, epoch = _restore_for_eval(cfg, n_speakers, checkpoint_dir, epoch, device)
     cohort = np.load(cohort_npz)["embeddings"] if cohort_npz else None
@@ -539,7 +571,7 @@ def trials_checkpoint(
         audio_root=audio_root, sample_rate=cfg.audio.sample_rate,
         cohort_embeddings=cohort, cohort_topk=cohort_topk,
         p_target=cfg.test.mindcf_p_target, c_fa=cfg.test.mindcf_c_fa,
-        c_miss=cfg.test.mindcf_c_miss, scores_out=scores_out,
+        c_miss=cfg.test.mindcf_c_miss, scores_out=scores_out, det_out=det_out,
     )
     print(
         f"[trials epoch {epoch}] eer={metrics['eer']:.4f} "

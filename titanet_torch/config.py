@@ -332,7 +332,7 @@ class GenericConfig:
     # port draws from torch generators and ignores it.
     fast_prng: bool = True
     # The JAX package's persistent compilation cache; the port compiles no
-    # step and ignores it (ROADMAP Queue 1 item 8).
+    # step and ignores it (ROADMAP Queue 1 item 2, step capture).
     compilation_cache_dir: str = ""
     # Memoize decoded+resampled waveforms (int16 PCM, per loader) so epochs
     # >= 2 skip audio decode — the host pipeline's dominant cost

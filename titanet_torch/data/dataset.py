@@ -10,9 +10,9 @@ waveforms and the same splits in both packages.
 
 - datasets yield RAW WAVEFORMS; the mel frontend runs on the device
   (``titanet_torch.ops.frontend``),
-- corpus fetching (``download=True``) is not ported: it raises and names
-  ROADMAP Queue 1 item 1 (corpus fetching, ``data/acquire.py``); place
-  the extracted corpus under ``root`` instead,
+- ``download=True`` fetches a missing corpus through
+  :mod:`titanet_torch.data.acquire` (``source_url`` / ``dev_urls``
+  overrides let tests serve local ``file://`` archives),
 - verification pairs are returned as (indices, labels) for batched scoring
   (one matmul) rather than materialized O(N^2) example pairs.
 """
@@ -28,14 +28,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from titanet_torch.data.audio_io import read_audio
-
-
-def _refuse_download(download: bool, corpus: str) -> None:
-    if download:
-        raise NotImplementedError(
-            f"fetching {corpus} is not ported to titanet_torch yet (ROADMAP Queue 1 "
-            "item 1 (corpus fetching), data/acquire.py); place the extracted corpus under root"
-        )
 
 
 class SpeakerDataset:
@@ -310,11 +302,17 @@ class LibriSpeechDataset(SpeakerDataset):
     ):
         self._path = os.path.join(root, "LibriSpeech", url)
         if not os.path.isdir(self._path):
-            _refuse_download(download, "LibriSpeech")
-            raise FileNotFoundError(
-                f"LibriSpeech not found at {self._path}: place the extracted "
-                "corpus there."
-            )
+            if download:
+                # reference auto-download semantics (src/datasets.py:303-306)
+                from titanet_torch.data.acquire import fetch_librispeech
+
+                fetch_librispeech(root, subset=url, source_url=source_url)
+            else:
+                raise FileNotFoundError(
+                    f"LibriSpeech not found at {self._path}. Pass "
+                    "download=True to fetch it, or place the extracted "
+                    "corpus there."
+                )
         self._walker = sorted(
             str(p) for p in Path(self._path).rglob("*.flac")
         )
@@ -352,11 +350,16 @@ class VCTKDataset(SpeakerDataset):
     ):
         self._audio_dir = os.path.join(root, "wav48_silence_trimmed")
         if not os.path.isdir(self._audio_dir):
-            _refuse_download(download, "VCTK")
-            raise FileNotFoundError(
-                f"VCTK not found at {self._audio_dir}: place the extracted "
-                "corpus there."
-            )
+            if download:
+                # reference auto-download semantics (src/datasets.py:340-343)
+                from titanet_torch.data.acquire import fetch_vctk
+
+                fetch_vctk(root, source_url=source_url)
+            else:
+                raise FileNotFoundError(
+                    f"VCTK not found at {self._audio_dir}. Pass download=True "
+                    "to fetch it."
+                )
         self._mic_id = mic_id
         self._walker = sorted(
             str(p)
@@ -390,11 +393,28 @@ class VoxCelebDataset(SpeakerDataset):
     ):
         self._path = os.path.join(root, "wav")
         if not os.path.isdir(self._path):
-            _refuse_download(download, f"VoxCeleb{version}")
-            raise FileNotFoundError(
-                f"VoxCeleb not found at {self._path}: place .wav files under "
-                "root/wav/<speaker>/<video>/."
-            )
+            if download:
+                # version routes the fetcher: VoxCeleb1 = multi-part wav
+                # archives (reference delegates to torchaudio's downloader,
+                # src/datasets.py:373-377); VoxCeleb2 = multi-part authed
+                # m4a download + zip reassembly + m4a->wav transcode
+                # (src/datasets.py:479-541). Pass transcode=/dev_urls=/
+                # credentials via acquire_kwargs.
+                from titanet_torch.data import acquire
+
+                if version == 1:
+                    acquire.fetch_voxceleb1(root, **acquire_kwargs)
+                elif version == 2:
+                    acquire.fetch_voxceleb2(root, **acquire_kwargs)
+                else:
+                    raise ValueError(
+                        f"VoxCeleb version must be 1 or 2, got {version!r}"
+                    )
+            else:
+                raise FileNotFoundError(
+                    f"VoxCeleb not found at {self._path}. Pass download=True "
+                    "(with version=1 or 2) or place .wav files under root/wav/."
+                )
         self._walker = sorted(str(p) for p in Path(self._path).rglob("*.wav"))
         super().__init__()
 

@@ -11,11 +11,15 @@
   ``(seed, epoch)`` through numpy, exactly as in the JAX package, so the
   same seed and epoch give the same batches, bit for bit,
 - :func:`device_prefetch` stages batches on the card from pinned host
-  memory on a side CUDA stream.
+  memory on a side CUDA stream,
+- device-resident mode (:meth:`DataLoader.attach_device_corpus`,
+  ``generic.device_corpus``): the loader yields
+  :class:`~titanet_torch.data.device_corpus.DeviceBatch` descriptors with
+  the same membership, crops and buckets, and the windows are gathered on
+  the card from one int16 corpus tensor.
 
-The device-resident corpus (``generic.device_corpus``) is not ported
-(ROADMAP Queue 1 item 5). ``shard_id``/``num_shards`` deal batches as the
-JAX loader does; the port's trainer runs one process (item 6).
+``shard_id``/``num_shards`` deal batches as the JAX loader does; the
+port's trainer runs one process (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -185,14 +189,23 @@ class DataLoader:
         self.epoch = 0
         self._rir_cache: dict = {}
         self._noise_cache: dict = {}
+        # Device-resident corpus mode (data/device_corpus.py): batches
+        # become descriptors; waveform windows gather on the device.
+        self._device_corpus = None
+        self._device_base_index = None
+        self._device_owned_local = None
 
     def __len__(self):
         """Steps per epoch FOR THIS SHARD (drives the cosine schedule
         length). With ``num_shards > 1``, whole batches are dealt
         round-robin and every shard gets the same count (remainder batches
-        dropped) so multi-host collectives stay in lockstep."""
+        dropped) so multi-host collectives stay in lockstep. Static
+        device-corpus sharding composes batches within each shard's
+        utterance slice, equalized to ``(N // P) // B`` steps."""
         n = len(self.dataset)
         n_full = n // self.batch_size
+        if self._device_owned_local is not None:
+            return (n // self.num_shards) // self.batch_size
         if self.num_shards > 1:
             return n_full // self.num_shards
         if self.drop_last or self.balanced is not None:
@@ -202,15 +215,109 @@ class DataLoader:
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
+    def attach_device_corpus(self, corpus):
+        """Switch this loader to device-resident mode: yield
+        :class:`titanet_torch.data.device_corpus.DeviceBatch` descriptors
+        instead of host waveform arrays. Requires every waveform-
+        transforming HOST augmentation to be disabled (chunking is a
+        crop, expressible as a device window; SpecAugment and noise run in
+        the train step).
+
+        With ``num_shards > 1`` this becomes STATIC utterance sharding:
+        local index ``i`` belongs to shard ``i % num_shards`` and each
+        shard composes its batches from its own slice only (so its corpus
+        shard, built from exactly those root indices, is all the device
+        memory it needs). Step counts stay equalized across shards
+        (``(N // P) // B`` each).
+        """
+        if self.speed.enabled or self.reverb.enabled or self.noise.enabled:
+            raise ValueError(
+                "device-resident corpus mode is incompatible with host-side "
+                "speed/reverb/noise augmentation (they transform waveforms "
+                "on the host); disable them or use the host loader"
+            )
+        from titanet_torch.data.device_corpus import resolve_base
+
+        _root, base_index = resolve_base(self.dataset)
+        self._device_corpus = corpus
+        self._device_base_index = base_index
+        self._device_owned_local = None
+        if self.num_shards > 1:
+            local = np.arange(len(self.dataset), dtype=np.int64)
+            owned = local[local % self.num_shards == self.shard_id]
+            missing = [int(i) for i in owned
+                       if corpus.offsets[int(base_index[i])] < 0]
+            if missing:
+                raise ValueError(
+                    f"device corpus shard is missing {len(missing)} owned "
+                    f"utterances (e.g. local idx {missing[:3]}); build it "
+                    "with root_indices = this loader's device_shard_root_"
+                    "indices()"
+                )
+            self._device_owned_local = owned
+
+    def device_shard_root_indices(self) -> np.ndarray:
+        """ROOT-dataset indices this loader's static device-corpus shard
+        must contain (see :meth:`attach_device_corpus`): the local indices
+        owned by ``shard_id`` under ``i % num_shards``, mapped through any
+        Subset views. Single-shard loaders own everything."""
+        from titanet_torch.data.device_corpus import resolve_base
+
+        _root, base_index = resolve_base(self.dataset)
+        local = np.arange(len(self.dataset), dtype=np.int64)
+        if self.num_shards > 1:
+            local = local[local % self.num_shards == self.shard_id]
+        return np.asarray(base_index[local], np.int64)
+
     def _chunk_plan(self, n_samples: int, rng: np.random.Generator):
         """RandomChunk draw (reference src/transforms.py:216-233): returns
-        ``(start, length)`` within an ``n_samples`` utterance."""
+        ``(start, length)`` within an ``n_samples`` utterance. The SINGLE
+        source of truth for the chunk RNG stream: the host decode path and
+        the device-descriptor path stay draw-for-draw identical."""
         if self.chunk.enabled and n_samples / self.sample_rate > self.chunk.max_length:
             length = int(rng.choice(self.chunk.lengths) * self.sample_rate)
             length = min(length, n_samples)
             start = int(rng.integers(0, n_samples - length + 1))
             return start, length
         return 0, n_samples
+
+    def _plan_one(self, idx: int, rng: np.random.Generator):
+        """Device-mode mirror of :meth:`_load_one`: same per-example RNG
+        stream, but only the crop coordinates are computed (no audio)."""
+        base = int(self._device_base_index[idx])
+        n = int(self._device_corpus.lengths[base])
+        start, length = self._chunk_plan(n, rng)
+        return (
+            int(self._device_corpus.offsets[base]) + start,
+            length,
+            int(self._device_corpus.speaker_ids[base]),
+        )
+
+    def _device_batches(self, order: np.ndarray, batch_ids, *stream):
+        """Descriptor batches ``batch_ids`` of ``order``; example ``j`` of
+        batch ``b`` draws from ``(seed, epoch, *stream, b * B + j)``, the
+        stream :meth:`_load_one` gets at that position."""
+        for b in batch_ids:
+            idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
+            plans = [
+                self._plan_one(int(i), np.random.default_rng(
+                    (self.seed, self.epoch, *stream, b * self.batch_size + j)))
+                for j, i in enumerate(idxs)
+            ]
+            yield self._make_device_batch(plans)
+
+    def _make_device_batch(self, plans):
+        from titanet_torch.data.device_corpus import DeviceBatch
+
+        lengths = np.asarray([p[1] for p in plans], np.int64)
+        t = self._bucket_for(int(lengths.max()))
+        return DeviceBatch(
+            corpus=self._device_corpus,
+            starts=np.asarray([p[0] for p in plans], np.int64),
+            lengths=np.minimum(lengths, t).astype(np.int32),
+            speaker_ids=np.asarray([p[2] for p in plans], np.int32),
+            t=t,
+        )
 
     # -- internals ----------------------------------------------------------
     def _decoded(self, idx: int):
@@ -395,7 +502,28 @@ class DataLoader:
                                         replace=len(utts) < m_utt).tolist())
         return np.asarray(order, np.int64)
 
+    def _iter_device_static_shard(self) -> Iterator[Batch]:
+        """Static-sharded device-corpus epoch: this shard permutes ITS OWN
+        utterance slice and yields descriptor batches. Deterministic in
+        ``(seed, epoch, shard_id)``; per-example RNG streams are keyed by
+        shard so no two shards share a chunk-draw stream."""
+        rng = np.random.default_rng(
+            (self.seed, self.epoch, self.shard_id, self.num_shards)
+        )
+        n_batches = (len(self.dataset) // self.num_shards) // self.batch_size
+        if self.balanced is not None:
+            order = self._balanced_order(
+                rng, restrict=self._device_owned_local, n_batches=n_batches
+            )
+        else:
+            owned = self._device_owned_local
+            order = owned[rng.permutation(len(owned))]
+        yield from self._device_batches(order, range(n_batches), self.shard_id)
+
     def _iter_batches(self) -> Iterator[Batch]:
+        if self._device_owned_local is not None:
+            yield from self._iter_device_static_shard()
+            return
         rng = np.random.default_rng((self.seed, self.epoch))
         if self.balanced is not None:
             order = self._balanced_order(rng)
@@ -424,6 +552,13 @@ class DataLoader:
             # and independent of decode order and of the shard count
             ex_rng = np.random.default_rng((self.seed, self.epoch, int(pos)))
             return self._load_one(int(idx), ex_rng)
+
+        if self._device_corpus is not None:
+            # device-resident mode: descriptors only, with the same batch
+            # membership (``order``/sharding above) and the same
+            # per-example RNG streams
+            yield from self._device_batches(order, my_batches)
+            return
 
         pool = None
         if self.num_workers > 0:
@@ -496,7 +631,17 @@ def _resample_host(wav: np.ndarray, orig: int, new: int) -> np.ndarray:
 
 def _stage(batch: Batch, device: torch.device, stream) -> dict:
     """Copy one host batch to ``device``: pinned host tensors, copied with
-    ``non_blocking=True`` on ``stream`` (a side CUDA stream)."""
+    ``non_blocking=True`` on ``stream`` (a side CUDA stream). A
+    :class:`~titanet_torch.data.device_corpus.DeviceBatch` is gathered on
+    the current stream from its device corpus instead: only its
+    descriptor crosses to the card."""
+    from titanet_torch.data.device_corpus import DeviceBatch
+
+    if isinstance(batch, DeviceBatch):
+        if batch.corpus.device.type != device.type:
+            raise ValueError(f"device corpus is on {batch.corpus.device}, batches were asked on {device}")
+        wav, lengths, speakers = batch.gather()
+        return {"waveform": wav, "lengths": lengths, "speaker_ids": speakers}
     host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.__dict__.items()}
     if device.type != "cuda":
         return {k: v.to(device) for k, v in host.items()}
@@ -508,7 +653,9 @@ def device_prefetch(iterator, device="cuda", size: int = 2):
     """Stage host batches onto the device ``size`` batches ahead of use.
 
     Yields ``(tensors, batch)``: ``tensors`` is ``{"waveform", "lengths",
-    "speaker_ids"}`` on ``device``, ``batch`` the host :class:`Batch`. On
+    "speaker_ids"}`` on ``device``, ``batch`` the host :class:`Batch` (or
+    the :class:`~titanet_torch.data.device_corpus.DeviceBatch`, whose
+    windows are gathered on the card). On
     the card each batch is copied from pinned host memory on a side stream
     while the compute stream runs earlier steps; before a batch is yielded
     the compute stream waits for its copy, and every staged tensor is

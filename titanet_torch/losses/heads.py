@@ -122,25 +122,43 @@ class AngularMarginHead(nn.Module):
         return normalized, preds, loss
 
 
+class SphereFaceHead(AngularMarginHead):
+    """Multiplicative angular margin (reference src/losses.py:135-149):
+    m1 = margin > 1."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if not self.m1 > 1:
+            raise ValueError("Margin out of bounds")
+
+
 def make_sphereface(n_classes, embedding_size=192, scale=None, margin=4.0, **kw):
     """Multiplicative angular margin: m1 = margin > 1."""
     if not margin > 1:
         raise ValueError("Margin out of bounds")
-    return AngularMarginHead(n_classes, embedding_size, scale=scale, m1=margin, **kw)
+    return SphereFaceHead(n_classes, embedding_size, scale=scale, m1=margin, **kw)
+
+
+class CosFaceHead(AngularMarginHead):
+    """Additive cosine margin (reference src/losses.py:152-166): m3 = margin."""
 
 
 def make_cosface(n_classes, embedding_size=192, scale=64.0, margin=0.2, **kw):
     """Additive cosine margin: m3 = margin."""
     if not 0 <= margin < 1 - np.cos(np.pi / 4):
         raise ValueError("Margin out of bounds")
-    return AngularMarginHead(n_classes, embedding_size, scale=scale, m3=margin, **kw)
+    return CosFaceHead(n_classes, embedding_size, scale=scale, m3=margin, **kw)
+
+
+class ArcFaceHead(AngularMarginHead):
+    """Additive angular margin (reference src/losses.py:169-183): m2 = margin."""
 
 
 def make_arcface(n_classes, embedding_size=192, scale=64.0, margin=0.5, **kw):
     """Additive angular margin: m2 = margin (0 is plain normalized softmax)."""
     if not 0 <= margin < 1:
         raise ValueError("Margin out of bounds")
-    return AngularMarginHead(n_classes, embedding_size, scale=scale, m2=margin, **kw)
+    return ArcFaceHead(n_classes, embedding_size, scale=scale, m2=margin, **kw)
 
 
 class GE2EHead(nn.Module):
@@ -218,6 +236,15 @@ def build_head(
         raise ValueError(f"Unknown loss {loss_name!r}")
     head.reset_parameters(generator or torch.Generator().manual_seed(0))
     return head.to(resolve_device(device))
+
+
+LOSSES = {
+    "ce": build_head,
+    "sphere": build_head,
+    "cos": build_head,
+    "arc": build_head,
+    "ge2e": build_head,
+}
 
 
 @torch.no_grad()

@@ -11,4 +11,10 @@
 
 Every wrapper launches its kernel on a CUDA tensor (or raises), runs the
 plain version on a CPU tensor, and counts its launches in ``.launches``.
+
+Importing this package registers ``torch.ops.titanet_torch.log_mel_fused``
+(:func:`.melspec.log_mel_fused_op`), which an exported embedder with the
+fused frontend calls (:mod:`titanet_torch.utils.export`).
 """
+
+from titanet_torch.ops.kernels import melspec  # noqa: F401  (registers the operator)

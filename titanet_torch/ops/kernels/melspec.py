@@ -187,6 +187,30 @@ log_mel_fused.launches = 0
 log_mel_fused.tc_launches = 0
 
 
+@torch.library.custom_op("titanet_torch::log_mel_fused", mutates_args=())
+def log_mel_fused_op(
+    buf: torch.Tensor,
+    lengths: Optional[torch.Tensor],
+    basis: torch.Tensor,
+    fb: torch.Tensor,
+    n_frames: int,
+    hop: int,
+    win_length: int,
+) -> torch.Tensor:
+    """:func:`log_mel_fused` as the registered operator
+    ``torch.ops.titanet_torch.log_mel_fused``, so that a traced graph
+    (``torch.export``, :mod:`titanet_torch.utils.export`) holds the kernel
+    as one node. On a CUDA tensor it launches the kernel, on a CPU tensor it
+    runs the plain version: the wrapper's own device rule."""
+    return log_mel_fused(buf, lengths, basis, fb, n_frames=n_frames, hop=hop, win_length=win_length)
+
+
+@log_mel_fused_op.register_fake
+def _log_mel_fused_fake(buf, lengths, basis, fb, n_frames, hop, win_length):
+    _check(buf, lengths, basis, fb, n_frames, hop)
+    return buf.new_empty((buf.shape[0], n_frames, fb.shape[1]), dtype=torch.float32)
+
+
 # ---------------------------------------------------------- frames kernel
 
 

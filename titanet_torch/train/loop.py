@@ -11,8 +11,12 @@
   (masked pooling), all pairs scored with one product.
 
 Batches reach the device through :func:`titanet_torch.data.device_prefetch`
-(pinned memory, a side stream) two steps ahead. Embedding figures
-(``figures_path``) are not ported (ROADMAP Queue 1 item 8).
+(pinned memory, a side stream) two steps ahead; a loader in device-resident
+mode yields descriptors whose windows are gathered on the card
+(:mod:`titanet_torch.data.device_corpus`). With ``figures_path`` each epoch
+draws the train and validation embeddings
+(:func:`titanet_torch.utils.viz.visualize_embeddings`) to disk, W&B and
+TensorBoard.
 """
 
 from __future__ import annotations
@@ -61,8 +65,10 @@ def _device_of(state: TrainState) -> torch.device:
 
 def _staged_batches(loader, device, depth: int = 2):
     """Iterate a loader with each batch staged on ``device`` ``depth``
-    batches ahead (:func:`device_prefetch`). Yields ((wav, lengths,
-    speakers) device tensors, host Batch)."""
+    batches ahead (:func:`device_prefetch`; a
+    :class:`~titanet_torch.data.device_corpus.DeviceBatch` is gathered on
+    the card, its waveform never crossing PCIe). Yields ((wav, lengths,
+    speakers) device tensors, host Batch or DeviceBatch)."""
     for t, batch in device_prefetch(loader, device=device, size=depth):
         yield (t["waveform"], t["lengths"], t["speaker_ids"]), batch
 
@@ -279,6 +285,7 @@ def training_loop(
     val_loader: Optional[DataLoader] = None,
     val_every: Optional[int] = None,
     figures_path: Optional[str] = None,
+    reduction_method: str = "svd",
     checkpoints_frequency: Optional[int] = 25,
     resume: bool = False,
     track_best: str = "val/avg_loss",  # save checkpoint "0" whenever this improves
@@ -295,17 +302,30 @@ def training_loop(
     mindcf_c_miss: float = 1.0,
 ) -> TrainState:
     """Full training loop (reference training_loop, src/learn.py:204-310)
-    with resume."""
-    if figures_path:
-        raise NotImplementedError(
-            "embedding figures (figures.enabled) are not ported to titanet_torch "
-            "(ROADMAP Queue 1 item 8, utils/viz.py)"
-        )
+    with resume. ``figures_path`` turns on the per-epoch embedding figures
+    (``<figures_path>/<run_name>/epoch_<n>_{train,val}.png``, projected by
+    ``reduction_method``)."""
     console = console or ConsoleLogger(enabled=False)
     jsonl = jsonl or JsonlLogger(None)
     wandb = wandb or WandbLogger(enabled=False)
     tb = tb or TensorBoardLogger(None)
     run_ckpt_path = os.path.join(checkpoints_path, run_name)
+    figures_dir = os.path.join(figures_path, run_name) if figures_path else None
+    if figures_dir:
+        os.makedirs(figures_dir, exist_ok=True)
+
+    def draw(embeddings, targets, split: str, epoch: int) -> None:
+        if embeddings is None:
+            return
+        from titanet_torch.utils.viz import visualize_embeddings
+
+        path = os.path.join(figures_dir, f"epoch_{epoch}_{split}.png")
+        # visualize_embeddings returns None (and writes nothing) without matplotlib
+        if visualize_embeddings(embeddings, targets, reduction_method=reduction_method, save=path):
+            # the reference pushes each epoch's embedding figure into the
+            # W&B run (src/learn.py:401-406)
+            wandb.log_image(f"{split}/embeddings", path, step=epoch)
+            tb.log_image(f"{split}/embeddings", path, step=epoch)
 
     start_epoch = 0
     if resume:
@@ -320,12 +340,15 @@ def training_loop(
     vals_since_best = 0
     epoch = start_epoch
     for epoch in range(start_epoch + 1, epochs + 1):
-        state, metrics, _ = train_one_epoch(
+        state, metrics, train_collected = train_one_epoch(
             epoch, epochs, state, train_loader,
             frontend=frontend, augment=augment, renorm_head=renorm_head, ema_decay=ema_decay,
             margin_warmup_steps=margin_warmup_steps, teacher=teacher, console=console,
+            collect_embeddings=figures_dir is not None,
         )
         console.log_epoch("train", epoch, epochs, metrics)
+        if figures_dir is not None:
+            draw(*train_collected, "train", epoch)
         jsonl.log(metrics, step=epoch)
         wandb.log(metrics, step=epoch)
         tb.log(metrics, step=epoch)
@@ -338,10 +361,12 @@ def training_loop(
             epoch % val_every == 0 or epoch == 1 or epoch == epochs
         ):
             # with weight EMA on, validation scores the EMA weights
-            val_metrics, _ = evaluate(
+            val_metrics, val_collected = evaluate(
                 epoch, epochs, ema_eval_state(state), val_loader, frontend=frontend,
-                console=console,
+                console=console, collect_embeddings=figures_dir is not None,
             )
+            if figures_dir is not None:
+                draw(*val_collected, "val", epoch)
             jsonl.log(val_metrics, step=epoch)
             wandb.log(val_metrics, step=epoch)
             tb.log(val_metrics, step=epoch)

@@ -218,11 +218,6 @@ def evaluate_trials(
     from titanet_torch.train.calibration import min_cllr
     from titanet_torch.train.metrics import compute_eer, compute_mindcf
 
-    if det_out:
-        raise NotImplementedError(
-            "det_out (the DET-curve figure, utils/viz.py) is not ported to titanet_torch "
-            "yet (ROADMAP Queue 1 item 8, utilities)"
-        )
     labels, enrolls, tests = parse_trial_list(trial_path)
     embeddings = embed_trial_files(
         list(enrolls) + list(tests), embedder,
@@ -234,6 +229,10 @@ def evaluate_trials(
     )
     if scores_out:
         write_scores(scores_out, enrolls, tests, scores)
+    if det_out:
+        from titanet_torch.utils.viz import plot_det_curve
+
+        plot_det_curve((scores, labels), save=det_out)
     return {
         "eer": compute_eer(scores, labels),
         "mindcf": compute_mindcf(

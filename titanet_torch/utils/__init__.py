@@ -1,5 +1,7 @@
 """Utilities of the port: seeding, the loggers (:mod:`.logging`,
-:mod:`.tb_events`) and the JAX weight bridge (:mod:`.weights`)."""
+:mod:`.tb_events`), the JAX weight bridge (:mod:`.weights`), figures
+(:mod:`.viz`), profiling (:mod:`.profiling`), export (:mod:`.export`) and
+downloads (:mod:`.download`)."""
 
 import torch
 
