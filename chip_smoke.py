@@ -153,14 +153,35 @@ Phases (any failure exits non-zero and prints no result):
      --fig`` and ``trials --det-out``: the PNGs where matplotlib imports,
      else the JAX package's message and no file, the runs complete. Corpus
      fetching is host-only code and is not run on the card (no network).
+  17. data-parallel training (``titanet_torch.parallel``), TitaNet-S at full
+     width, bf16, CE, dropout 0.5, phase 13's corpus with [chunk],
+     ``TITANET_DW_BWD=pallas``: (a) two ranks on the one card (this script
+     with ``--ddp-rank``, gloo through the launcher contract), 32 rows each
+     of a global batch of 64, three SGD steps, against this process fed the
+     64 rows, cuDNN deterministic in every process: each step's loss, and
+     in an f32 run of the same steps each step's grad norm and the update
+     difference after step 1 and after 3 (relative to the largest update
+     entry), each limit below what a rank that never updates reads; the
+     ranks' parameters equal to the bit; inside each rank the four trainer kernels counted over the three
+     steps and held against their plain versions (the log-mel kernel on
+     every step's rows, the first step's pool forward and backward and all
+     51 ``dw_bwd`` launches replayed); the collectives of a step (count and
+     bytes, the gradient bucket equal to the parameter bytes) beside the JAX
+     dry run's; step ms of each rank and of the one process; (b) ``python -m
+     titanet_torch train`` under ``TITANET_COORDINATOR``/``NUM_PROCESSES=1``/
+     ``PROCESS_ID=0`` (NCCL, world size 1), one epoch host-fed and one with
+     ``generic.device_corpus``, each equal to the bit (metrics and
+     checkpoint) to the same epoch without the contract; model ms a step of
+     both.
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
 kernels, the pallas-route training step for the backward kernels, the
 fused serving call for the frames and mega-block kernels; rows 1-4 also
 ``zoo_trainer_launches``: each zoo family's launches in its phase-15
-trainer run, and ``device_corpus_trainer_launches``: phase 16's
-device-resident ``cli.train``), error
+trainer run, ``device_corpus_trainer_launches``: phase 16's
+device-resident ``cli.train``, and ``ddp_trainer_launches``: rank 0's
+three steps in phase 17), error
 vs its plain version, time, plain time, bound and library time, every number
 from this run, and ``timed_by``: ``"profiler"`` (device time of the
 kernel's launches), or ``"events"`` (CUDA events around its wrapper) where
@@ -498,7 +519,6 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str, label: str = "trainer") ->
 
     from titanet_torch import cli
     from titanet_torch.ops import frontend as tf
-    from titanet_torch.ops.conv import SamePadConv1d
     from titanet_torch.ops.kernels import dwconv
     from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
     from titanet_torch.train import loop
@@ -538,18 +558,7 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str, label: str = "trainer") ->
     _, _, state = cli._new_state(cfg, n_speakers, dev, len(loaders["train"]))
     kept = {"pool": [], "dw": []}
 
-    def on_dw(mod, args, out):
-        x = args[0].to(mod.dtype) if mod.dtype is not None else args[0]
-        if not out.requires_grad or mod.groups != x.shape[-1] or not dwconv.kernel_supports(x.shape[1], x.shape[-1], mod.kernel_size,
-                                                                    x.dtype):
-            return
-        rec = {"x": x.detach().contiguous().clone(), "w": mod.weight.detach().clone()}
-        kept["dw"].append(rec)
-        keep_grad(out, rec)
-
-    hooks = keep_pool_calls(state.model, kept["pool"])
-    hooks += [m.register_forward_hook(on_dw) for m in state.model.modules()
-              if isinstance(m, SamePadConv1d) and m.groups > 1]
+    hooks = keep_pool_calls(state.model, kept["pool"]) + keep_dw_calls(state.model, kept["dw"])
     (wav, lengths, speakers), batch = staged["train"][0]
     uniform = int(batch.lengths.min()) == wav.shape[1]
     dw_before = dwconv.dw_bwd.launches
@@ -569,9 +578,42 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str, label: str = "trainer") ->
     for rec, where in zip(kept["pool"], ("train step", "eval_step")):
         print(f"{label} kernels vs plain: {replay_pool(rec, where)} {tag}")
 
+    print(f"{label} kernels vs plain: {replay_dw(kept['dw'], 'the step')} {tag}")
+    os.environ.pop("TITANET_DW_BWD", None)
+
+
+def keep_dw_calls(model, kept: list) -> list:
+    """Forward hooks on every depthwise conv of ``model`` that append to
+    ``kept``, for each call whose backward the ``dw_bwd`` kernel takes, the
+    input and the weight (cloned) and the output's gradient. Returns the
+    hooks."""
+    from titanet_torch.ops.conv import SamePadConv1d
+    from titanet_torch.ops.kernels import dwconv
+
+    def on_dw(mod, args, out):
+        x = args[0].to(mod.dtype) if mod.dtype is not None else args[0]
+        if not out.requires_grad or mod.groups != x.shape[-1] or not dwconv.kernel_supports(
+                x.shape[1], x.shape[-1], mod.kernel_size, x.dtype):
+            return
+        rec = {"x": x.detach().contiguous().clone(), "w": mod.weight.detach().clone()}
+        kept.append(rec)
+        keep_grad(out, rec)
+
+    return [m.register_forward_hook(on_dw) for m in model.modules()
+            if isinstance(m, SamePadConv1d) and m.groups > 1]
+
+
+def replay_dw(kept: list, where: str) -> str:
+    """Every ``dw_bwd`` launch kept by :func:`keep_dw_calls` replayed on its
+    operands against the plain version (phase 7's 3e-2 of each gradient's
+    largest entry). Raises on a miss; returns the line to print."""
+    import torch
+
+    from titanet_torch.ops.kernels import dwconv
+
     worst = {"dx": 0.0, "dk": 0.0, "db": 0.0}
     shapes = set()
-    for rec in kept["dw"]:
+    for rec in kept:
         x, w = rec["x"], rec["w"]
         dy = rec["g"].to(x.dtype).contiguous()
         got, ref = dwconv.dw_bwd(x, w, dy), dwconv.dw_bwd_plain(x, w, dy)
@@ -579,14 +621,13 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str, label: str = "trainer") ->
         for gname, a_, r in zip(("dx", "dk", "db"), got, ref):
             err = (a_.float() - r.float()).abs().max().item() / r.float().abs().max().item()
             if not torch.isfinite(a_).all() or err > 3e-2:
-                raise AssertionError(f"trainer dw_bwd {tuple(x.shape)} K={w.shape[-1]} {x.dtype}: {gname} "
+                raise AssertionError(f"dw_bwd ({where}) {tuple(x.shape)} K={w.shape[-1]} {x.dtype}: {gname} "
                                      f"error / max {err} > 3e-2")
             worst[gname] = max(worst[gname], err)
         shapes.add((tuple(x.shape), w.shape[-1]))
-    print(f"{label} kernels vs plain: dw_bwd, every one of the step's {len(kept['dw'])} launches "
-          f"({', '.join(f'{s} K={k}' for s, k in sorted(shapes))}, {kept['dw'][0]['x'].dtype}): worst error / "
-          f"max {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})} (tol 3e-2) {tag}")
-    os.environ.pop("TITANET_DW_BWD", None)
+    return (f"dw_bwd, every one of {where}'s {len(kept)} launches "
+            f"({', '.join(f'{s} K={k}' for s, k in sorted(shapes))}, {kept[0]['x'].dtype}): worst error / "
+            f"max {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})} (tol 3e-2)")
 
 
 # phase 13's host-fed run A (pallas route): steps, utterances, whole-loop
@@ -1805,6 +1846,380 @@ def utilities_phase(root: str, n_speakers: int, tag: str) -> dict:
     return counts
 
 
+# Data-parallel phase (17): TitaNet-S at full width (17 mega-blocks, hidden
+# 256, epilog 1536, embedding 192), bf16, CE, on phase 13's corpus with
+# [chunk] (SpecAugment off), TITANET_DW_BWD=pallas. (a) two ranks on the one
+# card over gloo (NCCL refuses two ranks on one device), 32 rows each of a
+# global batch of 64, DDP_STEPS train steps with dropout 0.5, against this
+# process fed the 64 rows; (b) the CLI under the launcher contract at world
+# size 1 over NCCL, one epoch host-fed and one with generic.device_corpus,
+# each against the same epoch without the contract.
+DDP_RANKS, DDP_LOCAL_B, DDP_STEPS = 2, 32, 3
+DDP_LR = 1e-2  # SGD: a step's update is lr x the gradient, so updates compare gradients
+# the JAX package's dry run of one train step at its own shape (n_mega_blocks
+# 2, hidden 32, 2-8 devices; MULTICHIP_r05.json)
+JAX_DRYRUN = {"all_reduce": 46, "bytes": 99_460, "param_bytes": 88_704}
+# (a)'s limits against the one process. Every process runs cuDNN's
+# deterministic algorithms, so the one process equals itself to the bit
+# (held). Two ranks still sum in another order and with other algorithms
+# (32 rows, not 64), and this model's gradient is a sum that cancels deeply
+# at its start: on an NVIDIA H100 80GB HBM3 at 700 W, with dropout 0, the
+# one process fed the same 64 rows with the halves of each batch swapped
+# differs from itself by 1.25e-2 of the largest f32 update entry after one
+# step and by 0.63 after three (the phase prints this spread each run); the
+# ranks read 8.9e-3 and 0.33. So the f32 run (the same steps; the pool
+# kernel is bf16-only) holds step 1 tightly and steps 2-3 loosely:
+# the loss (relative), the grad norm (relative, after the all-reduce) and
+# the update difference over the largest update entry, each at about four
+# to ten times that measurement, and the phase checks that every limit of
+# an update-dependent reading lies below what a rank that never applied
+# its update reads (the one process at learning rate 0). In bf16, the
+# kernels' run, every activation is rounded to 8 bits and the gradients at
+# this start are mostly rounding, so only the losses are held.
+DDP_F32_LIMITS = {"loss_step1": 1e-5, "grad_norm_step1": 2e-3, "update_step1": 5e-2,
+                  "loss_later": 2e-3, "grad_norm_later": 1e-2, "update_all": 0.6}
+DDP_BF16_LOSS_RTOL = 1e-2
+
+
+def ddp_config(root: str, run: str, batch_size: int = TRAIN_BATCH, device_corpus: bool = False):
+    """Phase 17's trainer config: phase 13's with [chunk], SGD, one epoch."""
+    from titanet_torch.config import Config
+
+    d = trainer_config(root, run, 1, ("chunk",)).to_dict()
+    d["training"]["optimizer"].update(type="sgd", start_lr=DDP_LR)
+    d["training"]["batch_size"] = batch_size
+    d["titanet"]["dropout"] = 0.5
+    d["generic"]["device_corpus"] = device_corpus
+    return Config.from_dict(d)
+
+
+def ddp_steps(work: str, mesh=None, dtype: str = "bfloat16", lr=None, dropout=None, swap=False) -> dict:
+    """DDP_STEPS train steps of phase 17 (a) on the batches in ``work``:
+    under ``mesh`` this rank's rows, else the whole global batch (with
+    ``swap``, its two halves swapped), with the model in ``dtype`` (SGD at
+    ``lr`` and ``dropout`` in place of the config's when given). The kernel counts are set to 0 just before the
+    steps and read just after; in bf16 the first step runs with hooks that
+    keep what the pool and depthwise kernels were given, and after the
+    steps each kept launch and the log-mel kernel of each step are
+    replayed against their plain versions. Returns the losses, step
+    times, counts, collectives, checks and the parameters before and
+    after."""
+    import numpy as np
+    import torch
+
+    from titanet_torch import cli
+    from titanet_torch.config import Config
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.conv import SamePadConv1d
+    from titanet_torch.ops.kernels import dwconv
+    from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
+    from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
+    from titanet_torch.parallel.distributed import collective_stats, reset_collective_stats
+    from titanet_torch.parallel.shard_map_step import replicate_state
+    from titanet_torch.train import state as ts
+
+    with open(os.path.join(work, "config.json")) as f:
+        meta = json.load(f)
+    meta["config"]["training"]["dtype"] = dtype
+    if lr is not None:
+        meta["config"]["training"]["optimizer"]["start_lr"] = lr
+    if dropout is not None:
+        meta["config"]["titanet"]["dropout"] = dropout
+    cfg = Config.from_dict(meta["config"])
+    data = np.load(os.path.join(work, "batches.npz"))
+    n = DDP_RANKS * DDP_LOCAL_B
+    rows = slice(None) if mesh is None else mesh.rows(n)
+    if swap:
+        rows = np.concatenate([np.arange(n // 2, n), np.arange(n // 2)])
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    frontend = cli._frontend(cfg)
+    _, _, state = cli._new_state(cfg, meta["n_speakers"], dev, DDP_STEPS)
+    if mesh is not None:
+        replicate_state(state, mesh)
+    before = [p.detach().clone() for p in state.params()]
+    names = [f"model.{n}" for n, _ in state.model.named_parameters()] + \
+        [f"head.{n}" for n, _ in state.head.named_parameters()]
+    batches = [tuple(torch.from_numpy(data[k][i][rows]).to(dev) for k in ("wav", "lengths", "speakers"))
+               for i in range(DDP_STEPS)]
+    counters = {"logmel": log_mel_fused, "pool_fwd": attentive_pool_fwd, "pool_bwd": attentive_pool_bwd,
+                "dw_bwd": dwconv.dw_bwd}
+    kept = {"pool": [], "dw": []}
+    hooks = keep_pool_calls(state.model, kept["pool"]) + keep_dw_calls(state.model, kept["dw"]) \
+        if dtype == "bfloat16" else []
+    losses, norms, step_ms, collectives, first = [], [], [], None, None
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    for i, (wav, lengths, speakers) in enumerate(batches):
+        if i == 1:
+            reset_collective_stats()
+        t0 = time.perf_counter()
+        state, m = ts.train_step(state, wav, lengths, speakers, frontend=frontend, mesh=mesh)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        if i == 0:
+            first = [p.detach().cpu() for p in state.params()]
+            for h in hooks:
+                h.remove()
+        if i == 1:
+            collectives = collective_stats()
+    counts = {k: c.launches for k, c in counters.items()}
+    after = [p.detach() for p in state.params()]
+    out = {"losses": losses, "grad_norms": norms, "step_ms": step_ms, "counts": counts,
+           "collectives": collectives, "checksum": sum(float(p.double().abs().sum()) for p in after),
+           "param_bytes": sum(p.numel() * p.element_size() for p in after),
+           "names": names, "before": [p.cpu() for p in before], "first": first,
+           "after": [p.cpu() for p in after]}
+    if dtype != "bfloat16":
+        return out
+    # the held kernels: the log-mel kernel on each step's operands, then the
+    # pool forward/backward and every dw_bwd launch of the first step
+    mel_err = 0.0
+    for wav, lengths, _ in batches:
+        args, kw = tf.log_mel_fused_operands(ts._dequantize_waveform(wav), frontend, lengths)
+        mel = log_mel_fused(*args, **kw)
+        err = (mel - log_mel_fused_plain(*args, n_frames=kw["n_frames"], hop=kw["hop"])).abs().max().item()
+        if not torch.isfinite(mel).all() or err > 1e-4:
+            raise AssertionError(f"data-parallel log-mel f32 {tuple(wav.shape)}: max abs err {err} > 1e-4")
+        mel_err = max(mel_err, err)
+    n_dw = sum(isinstance(m, SamePadConv1d) and m.groups > 1 for m in state.model.modules())
+    if len(kept["pool"]) != 1 or "g" not in kept["pool"][0] or len(kept["dw"]) != n_dw:
+        raise AssertionError(f"data-parallel step: kept {len(kept['pool'])} pool calls, {len(kept['dw'])} "
+                             "depthwise convs")
+    out["checks"] = [f"log-mel f32 (logmel_kernel) on the {DDP_STEPS} steps' rows, max abs err {mel_err:.3e} "
+                     "(atol 1e-4)", replay_pool(kept["pool"][0], "first step"),
+                     replay_dw(kept["dw"], "the first step")]
+    return out
+
+
+def ddp_rank_main(argv) -> int:
+    """A rank of phase 17 (a): ``python3 chip_smoke.py --ddp-rank <rank>
+    <port> <work dir>``. Joins the group through the launcher contract with
+    gloo (both ranks drive cuda:0) and saves :func:`ddp_steps`' results,
+    bf16 (the kernels' run), then f32."""
+    import torch
+
+    rank, port, work = int(argv[0]), argv[1], argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    os.environ.update(TITANET_COORDINATOR=f"127.0.0.1:{port}", TITANET_NUM_PROCESSES=str(DDP_RANKS),
+                      TITANET_PROCESS_ID=str(rank), TITANET_DW_BWD="pallas", TITANET_DIST_TIMEOUT="300")
+    from titanet_torch.parallel import make_mesh, maybe_initialize_distributed
+
+    if not maybe_initialize_distributed(verbose=False, backend="gloo"):
+        raise RuntimeError("the launcher contract did not start a group")
+    try:
+        mesh = make_mesh(DDP_RANKS)
+        torch.save({dt: ddp_steps(work, mesh, dt) for dt in ("bfloat16", "float32")},
+                   os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_processes(cmds, envs, timeout: float, what: str) -> list:
+    """Start every command at once and wait for all (``timeout`` s each);
+    kills them all on a timeout. Raises on a timeout or a non-zero exit;
+    returns their outputs."""
+    procs = [subprocess.Popen(c, env=e, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__))) for c, e in zip(cmds, envs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"{what}: a process did not finish within {timeout} s")
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: exit code {p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def parallel_phase(root: str, tag: str) -> dict:
+    """Phase 17; raises on any failed check. Returns the kernel launches of
+    rank 0's DDP_STEPS steps (``ddp_trainer_launches``)."""
+    import numpy as np
+    import torch
+
+    from titanet_torch import cli
+    from titanet_torch.parallel.distributed import free_port
+    from titanet_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "ddp")
+    os.makedirs(work, exist_ok=True)
+    # set-up: each rank's first DDP_STEPS batches of the round-robin sharded
+    # train loader (shard r of 2, 32 rows); the global batch of a step is
+    # rank 0's rows then rank 1's (with chunking the shards share one width)
+    cfg = ddp_config(root, "ddp", batch_size=DDP_LOCAL_B)
+    train_ds, val_ds, test_ds, n_speakers = cli._datasets(cfg, True)
+    parts = []
+    for r in range(DDP_RANKS):
+        loader = cli._loaders(cfg, train_ds, val_ds, test_ds, None, shard=(r, DDP_RANKS))[0]
+        loader.set_epoch(1)
+        it = iter(loader)
+        parts.append([next(it) for _ in range(DDP_STEPS)])
+    np.savez(os.path.join(work, "batches.npz"),
+             wav=np.stack([np.concatenate([p[i].waveform for p in parts]) for i in range(DDP_STEPS)]),
+             lengths=np.stack([np.concatenate([p[i].lengths for p in parts]) for i in range(DDP_STEPS)]),
+             speakers=np.stack([np.concatenate([p[i].speaker_ids for p in parts]) for i in range(DDP_STEPS)]))
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump({"config": cfg.to_dict(), "n_speakers": n_speakers}, f)
+
+    # (a) one process fed the 64 rows (twice in f32, and once at learning
+    # rate 0: what a rank that never applies its update reads; with dropout
+    # 0 once as fed and once with the halves of each batch swapped: the
+    # model's own rounding spread), then the two ranks on the same card;
+    # cuDNN deterministic in every process
+    os.environ["TITANET_DW_BWD"] = "pallas"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        refs = {dt: ddp_steps(work, dtype=dt) for dt in ("bfloat16", "float32")}
+        again = ddp_steps(work, dtype="float32")
+        frozen = ddp_steps(work, dtype="float32", lr=0.0)
+        unswapped, swapped = (ddp_steps(work, dtype="float32", dropout=0.0, swap=sw) for sw in (False, True))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        os.environ.pop("TITANET_DW_BWD", None)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_processes([[sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r), str(port), work]
+                   for r in range(DDP_RANKS)], [dict(os.environ)] * DDP_RANKS, 600, "data-parallel ranks")
+    ranks_wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(DDP_RANKS)]
+    got, ref = [r["bfloat16"] for r in ranks], refs["bfloat16"]
+    for r, g in enumerate(got):
+        for line in g["checks"]:
+            print(f"data-parallel rank {r} kernels vs plain: {line} {tag}")
+    expect = {"logmel": DDP_STEPS, "pool_fwd": DDP_STEPS, "pool_bwd": DDP_STEPS, "dw_bwd": 51 * DDP_STEPS}
+    for who, counts in [("one process", ref["counts"])] + [(f"rank {r}", g["counts"]) for r, g in enumerate(got)]:
+        if counts != expect:
+            raise AssertionError(f"data-parallel {who}: launches {counts}, expected {expect}")
+
+    def readings(a, one) -> dict:
+        """``a`` vs ``one``: relative loss and grad-norm differences at step
+        1 and the largest at steps 2..; the update difference over the
+        largest update entry after step 1 and after every step."""
+        rel = lambda k: [abs(x - y) / abs(y) for x, y in zip(a[k], one[k])]  # noqa: E731
+
+        def update(key):
+            diff = max(((x - x0) - (y - x0)).abs().max().item()
+                       for x, y, x0 in zip(a[key], one[key], one["before"]))
+            return diff / max((y - y0).abs().max().item() for y, y0 in zip(one[key], one["before"]))
+
+        loss, norm = rel("losses"), rel("grad_norms")
+        return {"loss_step1": loss[0], "grad_norm_step1": norm[0], "update_step1": update("first"),
+                "loss_later": max(loss[1:]), "grad_norm_later": max(norm[1:]), "update_all": update("after")}
+
+    for dt in ("bfloat16", "float32"):
+        a, b = ranks[0][dt], ranks[1][dt]
+        if a["checksum"] != b["checksum"] or any(not torch.equal(x, y) for x, y in zip(a["after"], b["after"])):
+            raise AssertionError(f"data-parallel {dt}: the ranks' parameters differ ({a['checksum']!r} vs "
+                                 f"{b['checksum']!r})")
+        if not all(torch.equal(x, y) for x, y in zip(a["before"], refs[dt]["before"])):
+            raise AssertionError(f"data-parallel {dt}: the ranks did not start from the one process's weights")
+    one = refs["float32"]
+    if again["losses"] != one["losses"] or not all(torch.equal(x, y) for x, y in zip(again["after"], one["after"])):
+        raise AssertionError("data-parallel (a): the one process differs from itself under cuDNN's "
+                             f"deterministic algorithms ({again['losses']} vs {one['losses']})")
+    f32, idle, spread = readings(ranks[0]["float32"], one), readings(frozen, one), readings(swapped, unswapped)
+    b_loss = max(abs(x - y) / abs(y) for x, y in zip(got[0]["losses"], ref["losses"]))
+    col = got[0]["collectives"]
+    sites = col["by_kind"]["batchnorm"]["count"]
+    med = lambda xs: statistics.median(xs[1:])  # noqa: E731  (the first step warms up)
+    fmt = lambda d: ", ".join(f"{k} {v:.3e}" for k, v in d.items())  # noqa: E731
+    print(f"data-parallel (a) 2 ranks x {DDP_LOCAL_B} rows on one card (gloo) vs one process x "
+          f"{DDP_RANKS * DDP_LOCAL_B} rows, TitaNet-S 17 blocks, dropout 0.5, SGD {DDP_LR}, {DDP_STEPS} steps, "
+          f"same start weights, cuDNN deterministic: bf16 losses ranks {got[0]['losses']} / {got[1]['losses']} "
+          f"vs one process {ref['losses']} (largest relative difference {b_loss:.3e}, limit "
+          f"{DDP_BF16_LOSS_RTOL}); rank checksums {got[0]['checksum']!r} and {got[1]['checksum']!r} (equal "
+          f"bits) {tag}")
+    print(f"data-parallel (a) f32, the same steps (the pool kernel is bf16-only): losses ranks "
+          f"{ranks[0]['float32']['losses']} vs one process {one['losses']}; grad norms "
+          f"{ranks[0]['float32']['grad_norms']} vs {one['grad_norms']}; the ranks read {fmt(f32)}; limits "
+          f"{fmt(DDP_F32_LIMITS)}; a rank that never updates (the one process at learning rate 0) reads "
+          f"{fmt(idle)}; the one process with dropout 0 fed each batch with its halves swapped vs as fed (the model's "
+          f"rounding spread) reads {fmt(spread)}; the one process run again: equal bits; rank checksums equal "
+          f"bits {tag}")
+    print(f"data-parallel (a) collectives a step (rank 0): {col['count']} all-reduces, {col['bytes']} B "
+          f"({sites} BatchNorm sites: {sites} forward + {col['by_kind']['batchnorm_backward']['count']} "
+          f"backward, {col['by_kind']['batchnorm']['bytes'] + col['by_kind']['batchnorm_backward']['bytes']} B; "
+          f"gradient bucket {col['by_kind']['gradients']['count']} x {col['by_kind']['gradients']['bytes']} B = "
+          f"the {got[0]['param_bytes']} parameter bytes; loss {col['by_kind']['loss']['count']}) beside the JAX "
+          f"dry run at its own shape (n_mega_blocks 2, hidden 32: {JAX_DRYRUN['all_reduce']} all-reduces, "
+          f"{JAX_DRYRUN['bytes']} B, parameters {JAX_DRYRUN['param_bytes']} B) {tag}")
+    print(f"data-parallel (a) bf16 step ms (median of steps 2-{DDP_STEPS}): rank 0 {med(got[0]['step_ms']):.1f}, "
+          f"rank 1 {med(got[1]['step_ms']):.1f} (two ranks sharing the card, gloo through the host) vs one "
+          f"process {med(ref['step_ms']):.1f} on the 64 rows; ranks' wall {ranks_wall:.1f} s with start-up {tag}")
+    if col["by_kind"]["gradients"]["bytes"] != got[0]["param_bytes"]:
+        raise AssertionError(f"gradient bucket {col['by_kind']['gradients']} vs {got[0]['param_bytes']} B")
+    # a limit that a rank which never updates would meet holds nothing (the
+    # step-1 loss and grad norm come before any update: they hold the
+    # gradient, and such a rank reads 0 there)
+    blind = [k for k in ("update_step1", "loss_later", "grad_norm_later", "update_all")
+             if DDP_F32_LIMITS[k] >= idle[k]]
+    if blind:
+        raise AssertionError(f"data-parallel (a): the limits {blind} would pass a rank that never updates "
+                             f"({fmt(idle)})")
+    over = [k for k, v in f32.items() if not v <= DDP_F32_LIMITS[k]]
+    if over or not b_loss <= DDP_BF16_LOSS_RTOL:
+        raise AssertionError(f"data-parallel (a): the ranks' steps differ from the one process's beyond the "
+                             f"limits (f32 {over}, bf16 loss {b_loss:.3e})")
+
+    # (b) the CLI under the launcher contract (world size 1, NCCL) vs without
+    runs = {"host": ddp_config(root, "cli-host"), "dc": ddp_config(root, "cli-dc", device_corpus=True)}
+    results = {}
+    for contract in (True, False):
+        paths = []
+        for kind, c in runs.items():
+            d = c.to_dict()
+            d["training"]["run_name"] = f"{d['training']['run_name']}-{'contract' if contract else 'plain'}"
+            paths.append(os.path.join(work, d["training"]["run_name"] + ".json"))
+            with open(paths[-1], "w") as f:
+                json.dump(d, f)
+        env = dict(os.environ, TITANET_DW_BWD="pallas")
+        if contract:
+            env.update(TITANET_COORDINATOR=f"127.0.0.1:{free_port()}", TITANET_NUM_PROCESSES="1",
+                       TITANET_PROCESS_ID="0")
+        # cuDNN's deterministic algorithms: a nondeterministic weight
+        # gradient would part two processes whatever the contract
+        code = ("import sys, torch; from titanet_torch import cli; torch.backends.cudnn.deterministic = True; "
+                "[cli.main(['train', '-p', p]) for p in sys.argv[1:]]")
+        t0 = time.perf_counter()
+        out = run_processes([[sys.executable, "-c", code, *paths]], [env], 600, "data-parallel CLI")[0]
+        results[contract] = time.perf_counter() - t0
+        if contract and "[distributed] rank 0/1 up (nccl)" not in out:
+            raise AssertionError(f"the launcher contract did not start an NCCL group:\n{out[-2000:]}")
+    lines = []
+    for kind, c in runs.items():
+        a, b = (os.path.join(root, f"{c.training.run_name}-{w}") for w in ("contract", "plain"))
+        ra, rb = read_jsonl(os.path.join(a, "metrics.jsonl")), read_jsonl(os.path.join(b, "metrics.jsonl"))
+        strip = lambda recs: [{k: v for k, v in r.items() if k != "ts" and "time" not in k} for r in recs]  # noqa: E731
+        ca, cb = ckpt.read_checkpoint(a, 1), ckpt.read_checkpoint(b, 1)
+        same = strip(ra) == strip(rb) and all(torch.equal(ca[p][k], cb[p][k]) for p in ("model", "head")
+                                              for k in cb[p])
+        if not same:
+            raise AssertionError(f"data-parallel (b) {kind}: the epoch under the launcher contract differs from "
+                                 f"the epoch without it: {strip(ra)} vs {strip(rb)}")
+        tr = [epoch_record(r, 1, "train/") for r in (ra, rb)]
+        steps = len(train_ds) // TRAIN_BATCH
+        lines.append(f"{kind}: identical bits (metrics and epoch-1 checkpoint), train/avg_loss "
+                     f"{tr[0]['train/avg_loss']:.4f}; model ms a step {tr[0]['train/total_model_time'] / steps * 1e3:.1f} "
+                     f"with the contract vs {tr[1]['train/total_model_time'] / steps * 1e3:.1f} without")
+    print(f"data-parallel (b) python -m titanet_torch train under TITANET_COORDINATOR/NUM_PROCESSES=1/"
+          f"PROCESS_ID=0 (NCCL, world size 1) vs without, one epoch of {len(train_ds) // TRAIN_BATCH} steps: "
+          f"{'; '.join(lines)}; process wall {results[True]:.1f} s vs {results[False]:.1f} s {tag}")
+    print(f"data-parallel phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
+    return got[0]["counts"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2414,6 +2829,9 @@ def main() -> int:
 
         # 16. the device-resident corpus and the utilities, on phase 13's corpus and run A
         dc_launches = utilities_phase(root, n_speakers, tag)
+
+        # 17. data-parallel training: two ranks on the card, the CLI under the launcher contract
+        ddp_launches = parallel_phase(root, tag)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2441,6 +2859,7 @@ def main() -> int:
             "library_ms": r.get("library_ms"), "timed_by": r.get("timed_by", "events"),
             "zoo_trainer_launches": zoo,
             "device_corpus_trainer_launches": dc_launches[zoo_key] if zoo_key else None,
+            "ddp_trainer_launches": ddp_launches[zoo_key] if zoo_key else None,
         })
     print(json.dumps({"kernels": kernels}))
     print(name)
@@ -2451,4 +2870,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ddp_rank_main(sys.argv[2:]))
     sys.exit(main())

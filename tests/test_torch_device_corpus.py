@@ -145,8 +145,18 @@ def test_refusals_cache_and_the_size_limit():
         tdc.corpus_layout(lengths, np.arange(3), 400_000)
     offsets, size = tdc.corpus_layout(lengths, np.array([0, 2]), 400_000)
     assert offsets.tolist() == [0, -1, 2**30] and size == 2**30 + 5 + 400_000
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tdc.DeviceBatch(corpus, np.zeros(1, np.int64), np.ones(1, np.int32), np.zeros(1, np.int32), 8).gather_global()
+    # gather_global: this rank's rows at the width the ranks agree on (a
+    # mesh of one rank: its own width, or the one passed), as gather() gives
+    from titanet_torch.parallel import make_mesh
+
+    desc = tdc.DeviceBatch(corpus, np.array([0, 9000], np.int64), np.array([8000, 5], np.int32),
+                           np.array([1, 2], np.int32), 8000)
+    mesh = make_mesh(device="cpu")
+    for got, want in zip(desc.gather_global(mesh), desc.gather()):
+        assert torch.equal(got, want)
+    wide, lengths, speakers = desc.gather_global(mesh, t=9000)
+    assert torch.equal(wide[:, :8000], desc.gather()[0]) and not wide[:, 8000:].any()
+    assert lengths.tolist() == [8000, 5] and speakers.tolist() == [1, 2]
 
 
 def test_descriptor_fed_f32_train_step_matches_jax():

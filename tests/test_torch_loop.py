@@ -233,15 +233,6 @@ def test_cli_train_and_eval_end_to_end_on_the_cpu(tmp_path, monkeypatch):
     cli.main(["eval", "-p", student, "-c", str(tmp_path / "ck" / "student"), "-e", "1", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("override,item", [
-    ({"mesh": {"num_devices": 2}}, "item 6"),
-])
-def test_config_keys_that_are_not_ported_raise_with_their_roadmap_item(override, item):
-    cfg = Config.from_dict({"dataset": {"name": "synthetic"}, **override})
-    with pytest.raises(NotImplementedError, match=item):
-        cli.train(cfg, device="cpu")
-
-
 def test_entry_points_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

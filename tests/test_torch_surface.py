@@ -25,7 +25,7 @@ JAX_ONLY = {
     "train_xla_options": 2,
     "enable_compilation_cache": 2,
 }
-PACKAGES = ["", "data", "losses", "models", "ops", "train", "utils"]
+PACKAGES = ["", "data", "losses", "models", "ops", "parallel", "train", "utils"]
 
 
 def _exported(package: str):
@@ -52,14 +52,14 @@ def test_every_jax_export_imports_from_the_port(package):
 
 def test_jax_only_names_and_packages_are_the_listed_ones():
     """The JAX-only names are exactly those the JAX package exports and the
-    port lacks; the JAX-only packages are ``parallel`` (item 6) and
-    ``ops.pallas``, whose kernels live in ``titanet_torch.ops.kernels``."""
+    port lacks; the one JAX-only package is ``ops.pallas``, whose kernels
+    live in ``titanet_torch.ops.kernels``."""
     lacking = set()
     for package in PACKAGES:
         port = importlib.import_module("titanet_torch" + (f".{package}" if package else ""))
         lacking |= {n for n in _exported(package) if not hasattr(port, n)}
     assert lacking == set(JAX_ONLY)
-    for package in ("parallel", "ops.pallas"):
+    for package in ("ops.pallas",):
         assert os.path.isdir(os.path.join(REPO, "titanet_tpu", *package.split(".")))
         with pytest.raises(ImportError):
             importlib.import_module(f"titanet_torch.{package}")

@@ -28,14 +28,37 @@ the device and feeds the train, validation, test and cohort loaders from
 it (:func:`_attach_device_corpus`); ``augmentation.noise.download`` and
 ``augmentation.rir.download`` fetch MUSAN and the RIR corpus when their
 directory holds no wav; ``figures.enabled``, ``infer --fig`` and ``trials
---det-out`` draw their figures (:mod:`titanet_torch.utils.viz`). Not ported
-yet: ``mesh.num_devices`` above 1 raises with ROADMAP Queue 1 item 6
-(parallel).
+--det-out`` draw their figures (:mod:`titanet_torch.utils.viz`).
+
+``train`` is data-parallel over ranks, one device each
+(:mod:`titanet_torch.parallel`), with the JAX package's semantics:
+global-batch BatchNorm, the gradient mean over the global batch and random
+draws over it, so that P ranks compute the step of one process fed the
+concatenated batch. Two ways to start the ranks:
+
+- a launcher starts P processes with the JAX package's environment
+  contract (``TITANET_COORDINATOR``, ``TITANET_NUM_PROCESSES``,
+  ``TITANET_PROCESS_ID``) or under ``torchrun`` with
+  ``TITANET_DISTRIBUTED=auto``. :func:`main` joins the process group
+  before it touches a device (NCCL on the card, gloo with ``--device
+  cpu``); each rank reads its own share of the train batches
+  (``training.batch_size`` rows each: global batch ``P * batch_size``),
+  and with ``generic.device_corpus`` uploads only its static share of the
+  train corpus. ``mesh.num_devices``, if set, must equal P;
+- ``mesh.num_devices: N > 1`` in a process without a launcher starts N
+  local ranks (this process is rank 0; one card each, or the CPU). Each
+  reads the same batches and keeps its rows, so the global batch stays
+  ``training.batch_size``, as in the JAX package's one-process mesh;
+  ``mesh.num_devices`` left at None does so over every visible card (on
+  ``--device cuda``), as the JAX mesh takes every visible device.
+
+Only rank 0 writes checkpoints, metrics, event files and figures.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import os
 from pathlib import Path
@@ -69,6 +92,9 @@ from titanet_torch.models import (
 from titanet_torch.models.common import finish
 from titanet_torch.ops.augment import AugmentConfig
 from titanet_torch.ops.frontend import FrontendConfig
+from titanet_torch.parallel import distributed as pd
+from titanet_torch.parallel import make_mesh, maybe_initialize_distributed
+from titanet_torch.parallel.shard_map_step import replicate_state
 from titanet_torch.train import checkpoint as ckpt
 from titanet_torch.train.extractor import SpeakerEmbedder
 from titanet_torch.train.loop import run_verification, training_loop
@@ -81,10 +107,6 @@ from titanet_torch.utils import (
     chart_dependencies,
     set_seed,
 )
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to titanet_torch yet (ROADMAP Queue 1 item {item})")
-
 
 def _dtype(cfg: Config) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg.training.dtype == "bfloat16" else None
@@ -218,10 +240,24 @@ def _attach_device_corpus(cfg: Config, loaders, device) -> None:
     cohort share one) and switch every loader to descriptor batches
     (:mod:`titanet_torch.data.device_corpus`). Process-cached, so runs
     that rebuild an identical synthetic corpus reuse the uploaded tensor.
-    One process; the per-process corpus shard of a multi-process run waits
-    for ROADMAP Queue 1 item 6 (parallel)."""
+
+    A sharded train loader (the first, one rank of a launcher's P):
+    this rank decodes and uploads ONLY that loader's static utterance
+    share (``device_shard_root_indices``), so its device holds ~1/P of the
+    corpus; the validation, test and cohort loaders stay host-fed (they
+    run a few times a run; the train path is the per-step cost)."""
     from titanet_torch.data.device_corpus import DeviceCorpus, corpus_cache_key, resolve_base
 
+    if loaders[0].num_shards > 1:
+        train_loader = loaders[0]
+        root, _ = resolve_base(train_loader.dataset)
+        corpus = DeviceCorpus.build(
+            root, cfg.audio.sample_rate, device=device,
+            cache_key=corpus_cache_key(root) + ("shard", train_loader.shard_id, train_loader.num_shards),
+            root_indices=train_loader.device_shard_root_indices(),
+        )
+        train_loader.attach_device_corpus(corpus)
+        return
     corpora = {}
     for loader in loaders:
         root, _ = resolve_base(loader.dataset)
@@ -231,9 +267,29 @@ def _attach_device_corpus(cfg: Config, loaders, device) -> None:
         loader.attach_device_corpus(corpora[id(root)])
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.mesh.num_devices is not None and cfg.mesh.num_devices > 1:
-        raise _not_ported("training on more than one device (mesh.num_devices > 1)", "6 (parallel)")
+def _ranks_to_start(cfg: Config, dev: torch.device, world: int) -> int:
+    """How many local ranks ``train`` starts for ``mesh.num_devices``: 0
+    under a launcher (``world`` > 1: ``num_devices``, if set, must equal
+    it) or for one device. Without a launcher, ``num_devices: N > 1`` starts
+    N, which must divide ``training.batch_size`` and, on the card, be at
+    most the visible cards; None means every visible card, as the JAX
+    package's mesh takes every visible device (on ``cuda`` with no index;
+    the CPU and a named card are one device)."""
+    n = cfg.mesh.num_devices
+    if world > 1:
+        if n is not None and n != world:
+            raise ValueError(f"mesh.num_devices is {n} but the launcher started {world} ranks")
+        return 0
+    if n is None:
+        n = torch.cuda.device_count() if dev.type == "cuda" and dev.index is None else 1
+    if n <= 1:
+        return 0
+    if cfg.training.batch_size % n:
+        raise ValueError(f"training.batch_size {cfg.training.batch_size} does not split over "
+                         f"mesh.num_devices {n} ranks (remainder {cfg.training.batch_size % n})")
+    if dev.type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"mesh.num_devices is {n} but {torch.cuda.device_count()} CUDA devices are visible")
+    return n
 
 
 def _frontend(cfg: Config) -> FrontendConfig:
@@ -327,9 +383,11 @@ def _load_teacher(cfg: Config, n_speakers: int, device="cuda"):
     return model.eval(), cfg.distill.alpha
 
 
-def _loaders(cfg: Config, train_ds, val_ds, test_ds, noise_mix):
+def _loaders(cfg: Config, train_ds, val_ds, test_ds, noise_mix, shard=(0, 1)):
     """The loaders :func:`train` runs: ``(train, validation, test)``, the
-    last two None where ``cfg`` turns them off."""
+    last two None where ``cfg`` turns them off. ``shard``: ``(rank,
+    ranks)`` of the train loader's round-robin batch shares (the
+    validation and test loaders are never sharded)."""
     enabled = cfg.augmentation.enable or []
     chunk = ChunkConfig(
         max_length=cfg.augmentation.chunk.max_length,
@@ -364,7 +422,8 @@ def _loaders(cfg: Config, train_ds, val_ds, test_ds, noise_mix):
         chunk=chunk, speed=speed, reverb=reverb, noise=noise_mix, balanced=balanced,
         sample_rate=cfg.audio.sample_rate, seed=cfg.generic.seed,
         num_workers=max(cfg.generic.workers, 0),
-        transport_dtype=cfg.training.transport_dtype, **cache_kw,
+        transport_dtype=cfg.training.transport_dtype,
+        shard_id=shard[0], num_shards=shard[1], **cache_kw,
     )
     val_loader = DataLoader(
         val_ds, batch_size=cfg.validation.batch_size, shuffle=False,
@@ -380,15 +439,31 @@ def _loaders(cfg: Config, train_ds, val_ds, test_ds, noise_mix):
 
 
 def train(cfg: Config, device="cuda"):
-    """Train as ``cfg`` says; returns the final train state. Checkpoints
-    and ``metrics.jsonl`` go under ``training.checkpoints_path/<run>``."""
+    """Train as ``cfg`` says; returns the final train state (rank 0's when
+    ``mesh.num_devices`` starts ranks). Checkpoints and ``metrics.jsonl``
+    go under ``training.checkpoints_path/<run>``. Under a launcher's
+    process group this rank trains on its share of each global batch (the
+    module docstring)."""
     dev = resolve_device(device)
-    _check_ported(cfg)
+    n = _ranks_to_start(cfg, dev, pd.world()[1])
+    if n:
+        return _train_on_local_ranks(cfg, dev, n)
+    return _train(cfg, dev, rows_of_each_batch=False)
+
+
+def _train(cfg: Config, dev: torch.device, rows_of_each_batch: bool):
+    """:func:`train` in this process, on the mesh of the live process group
+    (size 1 without one): a sharded train loader (one batch a rank), or,
+    with ``rows_of_each_batch``, every rank's loader reads the same batches
+    and each rank keeps its rows."""
+    mesh = make_mesh(None, cfg.mesh.data_axis, device=dev)
+    dev = mesh.device
     set_seed(cfg.generic.seed)
     frontend = _frontend(cfg)
     train_ds, val_ds, test_ds, n_speakers = _datasets(cfg, cfg.test.enabled)
     noise_mix = _noise_mix_config(cfg)
-    train_loader, val_loader, test_loader = _loaders(cfg, train_ds, val_ds, test_ds, noise_mix)
+    shard = (0, 1) if rows_of_each_batch else (mesh.rank, mesh.size)
+    train_loader, val_loader, test_loader = _loaders(cfg, train_ds, val_ds, test_ds, noise_mix, shard)
     cohort_loader, cohort_topk = _cohort_loader(cfg, train_ds) if cfg.test.enabled else (None, None)
     if cfg.generic.device_corpus:
         _attach_device_corpus(
@@ -396,7 +471,9 @@ def train(cfg: Config, device="cuda"):
         )
 
     model, head, state = _new_state(cfg, n_speakers, dev, max(len(train_loader), 1))
-    if cfg.generic.chart_dependencies:
+    replicate_state(state, mesh)  # equal already (same seeds): rank 0's, to the bit
+    main_rank = mesh.rank == 0
+    if cfg.generic.chart_dependencies and main_rank:
         chart_dependencies(model, n_mels=cfg.audio.spectrogram.n_mels)
 
     run_name = cfg.training.run_name
@@ -407,16 +484,19 @@ def train(cfg: Config, device="cuda"):
             runs = sorted(d for d in os.listdir(base) if os.path.isdir(os.path.join(base, d)))
             run_name = runs[-1] if runs else None
     if run_name is None:
+        # another rank's clock-made name may differ by a second: it writes nothing
         run_name = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-    console = ConsoleLogger(enabled=cfg.generic.log_console)
-    jsonl = JsonlLogger(os.path.join(cfg.training.checkpoints_path, run_name, "metrics.jsonl"))
+    console = ConsoleLogger(enabled=cfg.generic.log_console and main_rank)
+    jsonl = JsonlLogger(os.path.join(cfg.training.checkpoints_path, run_name, "metrics.jsonl")
+                        if main_rank else None)
     wandb = WandbLogger(
-        enabled=cfg.wandb.enabled, api_key_file=cfg.wandb.api_key_file,
+        enabled=cfg.wandb.enabled and main_rank, api_key_file=cfg.wandb.api_key_file,
         project=cfg.wandb.project, entity=cfg.wandb.entity or None,
         name=run_name, config=cfg.to_dict(),
     )
     tb = TensorBoardLogger(
-        os.path.join(cfg.generic.tensorboard_dir, run_name) if cfg.generic.tensorboard_dir else None
+        os.path.join(cfg.generic.tensorboard_dir, run_name)
+        if cfg.generic.tensorboard_dir and main_rank else None
     )
     try:
         state = training_loop(
@@ -442,6 +522,7 @@ def train(cfg: Config, device="cuda"):
             mindcf_p_target=cfg.test.mindcf_p_target,
             mindcf_c_fa=cfg.test.mindcf_c_fa,
             mindcf_c_miss=cfg.test.mindcf_c_miss,
+            mesh=mesh,
         )
     finally:
         wandb.finish()
@@ -449,11 +530,73 @@ def train(cfg: Config, device="cuda"):
     return state
 
 
+@contextlib.contextmanager
+def _local_group(rank: int, world: int, port: int, dev: torch.device):
+    """Join the local ranks' group through the launcher contract (NCCL on
+    the card, gloo on the CPU), and leave it and the contract's variables
+    on the way out."""
+    import torch.distributed as dist
+
+    contract = dict(TITANET_COORDINATOR=f"127.0.0.1:{port}", TITANET_NUM_PROCESSES=str(world),
+                    TITANET_PROCESS_ID=str(rank))
+    saved = {k: os.environ.get(k) for k in contract}
+    os.environ.update(contract)
+    try:
+        maybe_initialize_distributed(verbose=False, backend="nccl" if dev.type == "cuda" else "gloo")
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _local_rank_main(rank: int, world: int, port: int, cfg_dict: dict, device: str) -> None:
+    """Entry of a local rank that :func:`_train_on_local_ranks` started."""
+    dev = torch.device(device)
+    with _local_group(rank, world, port, dev):
+        _train(Config.from_dict(cfg_dict), dev, rows_of_each_batch=True)
+
+
+def _train_on_local_ranks(cfg: Config, dev: torch.device, n: int):
+    """``mesh.num_devices: n`` without a launcher: start ranks 1..n-1 as
+    spawned processes, train as rank 0 here, and wait for the others
+    (within the group's timeout); a failed rank fails the run."""
+    import torch.multiprocessing as mp
+
+    port = pd.free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_local_rank_main, args=(r, n, port, cfg.to_dict(), dev.type))
+             for r in range(1, n)]
+    for p in procs:
+        p.start()
+    ok = False
+    try:
+        with _local_group(0, n, port, dev):
+            state = _train(cfg, dev, rows_of_each_batch=True)
+        ok = True
+    finally:
+        deadline = pd.timeout().total_seconds()
+        for p in procs:
+            p.join(timeout=deadline if ok else 5)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    failed = [r for r, p in enumerate(procs, 1) if p.exitcode != 0]
+    if failed:
+        raise RuntimeError(f"local ranks {failed} of {n} failed (exit codes "
+                           f"{[procs[r - 1].exitcode for r in failed]})")
+    return state
+
+
 def _rebuild_state(cfg: Config, n_speakers: int, device="cuda"):
     """(model, head, frontend, state) shaped as training built them, to
     restore a checkpoint into."""
     dev = resolve_device(device)
-    _check_ported(cfg)
     model, head, state = _new_state(cfg, n_speakers, dev)
     return model, head, _frontend(cfg), state
 
@@ -692,6 +835,8 @@ def main(argv: Optional[list] = None):
     for p in (p_train, p_eval, p_infer, p_trials, p_diar):
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    # a launcher's ranks join their process group before any device use
+    maybe_initialize_distributed(backend="gloo" if torch.device(args.device).type == "cpu" else "nccl")
     cfg = load_config(args.params)
     if args.cmd == "train":
         return train(cfg, device=args.device)

@@ -448,12 +448,18 @@ class AugmentationConfig:
 @_register
 @dataclass
 class MeshConfig:
-    """Data-parallel layout (the JAX package's device mesh). The port
-    trains on one device: ``num_devices`` above 1 raises (ROADMAP Queue 1
-    item 6)."""
+    """Data-parallel layout (the JAX package's device mesh; one rank a
+    device in the port, :mod:`titanet_torch.parallel`). ``data_axis`` names
+    the mesh axis (the ``axis_name`` of the ``shard_map`` BatchNorm rule).
+    ``num_devices``: under a launcher's process group, None or its world
+    size; without one, ``N > 1`` makes ``train`` start N local ranks that
+    split each batch of ``training.batch_size`` rows (which N must divide;
+    at most the visible cards), 1 trains in this process, and None means
+    every visible card, as in the JAX package (one rank each on ``cuda``;
+    one process on the CPU or a named card)."""
 
     data_axis: str = "data"
-    num_devices: Optional[int] = None  # None = all visible devices
+    num_devices: Optional[int] = None
 
 
 @_register

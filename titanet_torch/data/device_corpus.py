@@ -16,14 +16,15 @@ for bit, and its float32 batches within 2^-15 (one int16 step).
 
 Eligibility: host-side augmentations that transform the waveform (speed,
 reverb, noise mixing) refuse device mode; chunking and the in-step
-SpecAugment and noise keep it eligible. One process only: the multi-process
-assembly (:meth:`DeviceBatch.gather_global`) waits for ROADMAP Queue 1
-item 6 (parallel).
+SpecAugment and noise keep it eligible. In a data-parallel run each rank
+uploads only its train loader's static shard
+(``DataLoader.device_shard_root_indices``) and gathers its own rows of
+every step (:meth:`DeviceBatch.gather_global`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -203,12 +204,17 @@ class DeviceBatch:
             torch.from_numpy(np.asarray(self.speaker_ids, np.int32)).to(dev),
         )
 
-    def gather_global(self, sharding=None):
-        """Multi-process assembly of the global batch: not ported."""
-        raise NotImplementedError(
-            "DeviceBatch.gather_global (the multi-process device corpus) is not ported to "
-            "titanet_torch yet (ROADMAP Queue 1 item 6 (parallel))"
-        )
+    def gather_global(self, mesh, t: Optional[int] = None):
+        """This rank's rows of the step's global batch, gathered on its
+        device from its own static corpus shard; the waveform bytes never
+        visit the host. The global batch is the rank-ordered concatenation
+        of the ranks' descriptors (this one holds this rank's rows), all
+        gathered at one width: ``t``, or the widest rank's bucket (one
+        max-reduce over ``mesh``). ``(wav [B, t] int16, lengths,
+        speaker_ids)`` as :meth:`gather`."""
+        if t is None:
+            t = mesh.agree_max([self.t])[0]
+        return replace(self, t=int(t)).gather()
 
 
 def corpus_cache_key(root_dataset) -> Optional[tuple]:

@@ -166,7 +166,10 @@ class GE2EHead(nn.Module):
     centroids from one ``one_hot.T @ embeddings`` product, each sample's
     own-class centroid left-one-out in closed form (divided by the full
     class count, as the reference does). Returns the summed loss and no
-    predictions."""
+    predictions. The loss couples the rows of the batch (``couples_rows``):
+    a data-parallel step computes it on the gathered global batch."""
+
+    couples_rows = True
 
     def __init__(self, n_classes: int, embedding_size: int = 192, eps: float = 1e-8):
         super().__init__()

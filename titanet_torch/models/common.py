@@ -21,6 +21,17 @@ def reset_parameters(model: nn.Module, generator: Optional[torch.Generator] = No
             m.reset_parameters(generator)
 
 
+def set_axis_name(model: nn.Module, axis_name: Optional[str]) -> None:
+    """Give every BatchNorm of ``model`` the mesh axis of the ``shard_map``
+    statistics rule (``titanet_torch.ops.norm``; None: the global-batch
+    rule). The zoo constructors' ``axis_name`` lands here."""
+    from titanet_torch.ops.norm import BatchNorm
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.axis_name = axis_name
+
+
 def finish(model: nn.Module, device="cuda", generator: Optional[torch.Generator] = None) -> nn.Module:
     """``model`` with weights drawn from ``generator`` (default: a generator
     seeded with 0), in eval mode on ``device``."""

@@ -219,6 +219,7 @@ class MfaConformer(nn.Module):
         attention_hidden_size: int = 128,
         embedding_size: int = 192,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         self.embedding_size, self.dtype, self.num_blocks = embedding_size, dtype, num_blocks
@@ -234,6 +235,7 @@ class MfaConformer(nn.Module):
         self.pool_norm = BatchNorm(2 * width, dtype=dtype)
         self.linear = Dense(2 * width, embedding_size, dtype=dtype)
         self.linear_norm = BatchNorm(embedding_size, dtype=dtype)
+        common.set_axis_name(self, axis_name)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         common.reset_parameters(self, generator)
@@ -269,6 +271,7 @@ def get_conformer(
     dtype: Optional[torch.dtype] = None,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    axis_name: Optional[str] = None,
 ) -> MfaConformer:
     """Paper-scale defaults (~20.5M params): 6 blocks, dim 256, 4 heads, FF
     2048, conv kernel 15 (arXiv:2203.15249 §3.2); in eval mode on
@@ -276,6 +279,6 @@ def get_conformer(
     model = MfaConformer(
         n_mels=n_mels, num_blocks=num_blocks, dim=dim, num_heads=num_heads, ff_hidden=ff_hidden,
         conv_kernel=conv_kernel, dropout=dropout, attention_hidden_size=attention_hidden_size,
-        embedding_size=embedding_size, dtype=dtype,
+        embedding_size=embedding_size, dtype=dtype, axis_name=axis_name,
     )
     return common.finish(model, device, generator)

@@ -201,6 +201,7 @@ class EcapaTdnn(nn.Module):
         attention_hidden_size: int = 128,
         prolog_kernel_size: int = 5,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         self.embedding_size, self.dtype, self.n_layers = embedding_size, dtype, len(dilations)
@@ -215,6 +216,7 @@ class EcapaTdnn(nn.Module):
         self.pool_norm = BatchNorm(2 * mfa_channels, dtype=dtype)
         self.linear = Dense(2 * mfa_channels, embedding_size, dtype=dtype)
         self.linear_norm = BatchNorm(embedding_size, dtype=dtype)
+        common.set_axis_name(self, axis_name)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         common.reset_parameters(self, generator)
@@ -243,6 +245,7 @@ def get_ecapa(
     dtype: Optional[torch.dtype] = None,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    axis_name: Optional[str] = None,
 ) -> EcapaTdnn:
     """Preset constructor (channels 512 ~6.2M params, 1024 ~14.7M), in eval
     mode on ``device``, weights drawn from ``generator`` (default: seeded
@@ -253,5 +256,6 @@ def get_ecapa(
         embedding_size=embedding_size,
         attention_hidden_size=attention_hidden_size,
         dtype=dtype,
+        axis_name=axis_name,
     )
     return common.finish(model, device, generator)

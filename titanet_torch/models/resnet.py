@@ -113,6 +113,7 @@ class SpeakerResNet(nn.Module):
         embedding_size: int = 192,
         n_mels: int = 80,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         if depth not in RESNET_DEPTHS:
@@ -130,6 +131,7 @@ class SpeakerResNet(nn.Module):
                 self.blocks.append((name, stride))
                 width, freq = feat, -(-freq // stride)
         self.embedding = Dense(2 * freq * width, embedding_size, dtype=dtype)
+        common.set_axis_name(self, axis_name)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         common.reset_parameters(self, generator)
@@ -160,9 +162,10 @@ def get_resnet(
     dtype: Optional[torch.dtype] = None,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    axis_name: Optional[str] = None,
 ) -> SpeakerResNet:
     """Preset constructor (depth 34 / C=32 is the r-vector scale, ~6.3M
     params; depth 18 ~4.3M), in eval mode on ``device``, weights drawn from
     ``generator`` (default: seeded with 0)."""
-    model = SpeakerResNet(depth, base_channels, embedding_size, n_mels, dtype=dtype)
+    model = SpeakerResNet(depth, base_channels, embedding_size, n_mels, dtype=dtype, axis_name=axis_name)
     return common.finish(model, device, generator)

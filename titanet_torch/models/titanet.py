@@ -22,7 +22,10 @@ in), and dropout is active at the JAX package's sites: after each
 sub-block's relu and after each mega-block's ``relu(skip + y)``, none in
 the prolog or the epilog (4 sites a mega-block). Its draws come from the
 ``generator`` passed to :meth:`TitaNet.forward`. In eval mode dropout is
-the identity and BatchNorm uses its running statistics.
+the identity and BatchNorm uses its running statistics. ``axis_name``
+(every BatchNorm of the model) selects the JAX ``shard_map`` statistics
+rule under an active mesh (:mod:`titanet_torch.parallel`); without it a
+mesh gives global-batch statistics.
 
 When the model is bf16 and there is no mask, the epilog's BatchNorm apply
 and relu are folded into the fused pooling kernel, in both modes (in
@@ -59,11 +62,12 @@ class ConvBlock1d(nn.Module):
         depthwise: bool = False,
         dropout: float = 0.0,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         conv_cls = DepthwiseSeparableConv1d if depthwise else SamePadConv1d
         self.conv = conv_cls(in_features, features, kernel_size, dtype=dtype)
-        self.norm = BatchNorm(features, dtype=dtype)
+        self.norm = BatchNorm(features, dtype=dtype, axis_name=axis_name)
         self.dropout = FastDropout(dropout)
 
     def forward(self, x: torch.Tensor, mask=None, defer_apply: bool = False, generator=None):
@@ -91,6 +95,7 @@ class MegaBlock(nn.Module):
         se_reduction: int = 16,
         dropout: float = 0.5,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         self.n_sub_blocks = n_sub_blocks
@@ -98,11 +103,11 @@ class MegaBlock(nn.Module):
             self.add_module(
                 f"sub_block_{i}",
                 ConvBlock1d(features, features, kernel_size, depthwise=True,
-                            dropout=dropout, dtype=dtype),
+                            dropout=dropout, dtype=dtype, axis_name=axis_name),
             )
         self.se = SqueezeExcitation(features, se_reduction, dtype=dtype)
         self.skip_conv = SamePadConv1d(features, features, 1, dtype=dtype)
-        self.skip_norm = BatchNorm(features, dtype=dtype)
+        self.skip_norm = BatchNorm(features, dtype=dtype, axis_name=axis_name)
         self.dropout = FastDropout(dropout)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, generator=None) -> torch.Tensor:
@@ -130,17 +135,19 @@ class Encoder(nn.Module):
         se_reduction: int = 16,
         dropout: float = 0.5,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         self.n_mega_blocks = n_mega_blocks
-        self.prolog = ConvBlock1d(n_mels, hidden_size, prolog_kernel_size, dtype=dtype)
+        self.prolog = ConvBlock1d(n_mels, hidden_size, prolog_kernel_size, dtype=dtype, axis_name=axis_name)
         for i in range(n_mega_blocks):
             self.add_module(
                 f"mega_block_{i}",
                 MegaBlock(hidden_size, mega_block_kernel_size, n_sub_blocks, se_reduction,
-                          dropout, dtype),
+                          dropout, dtype, axis_name),
             )
-        self.epilog = ConvBlock1d(hidden_size, output_size, epilog_kernel_size, dtype=dtype)
+        self.epilog = ConvBlock1d(hidden_size, output_size, epilog_kernel_size, dtype=dtype,
+                                  axis_name=axis_name)
 
     def forward(self, x, mask=None, defer_epilog: bool = False, generator=None):
         x = self.prolog(x, mask=mask)
@@ -161,6 +168,7 @@ class Decoder(nn.Module):
         attention_hidden_size: int = 128,
         simple_pool: bool = False,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         self.simple_pool = simple_pool
@@ -168,9 +176,9 @@ class Decoder(nn.Module):
             self.pool = SimplePooling(channels, dtype=dtype)
         else:
             self.pool = AttentiveStatsPooling(channels, attention_hidden_size, dtype=dtype)
-            self.pool_norm = BatchNorm(2 * channels, dtype=dtype)
+            self.pool_norm = BatchNorm(2 * channels, dtype=dtype, axis_name=axis_name)
         self.linear = Dense(2 * channels, embedding_size, dtype=dtype)
-        self.linear_norm = BatchNorm(embedding_size, dtype=dtype)
+        self.linear_norm = BatchNorm(embedding_size, dtype=dtype, axis_name=axis_name)
 
     def forward(self, x, mask=None, prescale=None, preshift=None):
         if self.simple_pool:
@@ -202,6 +210,7 @@ class TitaNet(nn.Module):
         simple_pool: bool = False,
         dropout: float = 0.5,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         self.n_mega_blocks = n_mega_blocks
@@ -215,10 +224,10 @@ class TitaNet(nn.Module):
         self.encoder = Encoder(
             n_mels, n_mega_blocks, n_sub_blocks, encoder_hidden_size, encoder_output_size,
             mega_block_kernel_size, prolog_kernel_size, epilog_kernel_size, se_reduction,
-            dropout, dtype,
+            dropout, dtype, axis_name,
         )
         self.decoder = Decoder(
-            encoder_output_size, embedding_size, attention_hidden_size, simple_pool, dtype
+            encoder_output_size, embedding_size, attention_hidden_size, simple_pool, dtype, axis_name
         )
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -264,12 +273,14 @@ def get_titanet(
     dtype: Optional[torch.dtype] = None,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    axis_name: Optional[str] = None,
 ) -> TitaNet:
     """Size-preset constructor, in eval mode on ``device`` (``model.train()``
     selects the training forward). Weights are
     drawn from ``generator`` (default: a generator seeded with 0). If
     ``n_mega_blocks`` is None, picks the count whose parameter total is
-    closest to the paper target."""
+    closest to the paper target. ``axis_name``: the BatchNorm rule of the
+    ``shard_map`` step (:mod:`titanet_torch.parallel.shard_map_step`)."""
     size = model_size.lower()
     if size not in _SIZE_PRESETS:
         raise ValueError(f"Unsupported model size {model_size!r}")
@@ -287,6 +298,7 @@ def get_titanet(
         simple_pool=simple_pool,
         dropout=dropout,
         dtype=dtype,
+        axis_name=axis_name,
         **_SIZE_PRESETS[size],
     )
     return common.finish(model, device, generator)

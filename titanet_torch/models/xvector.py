@@ -56,6 +56,7 @@ class XVector(nn.Module):
         frame_out: int = 1500,
         embedding_size: int = 192,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         self.embedding_size, self.dtype = embedding_size, dtype
@@ -65,6 +66,7 @@ class XVector(nn.Module):
             self.add_module(name, ConvReluBn(width, feat, k, dil, dtype=dtype))
             width = feat
         self.segment6 = Dense(2 * frame_out, embedding_size, dtype=dtype)
+        common.set_axis_name(self, axis_name)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         common.reset_parameters(self, generator)
@@ -89,8 +91,9 @@ def get_xvector(
     dtype: Optional[torch.dtype] = None,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    axis_name: Optional[str] = None,
 ) -> XVector:
     """Preset constructor, in eval mode on ``device``, weights drawn from
     ``generator`` (default: seeded with 0)."""
-    model = XVector(n_mels, hidden_size, frame_out, embedding_size, dtype=dtype)
+    model = XVector(n_mels, hidden_size, frame_out, embedding_size, dtype=dtype, axis_name=axis_name)
     return common.finish(model, device, generator)

@@ -14,7 +14,9 @@ Batched rebuilds of the reference's per-example transforms
 - additive white or pink noise at a random SNR.
 
 Randomness comes from an explicit ``torch.Generator`` on the tensors'
-device, never from the global generator. The draws are not the JAX
+device, never from the global generator; under an active mesh every
+draw is made over the global batch and each rank keeps its rows
+(:func:`titanet_torch.parallel.mesh.draw_rows`). The draws are not the JAX
 package's (a ``jax.random`` key cannot be replayed in torch), so the random
 functions match the JAX ones in distribution; every deterministic piece
 (the stretch matrix, the sinc kernel, a mask at given uniforms, the
@@ -32,9 +34,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from titanet_torch.parallel.mesh import draw_rows
+
 
 def _uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return draw_rows(lambda s: torch.rand(s, generator=generator, device=device, dtype=torch.float32), shape)
 
 
 @contextlib.contextmanager
@@ -367,7 +371,7 @@ def add_noise(
     u = _uniform(generator, (b, 2), dev)
     gate = u[:, 0] < probability
     snr_db = u[:, 1] * (snr_max - snr_min) + snr_min
-    noise = torch.randn((b, t), generator=generator, device=dev, dtype=torch.float32)
+    noise = draw_rows(lambda s: torch.randn(s, generator=generator, device=dev, dtype=torch.float32), (b, t))
     if color == "pink":
         freqs = torch.fft.rfftfreq(t, device=dev)
         shape = torch.where(freqs > 0, 1.0 / torch.sqrt(torch.clamp(freqs, min=1e-12)), torch.zeros_like(freqs))

@@ -21,6 +21,24 @@ The running-statistics update is deferred, as in the JAX train step: a
 module in training mode publishes its batch moments in ``batch_moments``,
 and :func:`ema_update_batch_stats` folds every site's moments into its
 running statistics in one update after the backward.
+
+Under an active mesh of P > 1 ranks (:mod:`titanet_torch.parallel.mesh`)
+the training statistics are synchronized, by one of two rules:
+
+- global batch (the JAX package's GSPMD step): each rank's ``(count, mean,
+  M2)`` of its valid frames, packed in one tensor, are gathered from every
+  rank in ONE differentiable collective and combined with Chan's parallel
+  formula, so every rank normalizes with the masked mean and biased
+  variance of the concatenated batch and publishes the global mean and the
+  unbiased variance at the global count. The combination never forms
+  ``E[x^2] - mean^2``, which loses f32 digits where the mean is far from 0;
+- ``axis_name`` (the JAX ``shard_map`` step, ``titanet_tpu/ops/norm.py``):
+  the equal-weight mean over ranks of the local means and of ``var +
+  mean^2``, and ``count * P``, in one all-reduce.
+
+The collective's backward carries every rank's gradient of the statistics
+to the rows they came from. At P = 1 no collective is issued and the
+local code runs unchanged.
 """
 
 from __future__ import annotations
@@ -31,6 +49,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from titanet_torch.parallel import distributed as pd
+from titanet_torch.parallel.mesh import active_mesh, draw_rows
+
 
 class BatchNorm(nn.Module):
     def __init__(
@@ -38,10 +59,13 @@ class BatchNorm(nn.Module):
         num_features: int,
         epsilon: float = 1e-5,
         dtype: Optional[torch.dtype] = None,
+        axis_name: Optional[str] = None,
     ):
         super().__init__()
         self.epsilon = epsilon
         self.dtype = dtype
+        # the mesh axis of the shard_map rule (None: the global-batch rule)
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -57,27 +81,57 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def _batch_stats(self, x: torch.Tensor, mask: Optional[torch.Tensor]):
-        """Batch mean and biased variance (f32) over all axes but the last;
-        publishes (mean, unbiased variance) in ``batch_moments``."""
+        """Batch mean and biased variance (f32) over all axes but the last
+        (and, under an active mesh, over every rank's batch); publishes
+        (mean, unbiased variance) in ``batch_moments``."""
         axes = tuple(range(x.dim() - 1))
         xf = x.float()
-        if mask is not None:
-            if tuple(mask.shape) != tuple(x.shape[:-1]):
-                raise ValueError(
-                    f"mask must be {tuple(x.shape[:-1])}, got {tuple(mask.shape)}"
-                )
-            m = mask.to(torch.float32)[..., None]
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(dim=axes) / count
-            var = ((xf - mean) ** 2 * m).sum(dim=axes) / count
+        if mask is not None and tuple(mask.shape) != tuple(x.shape[:-1]):
+            raise ValueError(f"mask must be {tuple(x.shape[:-1])}, got {tuple(mask.shape)}")
+        m = None if mask is None else mask.to(torch.float32)[..., None]
+        mesh, global_batch = active_mesh()
+        if mesh is not None and self.axis_name is not None:
+            mean, var, count = self._pmean_stats(xf, m, axes, mesh)
+        elif mesh is not None and global_batch:
+            mean, var, count = self._global_stats(xf, m, axes, mesh)
         else:
-            count = float(x[..., 0].numel())
-            mean = xf.mean(dim=axes)
-            var = xf.var(dim=axes, unbiased=False)
+            mean, var, count = _local_stats(xf, m, axes)
         with torch.no_grad():
             denom = torch.clamp(torch.as_tensor(count, dtype=torch.float32) - 1.0, min=1.0)
             self.batch_moments = (mean.detach(), var.detach() * count / denom)
         return mean, var
+
+    def _pmean_stats(self, xf, m, axes, mesh):
+        """The ``shard_map`` rule of the JAX module, ``axis_name`` set."""
+        if self.axis_name != mesh.axis_name:
+            raise ValueError(f"BatchNorm axis_name {self.axis_name!r} is not the active mesh's "
+                             f"axis {mesh.axis_name!r}")
+        mean, var, count = _local_stats(xf, m, axes)
+        c = mean.shape[0]
+        both = pd.all_reduce(torch.cat([mean, var + mean * mean]), mesh.group, "batchnorm") / mesh.size
+        mean = both[:c]
+        return mean, both[c:] - mean * mean, count * mesh.size
+
+    @staticmethod
+    def _global_stats(xf, m, axes, mesh):
+        """The global-batch rule: Chan's combination of every rank's
+        ``(count, mean, M2)``, gathered in one collective."""
+        if m is not None:
+            n = m.sum()
+            mean = (xf * m).sum(dim=axes) / torch.clamp(n, min=1.0)
+            m2 = ((xf - mean) ** 2 * m).sum(dim=axes)
+        else:
+            n = torch.tensor(float(xf[..., 0].numel()), device=xf.device)
+            mean = xf.mean(dim=axes)
+            m2 = ((xf - mean) ** 2).sum(dim=axes)
+        c = mean.shape[0]
+        packed = torch.cat([n.reshape(1), mean, m2])[None]
+        g = pd.all_gather_rows(packed, mesh.rank, mesh.size, mesh.group, "batchnorm")  # [P, 1 + 2C]
+        ns, means, m2s = g[:, :1], g[:, 1:1 + c], g[:, 1 + c:]
+        count = torch.clamp(ns.sum(), min=1.0)
+        mean = (ns * means).sum(dim=0) / count
+        m2 = m2s.sum(dim=0) + (ns * (means - mean) ** 2).sum(dim=0)
+        return mean, m2 / count, count.detach()
 
     def forward(
         self,
@@ -101,6 +155,20 @@ class BatchNorm(nn.Module):
             b = bias - mean * a
             return x * a.to(dtype) + b.to(dtype)
         return ((x.float() - mean) * inv * scale + bias).to(dtype)
+
+
+def _local_stats(xf: torch.Tensor, m: Optional[torch.Tensor], axes):
+    """``(mean, biased variance, count)`` of this rank's rows (masked: of
+    the valid frames, count at least 1)."""
+    if m is not None:
+        count = torch.clamp(m.sum(), min=1.0)
+        mean = (xf * m).sum(dim=axes) / count
+        var = ((xf - mean) ** 2 * m).sum(dim=axes) / count
+    else:
+        count = float(xf[..., 0].numel())
+        mean = xf.mean(dim=axes)
+        var = xf.var(dim=axes, unbiased=False)
+    return mean, var, count
 
 
 @torch.no_grad()
@@ -130,7 +198,9 @@ class FastDropout(nn.Module):
     default generator when None). As in the JAX module, a keep probability
     that 8 bits represent exactly (0.5 for TitaNet) compares one random byte
     per element with ``keep * 256``; other rates compare a uniform f32.
-    Only the distribution matches the JAX package, not the draws.
+    Only the distribution matches the JAX package, not the draws. Under an
+    active mesh the draws are made over the global batch
+    (:func:`titanet_torch.parallel.mesh.draw_rows`).
     Identity in eval mode and at rate 0; zeros at rate >= 1.
     """
 
@@ -145,12 +215,12 @@ class FastDropout(nn.Module):
             return torch.zeros_like(x)
         keep_p = 1.0 - self.rate
         if keep_p * 256 == int(keep_p * 256):
-            bits = torch.randint(
-                0, 256, x.shape, generator=generator, device=x.device, dtype=torch.uint8
-            )
+            bits = draw_rows(lambda s: torch.randint(
+                0, 256, s, generator=generator, device=x.device, dtype=torch.uint8
+            ), x.shape)
             keep = bits < int(keep_p * 256)
         else:
-            keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
+            keep = draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device), x.shape) < keep_p
         return torch.where(keep, x * (1.0 / keep_p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -14,6 +14,11 @@ head's parameters and buffers (BatchNorm running statistics included), the
 optimizer state and its step count, the step, the weight EMA, and the
 dropout, SpecAugment and noise generators (CUDA generators too), so a
 resumed run continues as the straight run would.
+
+In a data-parallel run (a live process group) rank 0 writes, then every
+rank waits at a barrier, so that any rank may read the checkpoint as soon
+as :func:`save_checkpoint` returns; every rank restores from the same
+files.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from titanet_torch.parallel.distributed import world
 from titanet_torch.train.state import TrainState
 
 FILENAME = "state.pt"
@@ -89,14 +95,19 @@ def _copy_list(dst, src, what: str) -> None:
 
 
 def save_checkpoint(path: str, epoch: int, state: TrainState) -> None:
-    """Save the full train state under ``path/<epoch>``."""
-    final = os.path.join(os.path.abspath(path), str(int(epoch)))
-    tmp = f"{final}.tmp-{os.getpid()}"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    torch.save(state_dict(state), os.path.join(tmp, FILENAME))
-    shutil.rmtree(final, ignore_errors=True)
-    os.replace(tmp, final)
+    """Save the full train state under ``path/<epoch>`` (rank 0 writes, the
+    other ranks of a process group wait for it)."""
+    rank, size = world()
+    if rank == 0:
+        final = os.path.join(os.path.abspath(path), str(int(epoch)))
+        tmp = f"{final}.tmp-{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state_dict(state), os.path.join(tmp, FILENAME))
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+    if size > 1:
+        torch.distributed.barrier()
 
 
 def latest_epoch(path: str) -> Optional[int]:

@@ -17,10 +17,23 @@ mode yields descriptors whose windows are gathered on the card
 draws the train and validation embeddings
 (:func:`titanet_torch.utils.viz.visualize_embeddings`) to disk, W&B and
 TensorBoard.
+
+Data-parallel training (``mesh`` of P > 1 ranks, :mod:`titanet_torch.parallel`):
+each rank runs the train step on its share of the step's global batch.
+With a sharded train loader (``num_shards = P``, one process a rank
+started by a launcher) a rank's share is its own batch, padded to the
+width the ranks agree on; with an unsharded one (``mesh.num_devices``
+ranks started by the CLI) every rank reads the same batch and keeps its
+rows. The validation and test loaders are not sharded: every rank runs
+them whole with the same weights, as the JAX loop does. The epoch's
+classification counts are summed over the ranks before its one host read;
+the loss is already the global batch's. Only rank 0 writes files.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import math
 import os
@@ -29,8 +42,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from titanet_torch.data.loader import ChunkConfig, DataLoader, device_prefetch
+from titanet_torch.data.device_corpus import DeviceBatch
+from titanet_torch.data.loader import Batch, ChunkConfig, DataLoader, device_prefetch
 from titanet_torch.ops.frontend import FrontendConfig
+from titanet_torch.parallel.distributed import all_reduce_
 from titanet_torch.train import checkpoint as ckpt
 from titanet_torch.train.metrics import (
     all_pairs_scores_labels,
@@ -73,6 +88,66 @@ def _staged_batches(loader, device, depth: int = 2):
         yield (t["waveform"], t["lengths"], t["speaker_ids"]), batch
 
 
+def _train_batches(loader, device, mesh=None, depth: int = 2):
+    """:func:`_staged_batches` for the train step, with this rank's share of
+    each batch under a ``mesh`` (module docstring). Yields ((wav, lengths,
+    speakers) device tensors, host batch, uniform): ``uniform`` says that
+    every row of the GLOBAL batch fills the width, the loop's fast path (no
+    per-row reflect-edge fixup or frame mask, the JAX loop's rule)."""
+    flags = collections.deque()
+
+    def shares():
+        for batch in loader:
+            batch, uniform = _rank_share(batch, loader, mesh)
+            flags.append(uniform)
+            yield batch
+
+    for t, batch in device_prefetch(shares(), device=device, size=depth):
+        yield (t["waveform"], t["lengths"], t["speaker_ids"]), batch, flags.popleft()
+
+
+def _width(batch) -> int:
+    return batch.t if isinstance(batch, DeviceBatch) else batch.waveform.shape[1]
+
+
+def _rank_share(batch, loader, mesh):
+    """``(this rank's share of batch, uniform)``."""
+    if mesh is None or mesh.size == 1:
+        return batch, int(batch.lengths.min()) == _width(batch)
+    if loader.num_shards == 1:
+        # every rank read the same batch: keep this rank's rows
+        rows = mesh.rows(len(batch))
+        uniform = int(batch.lengths.min()) == _width(batch)
+        if isinstance(batch, DeviceBatch):
+            return dataclasses.replace(batch, starts=batch.starts[rows], lengths=batch.lengths[rows],
+                                       speaker_ids=batch.speaker_ids[rows]), uniform
+        return Batch(batch.waveform[rows], batch.lengths[rows], batch.speaker_ids[rows]), uniform
+    if loader.num_shards != mesh.size:
+        raise ValueError(f"the train loader has {loader.num_shards} shards for {mesh.size} ranks")
+    # one batch a rank: the widest rank's width and the shortest row of all
+    # (one max-reduce), the rows zero-padded to that width
+    width, neg_shortest = mesh.agree_max([_width(batch), -int(batch.lengths.min())])
+    if isinstance(batch, DeviceBatch):
+        batch = dataclasses.replace(batch, t=width)
+    elif width > batch.waveform.shape[1]:
+        wav = np.zeros((len(batch), width), batch.waveform.dtype)
+        wav[:, :batch.waveform.shape[1]] = batch.waveform
+        batch = Batch(wav, batch.lengths, batch.speaker_ids)
+    return batch, -neg_shortest == width
+
+
+def _sum_counts_over_ranks(acc, mesh) -> None:
+    """Sum the accumulator's classification counts over the ranks (one
+    all-reduce); the loss terms are already the global batch's."""
+    if mesh is None or mesh.size == 1:
+        return
+    names = ("correct", "n_examples", "tp", "pred_count", "true_count")
+    parts = [getattr(acc, n).reshape(-1) for n in names]
+    flat = all_reduce_(torch.cat(parts), mesh.group, kind="metrics")
+    for n, part in zip(names, flat.split([p.numel() for p in parts])):
+        setattr(acc, n, part.view_as(getattr(acc, n)))
+
+
 def _host_metrics(acc, prefix: str) -> Dict[str, float]:
     """One read of a device accumulator: classification metrics (when the
     head predicts) and the summed and mean loss."""
@@ -105,12 +180,14 @@ def train_one_epoch(
     console: Optional[ConsoleLogger] = None,
     collect_embeddings: bool = False,
     nan_check_every: int = 25,
+    mesh=None,
 ):
     """One training epoch with metrics accumulated on the device: the host
     reads the accumulator's non-finite flag every ``nan_check_every`` steps
     and the accumulator once at the end. Per-step reads happen only in the
     interactive paths (console step logging, embedding collection).
-    Returns ``(state, metrics, (embeddings or None, targets))``."""
+    Returns ``(state, metrics, (embeddings or None, targets))``; under a
+    ``mesh`` the embeddings are this rank's rows."""
     dev = _device_of(state)
     timer = StepTimer()
     all_targets, all_emb = [], []
@@ -124,15 +201,14 @@ def train_one_epoch(
         t_model, t_alpha = teacher
         distill_kw = dict(teacher_model=t_model, distill_alpha=t_alpha)
     timer.start("data")
-    for (wav, lengths, speakers), batch in _staged_batches(loader, dev):
+    for (wav, lengths, speakers), batch, uniform in _train_batches(loader, dev, mesh):
         timer.start("model")
         # Uniform-length fast path: a fully packed bucket needs no per-row
         # reflect-edge fixup or frame mask (the JAX loop's rule).
-        uniform = int(batch.lengths.min()) == wav.shape[1]
         state, metrics = train_step(
             state, wav, None if uniform else lengths, speakers,
             frontend=frontend, augment=augment, renorm_head=renorm_head,
-            ema_decay=ema_decay, margin_warmup_steps=margin_warmup_steps, **distill_kw,
+            ema_decay=ema_decay, margin_warmup_steps=margin_warmup_steps, mesh=mesh, **distill_kw,
         )
         acc = accumulate_metrics(acc, metrics["loss"], metrics["preds"], speakers)
         step += 1
@@ -150,6 +226,7 @@ def train_one_epoch(
         timer.start("data")
     timer.stop()
 
+    _sum_counts_over_ranks(acc, mesh)
     epoch_metrics, nonfinite = _host_metrics(acc, "train")
     if nonfinite:
         raise NonFiniteLossError(f"Loss became non-finite during epoch {epoch}")
@@ -300,17 +377,21 @@ def training_loop(
     mindcf_p_target: float = 0.01,
     mindcf_c_fa: float = 1.0,
     mindcf_c_miss: float = 1.0,
+    mesh=None,
 ) -> TrainState:
     """Full training loop (reference training_loop, src/learn.py:204-310)
     with resume. ``figures_path`` turns on the per-epoch embedding figures
     (``<figures_path>/<run_name>/epoch_<n>_{train,val}.png``, projected by
-    ``reduction_method``)."""
+    ``reduction_method``). ``mesh``: data-parallel training (module
+    docstring); the figures are then rank 0's, of its rows of each train
+    batch, and the loggers should be enabled on rank 0 only."""
     console = console or ConsoleLogger(enabled=False)
     jsonl = jsonl or JsonlLogger(None)
     wandb = wandb or WandbLogger(enabled=False)
     tb = tb or TensorBoardLogger(None)
     run_ckpt_path = os.path.join(checkpoints_path, run_name)
-    figures_dir = os.path.join(figures_path, run_name) if figures_path else None
+    main_rank = mesh is None or mesh.rank == 0
+    figures_dir = os.path.join(figures_path, run_name) if figures_path and main_rank else None
     if figures_dir:
         os.makedirs(figures_dir, exist_ok=True)
 
@@ -344,7 +425,7 @@ def training_loop(
             epoch, epochs, state, train_loader,
             frontend=frontend, augment=augment, renorm_head=renorm_head, ema_decay=ema_decay,
             margin_warmup_steps=margin_warmup_steps, teacher=teacher, console=console,
-            collect_embeddings=figures_dir is not None,
+            collect_embeddings=figures_dir is not None, mesh=mesh,
         )
         console.log_epoch("train", epoch, epochs, metrics)
         if figures_dir is not None:
@@ -374,6 +455,10 @@ def training_loop(
             # restore_latest) and early stopping
             value = val_metrics.get(track_best)
             if value is not None:
+                # every rank validates on its own; rank 0's value decides,
+                # so the ranks save (a barrier) and stop together
+                if mesh is not None:
+                    value = mesh.rank0_value(value)
                 if value < best_value:
                     best_value = value
                     vals_since_best = 0

@@ -16,12 +16,23 @@
 - :func:`make_optimizer`: Adam or SGD with optax's semantics (see
   :class:`Optimizer`).
 
+Under a ``mesh`` (:mod:`titanet_torch.parallel`) of P > 1 ranks the steps
+take this rank's rows of a global batch, the rank-ordered concatenation of
+equal local batches, and compute what one process fed that batch computes:
+BatchNorm over the global batch, every random draw over its shape, each
+rank keeping its rows (so every rank draws P times its share), the loss as
+its mean and the gradients averaged over the ranks in ONE bucketed
+all-reduce before the gradient norm, so that clipping and the update are
+the same on every rank. Every rank starts from the same weights and
+generator seeds. At P = 1 the steps run exactly as without a mesh.
+
 Unlike the JAX package the state is mutable: the step updates the model,
 head and optimizer state in place and returns the same state object.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from dataclasses import dataclass
@@ -37,6 +48,7 @@ from titanet_torch.models import l2_normalize
 from titanet_torch.ops.augment import AugmentConfig, add_noise, log_mel_specaugment
 from titanet_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from titanet_torch.ops.norm import ema_update_batch_stats
+from titanet_torch.parallel import distributed as pd
 
 
 def _dequantize_waveform(waveform: torch.Tensor) -> torch.Tensor:
@@ -340,6 +352,30 @@ def ema_eval_state(state: TrainState) -> TrainState:
                       noise_generator=state.noise_generator)
 
 
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def _mesh_active(mesh):
+    return mesh.active() if _sharded(mesh) else contextlib.nullcontext()
+
+
+def mean_over_ranks(tensors: List[torch.Tensor], mesh, kind: str = "gradients") -> List[torch.Tensor]:
+    """The mean over the ranks of ``mesh`` of each tensor, in one all-reduce
+    of a flat bucket a dtype (new tensors; counted under ``kind``)."""
+    out = list(tensors)
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    with torch.no_grad():
+        for idx in by_dtype.values():
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+            flat = pd.all_reduce_(flat, mesh.group, kind=kind).div_(mesh.size)
+            for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+                out[i] = part.view_as(tensors[i])
+    return out
+
+
 def _as_device_tensors(state: TrainState, waveform, lengths, speakers):
     dev = next(state.model.parameters()).device
     wav = _dequantize_waveform(torch.as_tensor(waveform, device=dev))
@@ -359,11 +395,36 @@ def loss_and_grads(
     margin_warmup_steps: Optional[int] = None,
     teacher_model: Optional[nn.Module] = None,
     distill_alpha: float = 0.5,
+    mesh=None,
 ):
     """The forward and backward of :func:`train_step` without the update:
     ``(loss, grads, embeddings, preds)`` with one gradient per parameter of
     ``state.params()`` (None where the loss does not reach it). The
-    BatchNorm sites publish their batch moments."""
+    BatchNorm sites publish their batch moments. Under a ``mesh`` of P > 1
+    ranks: the global batch's loss and gradient mean (zeros, not None,
+    where the loss does not reach a parameter), this rank's embeddings and
+    predictions."""
+    with _mesh_active(mesh):
+        loss, emb, preds = _forward(
+            state, waveform, lengths, speakers, frontend=frontend, augment=augment, masked=masked,
+            margin_warmup_steps=margin_warmup_steps, teacher_model=teacher_model,
+            distill_alpha=distill_alpha, mesh=mesh,
+        )
+    grads = list(torch.autograd.grad(loss, state.params(), allow_unused=True))
+    loss = loss.detach()
+    if _sharded(mesh):
+        grads = mean_over_ranks([torch.zeros_like(p) if g is None else g
+                                 for p, g in zip(state.params(), grads)], mesh)
+        loss = mean_over_ranks([loss], mesh, "loss")[0]
+    return loss, grads, emb, preds
+
+
+def _forward(state, waveform, lengths, speakers, *, frontend, augment, masked, margin_warmup_steps,
+             teacher_model, distill_alpha, mesh):
+    """Frontend, backbone and head of one training step: ``(loss of this
+    rank's rows, its unit-norm embeddings (detached), its predictions)``.
+    A head whose loss couples the rows (GE2E) sees the gathered global
+    batch, and every rank then holds the global loss."""
     wav, lens, spk = _as_device_tensors(state, waveform, lengths, speakers)
     aug = _as_augment_config(augment)
     with torch.no_grad():
@@ -385,15 +446,23 @@ def loss_and_grads(
     head_kw = {}
     if margin_warmup_steps is not None and margin_warmup_steps > 0:
         head_kw["margin_scale"] = min(max(state.step / float(margin_warmup_steps), 0.0), 1.0)
+    rows = slice(None)
+    if _sharded(mesh) and getattr(state.head, "couples_rows", False):
+        rows = slice(mesh.rank * emb.shape[0], (mesh.rank + 1) * emb.shape[0])
+        emb = pd.all_gather_rows(emb, mesh.rank, mesh.size, mesh.group, "head_rows")
+        spk = pd.all_gather_rows(spk, mesh.rank, mesh.size, mesh.group, "head_rows")
     norm_emb, preds, loss = state.head(emb, spk, **head_kw)
+    if rows != slice(None):
+        # every rank computed the global loss; the gradient average over
+        # the ranks then gives the global gradient
+        norm_emb, preds = norm_emb[rows], None if preds is None else preds[rows]
     if teacher_model is not None:
         teacher_model.eval()
         with torch.no_grad():
             t_emb = l2_normalize(teacher_model(mel, mask=model_mask).float())
         distill = torch.mean(1.0 - torch.sum(norm_emb.float() * t_emb, dim=-1))
         loss = (1.0 - distill_alpha) * loss + distill_alpha * distill
-    grads = torch.autograd.grad(loss, state.params(), allow_unused=True)
-    return loss.detach(), list(grads), norm_emb.detach(), preds
+    return loss, norm_emb.detach(), preds
 
 
 def train_step(
@@ -410,6 +479,7 @@ def train_step(
     margin_warmup_steps: Optional[int] = None,
     teacher_model: Optional[nn.Module] = None,
     distill_alpha: float = 0.5,
+    mesh=None,
 ):
     """One wav -> gradients -> update step. ``waveform [B, T]`` (float or
     int16 PCM), ``lengths [B]`` or None (all rows full length), ``speakers
@@ -420,11 +490,13 @@ def train_step(
     alpha*(1 - cos(student, teacher))`` on the same mel. ``augment`` (an
     AugmentConfig or the legacy 5-tuple) adds noise first, from
     ``state.noise_generator``, then computes the mel with SpecAugment from
-    ``state.aug_generator``."""
+    ``state.aug_generator``. ``mesh``: the data-parallel step (module
+    docstring); ``loss`` and ``grad_norm`` are then the global batch's,
+    the same on every rank."""
     loss, grads, emb, preds = loss_and_grads(
         state, waveform, lengths, speakers, frontend=frontend, augment=augment, masked=masked,
         margin_warmup_steps=margin_warmup_steps, teacher_model=teacher_model,
-        distill_alpha=distill_alpha,
+        distill_alpha=distill_alpha, mesh=mesh,
     )
     ema_update_batch_stats(state.model)
     params = state.params()
@@ -454,15 +526,19 @@ def eval_step(
     *,
     frontend: FrontendConfig,
     masked: bool = False,
+    mesh=None,
 ):
     """No-grad mirror of :func:`train_step` in eval mode: ``{"loss",
-    "preds", "embeddings"}``."""
+    "preds", "embeddings"}``. Under a ``mesh`` of P > 1 ranks the rows are
+    this rank's share of a global batch and ``loss`` is the global mean."""
     wav, lens, spk = _as_device_tensors(state, waveform, lengths, speakers)
     mel, mask = log_mel_spectrogram(wav, frontend, lengths=lens)
     state.model.eval()
     state.head.eval()
     emb = state.model(mel, mask=mask if masked else None)
     norm_emb, preds, loss = state.head(emb, spk)
+    if _sharded(mesh):
+        loss = mean_over_ranks([loss], mesh, "loss")[0]
     return {"loss": loss, "preds": preds, "embeddings": norm_emb}
 
 
