@@ -45,10 +45,14 @@ Phases (any failure exits non-zero and prints no result):
   10. mega-block kernel vs its plain version at B=128, T=301, S=3, (C, k) =
      (256, 3), (512, 7), (1024, 11), f32 (1e-4 of the largest entry) and
      bf16 (one bf16 ulp of it), biases of std 0.3 so the edge rows carry
-     real values; edge-row and interior errors apart; which design ran
-     (bf16 tensor-core with wgmma or mma.sync, f32 fp32-core); the unfused library route (the
-     port's ``MegaBlock`` sub-blocks in eval mode) timed beside; one ragged
-     bf16 case more at (256, 3): B=3, T=1000 (9 tiles, the last partial);
+     real values; edge-row and interior errors apart; two calls equal to
+     the bit; which design ran (bf16 tensor-core with wgmma or mma.sync,
+     f32 tensor-core 3xTF32 at C = 256 and 512, fp32-core at 1024); the
+     bound of the work each design does (3xTF32: three products at the
+     TF32 rate and the depthwise and epilogue passes at the FP32 rate)
+     beside the FP32-core bound; the unfused library route (the port's
+     ``MegaBlock`` sub-blocks in eval mode) timed beside; one ragged case
+     more at (256, 3) in bf16 and f32: B=3, T=1000 (the last tile partial);
   11. the fused serving path on TitaNet-S: wav -> ``log_mel_spectrogram_pallas``
      -> ``titanet_apply_fused`` -> ``l2_normalize``, bf16 and f32: launches
      {mel_frames: 1, megablock: 17}, finite unit-norm [128, 192], cosine vs
@@ -146,7 +150,10 @@ Phases (any failure exits non-zero and prints no result):
      B=8 x 3 s) with the default frontend and with ``use_pallas_fused``,
      each loaded from bytes: per-row cosine vs ``embed_step`` > 0.99999,
      and the fused log-mel kernel launched exactly once a call of the fused
-     artifact (none in the default one); (c) ``profiling.trace`` around
+     artifact (none in the default one); run A as trained (bf16) exported
+     with ``use_pallas_fused``: the graph holds the log-mel and pool-forward
+     operators, each kernel launched once a call, cosine drift vs
+     ``embed_step`` under 1e-5, ms a call; (c) ``profiling.trace`` around
      three ``embed_step`` calls (the trace names ``logmel_kernel``),
      ``StepProfiler`` over ten, ``device_memory_stats`` (0 < in use <= peak
      <= the card's memory); (d) an epoch with ``figures.enabled``, ``infer
@@ -202,7 +209,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # FP32 CUDA cores; bf16 tensor cores
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}  # FP32 CUDA cores; tensor cores
 B, SECONDS, SR = 128, 3, 16000
 # Least cosine of the fused serving path vs embed_step of the same model: the
 # fused kernel's edge rows (the first and last (S-1)*pad rows of every
@@ -212,9 +219,10 @@ B, SECONDS, SR = 128, 3, 16000
 # alike; the limits sit just under.
 FUSED_VS_EMBED_STEP_F32 = 0.99999
 FUSED_VS_EMBED_STEP_BF16 = 0.9999
-# Times of the FP32-core designs that the bf16 tensor-core kernels replaced,
-# at the same shapes (NVIDIA H100 80GB HBM3, 700 W), quoted in the phases'
-# lines beside this run's times and nowhere else: the mega-block kernel at
+# Times of the designs that this script's kernels replaced, at the same
+# shapes (NVIDIA H100 80GB HBM3, 700 W), quoted in the phases' lines beside
+# this run's times and nowhere else. The FP32-core designs of the bf16
+# routes before their tensor-core kernels: the mega-block kernel at
 # (C, k) = (256, 3), (512, 7), (1024, 11); the pool backward, fold on / off; the
 # pool forward, fold on.
 PREV_MS = {
@@ -228,6 +236,12 @@ PREV_MS = {
     # the fused log-mel's bf16 route on the FP32 cores (logmel_kernel),
     # before the tensor-core kernel (same card and shapes, CUDA events)
     ("logmel", "bf16"): 1.088,
+    # the f32 mega-block on the FP32 cores (megablock_kernel), before the
+    # 3xTF32 design, at (C, k) = (256, 3), (512, 7), (1024, 11) (same card
+    # and shapes, profiler device time); and the fused f32 serving call of
+    # phase 11 it ran in: median wall ms and device ms a call
+    ("megablock_f32", 256): 0.7166, ("megablock_f32", 512): 2.9906, ("megablock_f32", 1024): 27.2492,
+    ("fused_f32", "median"): 25.335, ("fused_f32", "device"): 24.273,
 }
 DW_KERNELS = ("dw_bwd_kernel", "dw_reduce_kernel")
 # the kernels of csrc/attn_pool.cu, both routes, forward and backward
@@ -1784,6 +1798,50 @@ def utilities_phase(root: str, n_speakers: int, tag: str) -> dict:
               f"({lo:.3f}-{hi:.3f}) {tag}")
         del served, out, ref
 
+    # (b') run A as trained (bf16) exported with the fused frontend: the
+    # graph holds the log-mel and pool-forward operators, each launched once
+    # a call, and equals embed_step of the same model (the same kernels)
+    cfg16 = trainer_config(root, "a-pallas", SERVE_EPOCHS, ("chunk", "specaugment", "noise"))
+    state16, frontend16, epoch16 = cli._restore_for_eval(cfg16, n_speakers, run, None, "cuda")
+    model16 = state16.model.eval()
+    if model16.dtype != torch.bfloat16:
+        raise AssertionError(f"export bf16: run A restored as {model16.dtype}")
+    fe = frontend16._replace(use_pallas_fused=True)
+    t0 = time.perf_counter()
+    blob = tx.export_titanet_embedder(model16, None, fe, batch_size=EXPORT_B, num_samples=EXPORT_SAMPLES)
+    export_s = time.perf_counter() - t0
+    program = torch.export.load(io.BytesIO(blob))
+    op_nodes = sorted(str(n.target) for n in program.graph.nodes
+                      if n.op == "call_function" and "titanet_torch" in str(n.target))
+    served = tx.load_embedder(blob)
+    with torch.no_grad():
+        out = served(wav8, len8)
+        mel_before, pool_before = log_mel_fused.launches, attentive_pool_fwd.launches
+        served(wav8, len8)
+        torch.cuda.synchronize()
+        per_call = {"logmel": log_mel_fused.launches - mel_before,
+                    "pool_fwd": attentive_pool_fwd.launches - pool_before}
+        names = traced_kernels(lambda: served(wav8, len8))
+    ref = embed_step(model16, wav8, len8, frontend=fe, device=dev)
+    cos = torch.nn.functional.cosine_similarity(out.float(), ref.float(), dim=-1)
+    drift = (1.0 - cos).max().item()
+    pool_kernels = [n for n in names if "tc_u_kernel" in n or "tc_stats_kernel" in n]
+    mel_kernels = [n for n in names if "logmel" in n]
+    if out.shape != (EXPORT_B, 192) or out.dtype != torch.bfloat16 or not torch.isfinite(out).all() \
+            or drift >= 1e-5:
+        raise AssertionError(f"export bf16: {out.dtype} {tuple(out.shape)}, cosine drift vs embed_step {drift}")
+    if per_call != {"logmel": 1, "pool_fwd": 1} or len(mel_kernels) != 1 or len(pool_kernels) != 2 \
+            or len(op_nodes) != 2:
+        raise AssertionError(f"export bf16: launches a call {per_call}, traced {mel_kernels + pool_kernels}, "
+                             f"operator nodes {op_nodes}")
+    med, lo, hi = median_ms(lambda: served(wav8, len8))
+    print(f"export bf16 (run A epoch {epoch16} as trained, bf16 TitaNet-S, B={EXPORT_B} x {EXPORT_SAMPLES}, "
+          f"use_pallas_fused=True): torch.export in {export_s:.2f} s, artifact {len(blob) / 1e6:.2f} MB; "
+          f"operator nodes {op_nodes}; wrapper launches a call {per_call}; traced kernels of the two "
+          f"{mel_kernels + pool_kernels}; cosine drift vs embed_step max {drift:.3e} (limit 1e-5); "
+          f"{len(names)} kernels a call; median {med:.3f} ms a call ({lo:.3f}-{hi:.3f}) {tag}")
+    del served, out, ref, program, model16, state16
+
     # (c) profiling
     logdir = os.path.join(root, "trace")
     with tp.trace(logdir):
@@ -2674,6 +2732,17 @@ def main() -> int:
 
     # 10. mega-block kernel vs plain; the unfused library route beside it
     n_sub = 3
+
+    def megablock_errors(out, ref, t_len, edge, dt):
+        """Per-row error, edge rows and interior apart, against the limit:
+        f32 1e-4 of the largest entry, bf16 one bf16 ulp of it."""
+        top = ref.float().abs().max().item()
+        tol = 1e-4 * top if dt == torch.float32 else 2.0 ** (np.floor(np.log2(top)) - 7)
+        per_row = (out.float() - ref.float()).abs().amax(dim=(0, 2))
+        e_edge = max(per_row[:edge].max().item(), per_row[t_len - edge:].max().item())
+        e_in = per_row[edge:t_len - edge].max().item()
+        return e_edge, e_in, tol, top
+
     for c_, k_ in ((256, 3), (512, 7), (1024, 11)):
         pad = (k_ - 1) // 2
         edge = (n_sub - 1) * pad
@@ -2685,16 +2754,16 @@ def main() -> int:
         pw_b = f32(rng.standard_normal((n_sub, c_)) * 0.3)
         bn = f32(np.stack([rng.uniform(0.5, 1.5, (n_sub, c_)), rng.standard_normal((n_sub, c_)) * 0.3], axis=1))
         for dt in (torch.float32, torch.bfloat16):
+            design = kernel_design(dt, c_)
             args = (x32.to(dt), dw_w, dw_b, pw32.to(dt), pw_b, bn)
             out, ref = fused_sub_blocks(*args, kernel_size=k_), fused_sub_blocks_plain(*args, kernel_size=k_)
+            again = fused_sub_blocks(*args, kernel_size=k_)
             torch.cuda.synchronize()
-            top = ref.float().abs().max().item()
-            tol = 1e-4 * top if dt == torch.float32 else 2.0 ** (np.floor(np.log2(top)) - 7)
-            per_row = (out.float() - ref.float()).abs().amax(dim=(0, 2))
-            e_edge = max(per_row[:edge].max().item(), per_row[t_frames - edge:].max().item())
-            e_in = per_row[edge:t_frames - edge].max().item()
+            e_edge, e_in, tol, top = megablock_errors(out, ref, t_frames, edge, dt)
             if not torch.isfinite(out).all() or max(e_edge, e_in) > tol:
                 raise AssertionError(f"megablock C={c_} k={k_} {dt}: error edge {e_edge}, interior {e_in} > {tol}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"megablock C={c_} k={k_} {dt}: two calls differ")
             unfused = MegaBlock(c_, k_, n_sub, dtype=None if dt == torch.float32 else dt).to(dev).eval()
 
             def library_route(x=args[0], mod=unfused):
@@ -2703,40 +2772,59 @@ def main() -> int:
                         x = getattr(mod, f"sub_block_{i}")(x)
                 return x
 
-            ops = 2 * B * t_frames * n_sub * (c_ * c_ + c_ * k_)
+            product_ops = 2 * B * t_frames * n_sub * c_ * c_
+            ops = product_ops + 2 * B * t_frames * n_sub * c_ * k_
             nbytes = 2 * args[0].numel() * args[0].element_size() + pw32.numel() * args[0].element_size() \
                 + 4 * (dw_w.numel() + dw_b.numel() + pw_b.numel() + bn.numel())
-            bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
+            fp32_core_ms, _ = bound_ms(nbytes, ops, "float32")
+            if "3xTF32" in design:
+                # the work this design does: three products on the TF32 tensor
+                # cores, the depthwise taps (2k + 1) and the epilogue (bias,
+                # scale, shift, relu) on the FP32 cores, one after the other
+                cuda_ops = B * t_frames * n_sub * c_ * (2 * k_ + 1 + 4)
+                t_ops = 3 * product_ops / PEAK_OPS["tf32"] + cuda_ops / PEAK_OPS["float32"]
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                bms, by = max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+                bound_note = (f"bound {bms:.4f} ms ({by}; 3 x {product_ops / 1e9:.2f} GFLOP at 495 TFLOP/s TF32 + "
+                              f"{cuda_ops / 1e9:.3f} GFLOP at 67 TFLOP/s), FP32-core bound {fp32_core_ms:.4f} ms")
+            else:
+                bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
+                bound_note = f"bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP)"
             iters = 20 if c_ == 256 else 5
             ms, timed_by = device_ms(lambda: fused_sub_blocks(*args, kernel_size=k_), names=("megablock",),
                                      iters=iters)
             pms = cuda_ms(lambda: fused_sub_blocks_plain(*args, kernel_size=k_), iters=3)
             ums, _ = device_ms(library_route, iters=iters)
             report[("megablock", c_, dt)] = dict(max_abs_err=max(e_edge, e_in), ms=ms, plain_ms=pms,
-                                                 bound_ms=bms, bound_by=by, timed_by=timed_by)
-            was = f"; fp32-core design: {PREV_MS['megablock', c_]} ms by events" if dt == torch.bfloat16 else ""
-            print(f"megablock C={c_} k={k_} {dt} ({kernel_design(dt, c_)}): max abs err first/last {edge} rows {e_edge:.3e}, interior "
-                  f"{e_in:.3e} (tol {tol:.3e}, largest entry {top:.3f}); kernel {ms:.4f} ms (device time, {timed_by}{was}), "
-                  f"plain {pms:.4f} ms, unfused library route {ums:.4f} ms (device time), bound {bms:.4f} ms ({by}; "
-                  f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) {tag}")
-            del args, out, ref, unfused
+                                                 bound_ms=bms, bound_by=by, timed_by=timed_by, design=design,
+                                                 fp32_core_bound_ms=fp32_core_ms, unfused_ms=ums)
+            if dt == torch.bfloat16:
+                was = f"; fp32-core design: {PREV_MS['megablock', c_]} ms by events"
+            elif "3xTF32" in design:
+                was = f"; replaced fp32-core design: {PREV_MS['megablock_f32', c_]} ms"
+            else:
+                was = f"; the fp32-core design kept (before: {PREV_MS['megablock_f32', c_]} ms)"
+            print(f"megablock C={c_} k={k_} {dt} ({design}): max abs err first/last {edge} rows {e_edge:.3e}, interior "
+                  f"{e_in:.3e} (tol {tol:.3e}, largest entry {top:.3f}; relative {max(e_edge, e_in) / top:.3e}); "
+                  f"two calls equal bits; kernel {ms:.4f} ms (device time, {timed_by}{was}), "
+                  f"plain {pms:.4f} ms, unfused library route {ums:.4f} ms (device time), {bound_note}, "
+                  f"{nbytes / 1e6:.1f} MB {tag}")
+            del args, out, again, ref, unfused
         if c_ == 256:
-            # ragged: 9 tiles of 124 rows, the last one of 8
+            # ragged: 9 tiles of 124 rows (bf16) and 14 of 76 (f32), the last one partial
             xr = torch.from_numpy(rng.standard_normal((3, 1000, c_)).astype(np.float32)).to(dev)
-            args = (xr.to(torch.bfloat16), dw_w, dw_b, pw32.to(torch.bfloat16), pw_b, bn)
-            out, ref = fused_sub_blocks(*args, kernel_size=k_), fused_sub_blocks_plain(*args, kernel_size=k_)
-            torch.cuda.synchronize()
-            top = ref.float().abs().max().item()
-            tol = 2.0 ** (np.floor(np.log2(top)) - 7)
-            per_row = (out.float() - ref.float()).abs().amax(dim=(0, 2))
-            e_edge = max(per_row[:edge].max().item(), per_row[1000 - edge:].max().item())
-            e_in = per_row[edge:1000 - edge].max().item()
-            if not torch.isfinite(out).all() or max(e_edge, e_in) > tol:
-                raise AssertionError(f"megablock ragged B=3 T=1000: error edge {e_edge}, interior {e_in} > {tol}")
-            print(f"megablock C={c_} k={k_} torch.bfloat16 ({kernel_design(torch.bfloat16, c_)}) ragged B=3 T=1000: max abs "
-                  f"err first/last {edge} rows {e_edge:.3e}, interior {e_in:.3e} (tol {tol:.3e}, largest entry "
-                  f"{top:.3f}) {tag}")
-            del xr, args, out, ref
+            for dt in (torch.bfloat16, torch.float32):
+                args = (xr.to(dt), dw_w, dw_b, pw32.to(dt), pw_b, bn)
+                out, ref = fused_sub_blocks(*args, kernel_size=k_), fused_sub_blocks_plain(*args, kernel_size=k_)
+                torch.cuda.synchronize()
+                e_edge, e_in, tol, top = megablock_errors(out, ref, 1000, edge, dt)
+                if not torch.isfinite(out).all() or max(e_edge, e_in) > tol:
+                    raise AssertionError(f"megablock ragged {dt} B=3 T=1000: error edge {e_edge}, interior {e_in} > {tol}")
+                print(f"megablock C={c_} k={k_} {dt} ({kernel_design(dt, c_)}) ragged B=3 T=1000: max abs "
+                      f"err first/last {edge} rows {e_edge:.3e}, interior {e_in:.3e} (tol {tol:.3e}, largest entry "
+                      f"{top:.3f}) {tag}")
+                del args, out, ref
+            del xr
         del x32, pw32
 
     # 11. fused serving path, TitaNet-S, 17 mega-blocks, B=128 x 3 s
@@ -2779,10 +2867,13 @@ def main() -> int:
         med, lo, hi = median_ms(lambda: fused_serve(model, cfg))
         emed, elo, ehi = median_ms(lambda: embed_step(model, wav, lengths, frontend=cfg, device=dev))
         dev_ms, timed_by = device_ms(lambda: fused_serve(model, cfg), iters=5)
+        was = "" if dt is not None else (
+            f" (with the replaced fp32-core mega-block: median {PREV_MS['fused_f32', 'median']} ms, device "
+            f"{PREV_MS['fused_f32', 'device']} ms)")
         print(f"fused serving {label}: launches per call {counts}; min cosine vs embed_step {cos:.7f} (all-plain "
               f"fused route vs embed_step {cos_plain_ref:.7f}; limit {min_cos}); kernel route vs all-plain route "
               f"{cos_plain:.9f}; median {med:.3f} ms per batch of {B} x {SECONDS} s (min {lo:.3f}, max {hi:.3f}, "
-              f"10 runs); device time {dev_ms:.3f} ms a call ({timed_by}, 5 calls); embed_step beside it "
+              f"10 runs); device time {dev_ms:.3f} ms a call ({timed_by}, 5 calls){was}; embed_step beside it "
               f"{emed:.3f} ms (min {elo:.3f}, max {ehi:.3f}) {tag}")
         del emb, ref, mel_plain, plain_emb
     m32 = model  # the f32 model of the last pass
@@ -2852,6 +2943,13 @@ def main() -> int:
     ):
         r = report[key]
         zoo = {fam: n[zoo_key] for fam, n in zoo_launches.items()} if zoo_key else {}
+        extra = {}
+        if key[0] == "megablock":  # the f32 route at the same shape, its launches those of the f32 fused call
+            f = report["megablock", key[1], torch.float32]
+            extra = {"f32_design": f["design"], "f32_launches": fused_launches["f32"]["megablock"],
+                     "f32_max_abs_err": f["max_abs_err"], "f32_ms": f["ms"], "f32_plain_ms": f["plain_ms"],
+                     "f32_bound_ms": f["bound_ms"], "f32_bound_by": f["bound_by"],
+                     "f32_fp32_core_bound_ms": f["fp32_core_bound_ms"], "f32_unfused_library_ms": f["unfused_ms"]}
         kernels.append({
             "name": name_, "route": "cuda", "source": src, "replaces": line,
             "launches": path_launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2860,6 +2958,7 @@ def main() -> int:
             "zoo_trainer_launches": zoo,
             "device_corpus_trainer_launches": dc_launches[zoo_key] if zoo_key else None,
             "ddp_trainer_launches": ddp_launches[zoo_key] if zoo_key else None,
+            **extra,
         })
     print(json.dumps({"kernels": kernels}))
     print(name)

@@ -471,24 +471,35 @@ _MEGABLOCK_SHAPES = [(2, 1, 128, 3, 3), (3, 59, 128, 7, 3), (2, 137, 256, 3, 3),
 # bf16 (the tensor-core kernel; 124-row tiles at C=256): below a tile, around
 # one tile, many tiles with a partial last one
 _MEGABLOCK_BF16_SHAPES = [(b, t, 256, 3, 3) for t in (1, 5, 127, 129, 1000) for b in (1, 3)]
+# f32 (the 3xTF32 kernel; 76-row tiles at (256, 3), 52-row at (512, 7)): the
+# same cases around its tiles
+_MEGABLOCK_F32_SHAPES = [(b, t, c, k, 3) for c, k, tile in ((256, 3, 76), (512, 7, 52))
+                         for t in (5, tile - 1, tile, tile + 1, 7 * tile + 13) for b in (1, 3)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "dtype,shape",
     [(dt, sh) for dt in (torch.float32, torch.bfloat16) for sh in _MEGABLOCK_SHAPES]
-    + [(torch.bfloat16, sh) for sh in _MEGABLOCK_BF16_SHAPES],
+    + [(torch.bfloat16, sh) for sh in _MEGABLOCK_BF16_SHAPES]
+    + [(torch.float32, sh) for sh in _MEGABLOCK_F32_SHAPES],
 )
 def test_megablock_kernel_matches_plain(cuda_device, dtype, shape):
     """Row by row, the edge rows included: f32 within 1e-4 of the largest
-    entry (the product sums in another order), bf16 within one bf16 ulp of
-    it (a depthwise sum on a rounding boundary)."""
+    entry (the product sums in another order, as 3xTF32 on the tensor cores
+    at C = 128, 256 and 512), bf16 within one bf16 ulp of it (a depthwise
+    sum on a rounding boundary). A second call gives the same bits."""
     b, t, c, k, s = shape
     args = _chain_args(cuda_device, dtype, b, t, c, k, s)
+    if dtype == torch.float32:
+        design = megablock.kernel_design(dtype, c)
+        assert design == "fp32-core" if c == 1024 else design.startswith("tensor-core, 3xTF32 mma.sync")
     before = megablock.fused_sub_blocks.launches
     out = megablock.fused_sub_blocks(*args, kernel_size=k)
+    again = megablock.fused_sub_blocks(*args, kernel_size=k)
     torch.cuda.synchronize()
-    assert megablock.fused_sub_blocks.launches == before + 1
+    assert megablock.fused_sub_blocks.launches == before + 2
+    assert torch.equal(out, again)
     ref = megablock.fused_sub_blocks_plain(*args, kernel_size=k)
     assert out.shape == ref.shape and out.dtype == ref.dtype and torch.isfinite(out).all()
     top = ref.float().abs().max().item()
@@ -649,27 +660,32 @@ def test_log_mel_operator_equals_the_wrapper(cuda_device, precision):
 
 
 @pytest.mark.cuda
-def test_exported_fused_embedder_launches_the_kernel_and_bf16_export_refuses(cuda_device):
-    """An f32 model exported with the fused frontend launches the log-mel
-    kernel once a call and equals ``embed_step``; a bf16 model (its pool
-    kernel is reached through ctypes) refuses export on the card."""
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_exported_fused_embedder_launches_the_kernels(cuda_device, dtype):
+    """A model exported with the fused frontend launches the log-mel kernel
+    once a call and, in bf16, the pool-forward kernel once a call (the
+    registered operators); it equals ``embed_step`` of the same model:
+    cosine drift under 1e-5 (the same kernels on the same inputs)."""
     from titanet_torch.models import get_titanet
     from titanet_torch.train.state import embed_step
     from titanet_torch.utils.export import export_titanet_embedder, load_embedder
 
     gen = torch.Generator().manual_seed(0)
-    model = get_titanet(n_mega_blocks=1, device=cuda_device, generator=gen).eval()
+    model = get_titanet(n_mega_blocks=1, dtype=dtype, device=cuda_device, generator=gen).eval()
     fe = tf.FrontendConfig(use_pallas_fused=True)
     served = load_embedder(export_titanet_embedder(model, None, fe, batch_size=2, num_samples=16000))
     rng = np.random.default_rng(4)
     wav = torch.from_numpy((rng.standard_normal((2, 16000)) * 0.1).astype(np.float32)).to(cuda_device)
     lengths = torch.tensor([16000, 11000], dtype=torch.int32, device=cuda_device)
-    before = log_mel_fused.launches
+    mel_before, pool_before = log_mel_fused.launches, attentive_pool_fwd.launches
     with torch.no_grad():
         out = served(wav, lengths)
-    assert log_mel_fused.launches - before == 1
+    torch.cuda.synchronize()
+    assert log_mel_fused.launches - mel_before == 1
+    assert attentive_pool_fwd.launches - pool_before == (1 if dtype == torch.bfloat16 else 0)
     ref = embed_step(model, wav, lengths, frontend=fe, device=cuda_device)
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
-    bf16 = get_titanet(n_mega_blocks=1, dtype=torch.bfloat16, device=cuda_device, generator=gen)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        export_titanet_embedder(bf16, None, fe, batch_size=2, num_samples=16000)
+    assert out.dtype == ref.dtype and torch.isfinite(out).all()
+    cos = torch.nn.functional.cosine_similarity(out.float(), ref.float(), dim=-1)
+    assert (1.0 - cos).max().item() < 1e-5
+    if dtype is None:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)

@@ -132,11 +132,11 @@ for _dt in DTYPES:
 
 
 def test_tile_rows_cover_both_designs():
-    assert sorted(GEOMETRIES) == [32, 64, 128]
+    assert sorted(GEOMETRIES) == [32, 64, 80, 128]
     assert sum(len(g) for g in GEOMETRIES.values()) == len(DTYPES) * len(mk.TC_TILES)
 
 
-@pytest.mark.parametrize("rm", [32, 64, 128])
+@pytest.mark.parametrize("rm", [32, 64, 80, 128])
 @pytest.mark.parametrize("k", [3, 7])
 @pytest.mark.parametrize("t_case", ["1", "tile-1", "tile", "tile+1", "301"])
 def test_tiled_chain_equals_plain(rm, k, t_case):

@@ -18,7 +18,10 @@
 // Bound on the H100: operations. One call at B=128, T=301, C=256, k=3, S=3
 // is 2*B*T*S*(C*C + C*k) = 15.3 GFLOP against 2 x 19.7 MB (bf16) of
 // activations and 0.4 MB of weights: 0.0155 ms at the bf16 tensor-core
-// rate, 0.229 ms in f32 on the FP32 cores.
+// rate, 0.229 ms in f32 on the FP32 cores. The f32 route's split products
+// (below) do three times the product's operations on the TF32 tensor cores:
+// 45.4 GFLOP at 495 TFLOP/s plus 0.3 GFLOP of depthwise and epilogue at
+// 67 TFLOP/s, 0.096 ms.
 //
 // What the card forces. The TPU kernel keeps all S*C*C pointwise weights
 // resident in its fast memory; they do not fit a block's shared memory here
@@ -57,15 +60,42 @@
 //     products start (mma_bf16.cuh). At C = 1024 a tile is 12 output rows of
 //     32: it stays bound by the weight stream (21 GB from L2 a call).
 //
-// f32: the FP32-core design (megablock_kernel), the parity surface. One
-// buffer of (tb + 2*halo) x C floats, each stage in place:
-//   - depthwise: thread c walks down the rows of channel c; output row r
-//     reads rows r..r+k-1 and overwrites row r, which no later row reads;
-//   - pointwise: every thread keeps an 8 x 8 block of the RM x C product in
-//     registers over the whole K loop, then all write their blocks back
-//     over the rows they were computed from, with bias, affine and relu.
-// RM = 64; 32 at C=1024, where 64 rows of accumulators do not fit the
-// register file.
+// f32, the parity surface: the same kernel (megablock_tc_kernel, its
+// element type float) with the products on the tensor cores as split TF32
+// ("3xTF32") at C = 128, 256 and 512. What bounds the FP32-core design this
+// replaced (megablock_kernel, below, which C = 1024 still runs): every
+// product on the FP32 cores, so 2*B*T*S*C*C operations at 67 TFLOP/s at
+// best (0.229 ms at TitaNet-S's serving shape; it ran at 32% of that),
+// weight slabs copied synchronously between barriers, and shared-memory
+// issue close to the FMA issue. What the design does:
+//   - each operand is split in registers into hi = rna.tf32(x) and
+//     lo = rna.tf32(x - hi), and a k8 step adds a_lo*b_hi, a_hi*b_lo
+//     and a_hi*b_hi (mma.sync.m16n8k8.tf32, f32 accumulation): each term
+//     keeps about 21 bits, the error of an f32 product, not TF32's 10 (the
+//     card's counterpart of how the TPU computes an f32 product, in several
+//     bf16 passes). The three passes run over all of a warp's tiles in turn,
+//     so consecutive mma.sync are independent;
+//   - A (the depthwise output) and the weight slabs are f32 in padded
+//     shared memory (A rows C + 4 floats, slab rows NC + 8), so the 32
+//     words of a fragment fall into 32 banks; the weights keep the (in,
+//     out) layout the bf16 route reads;
+//   - the ring of cp.async slabs, the depthwise pass on every thread (taps
+//     in order, fmaf, as the plain version sums them) and the two
+//     activation buffers are the bf16 route's, with f32 elements;
+//   - the bound it obeys: 3 x 2*B*T*S*C*C operations at 495 TFLOP/s (TF32)
+//     plus the depthwise and epilogue passes at 67 TFLOP/s.
+// Two f32 buffers of RM rows hold fewer rows a tile than bf16's: RM = 64
+// at C = 128, 80 at 256; at C = 512 one buffer in place holds 64 (the
+// depthwise output written over the stage's input in waves, the product's
+// over the depthwise output once every warp has read it). At C = 1024 not
+// even one buffer of 32 rows fits beside a ring of 1024-column slabs, and
+// megablock_kernel runs: one buffer of
+// (tb + 2*halo) x C floats, each stage in place (depthwise: thread c walks
+// down the rows of channel c, row r reads rows r..r+k-1 and overwrites row
+// r, which no later row reads; pointwise: every thread keeps an 8 x 8 block
+// of the RM x C product in registers over the whole K loop, then all write
+// their blocks back over the rows they were computed from, with bias,
+// affine and relu), RM = 32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +107,31 @@ namespace {
 constexpr int kMaxSmem = 232448;
 constexpr int kTM = 8;  // rows of a thread's block of the product
 constexpr int kTN = 8;  // columns of it, strided by C/8 across the row
+
+// The element type of the activations and the pointwise weights: elements
+// of a 16-byte copy, two neighbours read as f32 and written rounded to it.
+template <class T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+};
+template <>
+struct Elem<float> {
+  static constexpr int kVec = 4;
+  static __device__ __forceinline__ float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
 
 template <int C>
 __host__ __device__ constexpr int slab_rows() { return (C <= 256 ? 4096 : 8192) / C; }
@@ -207,10 +262,11 @@ int launch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------- bf16: tensor-core design
+// ------------------------------ tensor-core design: bf16, and f32 as 3xTF32
 //
-// Activations live in shared memory as bf16. Two buffers: `in` holds a
-// stage's input (RM + 2*pad rows, padded for 16-byte row offsets), `dw` the
+// Activations live in shared memory in the element type Cfg::T (bf16, or
+// f32 for the split-TF32 product). Two buffers: `in` holds a stage's input
+// (RM + 2*pad rows, padded for 16-byte row offsets), `dw` the
 // depthwise output (at most RM rows), which is the product's A operand; the
 // epilogue writes the stage's output back into `in`. The product reads one
 // buffer and writes the other, so no warp waits for the others between its K
@@ -221,10 +277,10 @@ int launch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
 // next stage's first slabs land during the epilogue and the depthwise pass.
 //
 // One kernel, megablock_tc_kernel<Cfg>, holds the ring, the barriers, the
-// depthwise pass and the epilogue. Cfg names the tile and brings the
-// product: the layouts of `dw` and of a weight slab (dw_offset, slab_offset),
-// how many slabs are in flight beyond the one being multiplied (AHEAD), and
-// Cfg::Product, a thread's accumulators with
+// depthwise pass and the epilogue. Cfg names the element type and the tile
+// and brings the product: the layouts of `dw` and of a weight slab
+// (dw_offset, slab_offset), how many slabs are in flight beyond the one
+// being multiplied (AHEAD), and Cfg::Product, a thread's accumulators with
 //   zero()                      before a column chunk;
 //   publish()                   before the slab's barrier;
 //   multiply(dw, slab, ks, rows)  acc += dw[:, ks*KS ..] @ slab;
@@ -236,6 +292,8 @@ int launch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
 // part of the chunk. `dw` and the slabs have padded rows (mma_bf16.cuh).
 template <int C_, int RM_, int NC_, int WM_, int WN_, int KS_, int NST_, int MINB_>
 struct TcCfg {
+  using T = __nv_bfloat16;
+  static constexpr bool IN_PLACE = false;
   static constexpr int C = C_, RM = RM_, NC = NC_, WM = WM_, WN = WN_, KS = KS_, NST = NST_;
   static constexpr int MINB = MINB_;
   static constexpr int NTHR = WM * WN * 32;
@@ -287,6 +345,8 @@ struct TcCfg {
 // call later than it is multiplied.
 template <int C_, int WGM_, int NC_, int KS_, int NST_, int MINB_>
 struct WgCfg {
+  using T = __nv_bfloat16;
+  static constexpr bool IN_PLACE = false;
   static constexpr int C = C_, WGM = WGM_, RM = 64 * WGM, NC = NC_, KS = KS_, NST = NST_;
   static constexpr int MINB = MINB_;
   static constexpr int NTHR = 256 * WGM;  // WGM x 2 warpgroups
@@ -344,71 +404,230 @@ struct WgCfg {
   };
 };
 
-template <class Cfg>
-size_t tc_smem_bytes(int pad) {
-  return ((size_t)Cfg::DW_ELEMS + (size_t)Cfg::NST * Cfg::SLAB +
-          (size_t)(Cfg::RM + 2 * pad) * Cfg::LDA) * sizeof(__nv_bfloat16) +
-         3 * Cfg::C * sizeof(float);
+// f32: mma.sync.m16n8k8 on TF32 operands split as hi + lo ("3xTF32").
+// Fragment layout (lane = threadIdx.x % 32, g = lane / 4, t = lane % 4):
+// A (16 x 8, "row") a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// B (8 x 8, "col") b0 (k = t, n = g), b1 (k = t + 4, n = g); the accumulator
+// as m16n8k16's (tc::frag_row, tc::frag_col).
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: what cvt.rna.tf32.f32 gives for every finite x, on the integer pipe
+// (add half of the dropped 13 bits' unit to the magnitude, clear them). The
+// conversion instruction is slower: the same kernel with it took 0.4876 ms
+// against 0.4366 at TitaNet-S's serving shape (ops/kernels/megablock_sweep.py;
+// NVIDIA H100 80GB HBM3, 700 W).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+// x = hi + lo + (x - hi - lo), hi and lo TF32; x - hi is exact in f32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+// d += a (16 x 8 tf32, row) * b (8 x 8 tf32, col), f32 accumulation
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Depthwise stage in -> dw for `rows` output rows: a thread owns a channel
-// pair over 8 rows; output row r reads input rows r..r+k-1. The last group
-// may run past `rows` (by less than 8, inside both buffers: RM is a multiple
-// of 8): those rows are computed from stale rows and never read by a row
-// that is stored. K > 0: k == K, the 8 + K - 1 input rows are read once into
-// registers; K == 0: any k, every tap re-read.
-template <class Cfg, int K>
-__device__ __forceinline__ void depthwise_pass(const __nv_bfloat16* in, __nv_bfloat16* dw,
-                                               const float* __restrict__ w,  // [k, C] of the stage
-                                               const float* __restrict__ bias, int rows, int k,
-                                               int tid) {
-  constexpr int C = Cfg::C, LDA = Cfg::LDA;
-  const int units = (C / 2) * ((rows + 7) / 8);
-  for (int unit = tid; unit < units; unit += Cfg::NTHR) {
-    const int c = (unit % (C / 2)) * 2, r0 = (unit / (C / 2)) * 8;
-    const float2 b = *reinterpret_cast<const float2*>(bias + c);
-    float2 acc[8];
+// One warp's acc[MT][NT] (16 x 8 tiles) += A (MT*16 x DEPTH, [m][k], row
+// stride lda) * B (DEPTH x NT*8, [k][n], row stride ldb), f32 in shared
+// memory, DEPTH a multiple of 8. Each k8 step loads the fragments as words,
+// splits them, and adds a_lo*b_hi, then a_hi*b_lo, then a_hi*b_hi over all
+// tiles (each pass's products independent of each other). m tiles whose first
+// row is >= m_rows are skipped (warp-uniform).
+template <int MT, int NT, int DEPTH>
+__device__ __forceinline__ void warp_mma_3xtf32(float (&acc)[MT][NT][4], const float* a, int lda,
+                                                const float* b, int ldb, int lane, int m_rows) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = make_float2(0.f, 0.f);
-    if (K > 0) {
-      float2 v[8 + (K > 0 ? K : 1) - 1];
+  for (int kk = 0; kk < DEPTH; kk += 8) {
+    uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
 #pragma unroll
-      for (int i = 0; i < 8 + K - 1; ++i)
-        v[i] = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(in + (r0 + i) * LDA + c));
-#pragma unroll
-      for (int j = 0; j < K; ++j) {  // taps in order, as the plain version sums them
-        const float2 wj = *reinterpret_cast<const float2*>(w + j * C + c);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i].x = fmaf(v[i + j].x, wj.x, acc[i].x);
-          acc[i].y = fmaf(v[i + j].y, wj.y, acc[i].y);
-        }
-      }
-    } else {
-      float2 wj = *reinterpret_cast<const float2*>(w + c);
-      for (int j = 0; j < k; ++j) {
-        const float2 wn = *reinterpret_cast<const float2*>(w + (j + 1 < k ? j + 1 : j) * C + c);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float2 v = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(in + (r0 + i + j) * LDA + c));
-          acc[i].x = fmaf(v.x, wj.x, acc[i].x);
-          acc[i].y = fmaf(v.y, wj.y, acc[i].y);
-        }
-        wj = wn;
+    for (int i = 0; i < MT; ++i) {
+      if (i * 16 < m_rows) {
+        const float* p = a + (i * 16 + g) * lda + kk + t;
+        split_tf32(p[0], ah[i][0], al[i][0]);
+        split_tf32(p[8 * lda], ah[i][1], al[i][1]);
+        split_tf32(p[4], ah[i][2], al[i][2]);
+        split_tf32(p[8 * lda + 4], ah[i][3], al[i][3]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(dw + Cfg::dw_offset(r0 + i, c)) =
-          __floats2bfloat162_rn(acc[i].x + b.x, acc[i].y + b.y);
+    for (int j = 0; j < NT; ++j) {
+      const float* q = b + (kk + t) * ldb + j * 8 + g;
+      split_tf32(q[0], bh[j][0], bl[j][0]);
+      split_tf32(q[4 * ldb], bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      if (i * 16 < m_rows)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_1688_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      if (i * 16 < m_rows)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_1688_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      if (i * 16 < m_rows)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_1688_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+  }
+}
+
+// The f32 tile: WM x WN warps, each a WTM x WTN part of the RM x NC chunk.
+// `dw` rows are C + 4 floats (an A fragment's word (g, t) in bank 4g + t),
+// slab rows NC + 8 (a B fragment's word (t, g) in bank 8t + g). IN_PLACE:
+// one activation buffer; the depthwise pass writes A over the stage's input
+// and the product's epilogue writes over A after every warp has read it, so
+// all C output columns are one chunk (NC = C) held in registers.
+template <int C_, int RM_, int NC_, int WM_, int WN_, int KS_, int NST_, int MINB_,
+          bool IN_PLACE_ = false>
+struct Tf32Cfg {
+  using T = float;
+  static constexpr bool IN_PLACE = IN_PLACE_;
+  static constexpr int C = C_, RM = RM_, NC = NC_, WM = WM_, WN = WN_, KS = KS_, NST = NST_;
+  static constexpr int MINB = MINB_;
+  static constexpr int NTHR = WM * WN * 32;
+  static constexpr int WTM = RM / WM, WTN = NC / WN;  // a warp's tile of the product
+  static constexpr int MT = WTM / 16, NT = WTN / 8;
+  static constexpr int LDA = C + 4;   // activation row stride (floats)
+  static constexpr int LDW = NC + 8;  // weight slab row stride
+  static constexpr int SLAB = KS * LDW;
+  static constexpr int DW_ELEMS = IN_PLACE ? 0 : RM * LDA;
+  static constexpr int AHEAD = NST - 1;  // a slab is consumed when its call returns
+  static_assert(WTM % 16 == 0 && WTN % 8 == 0 && C % NC == 0 && C % KS == 0 && KS % 8 == 0 &&
+                    RM % 8 == 0 && NST >= 2 && (!IN_PLACE || NC == C), "tile geometry");
+  static __device__ __forceinline__ int dw_offset(int r, int c) { return r * LDA + c; }
+  static __device__ __forceinline__ int slab_offset(int r, int c) { return r * LDW + c; }
+
+  struct Product {
+    static constexpr int ROWS = 2 * MT, COLS = NT;
+    float acc[MT][NT][4];
+    const int lane, wm, wn;
+    __device__ __forceinline__ Product(int warp, int lane_)
+        : lane(lane_), wm(warp / WN), wn(warp % WN) {}
+    __device__ __forceinline__ void zero() { tc::zero_acc(acc); }
+    static __device__ __forceinline__ void publish() {}
+    __device__ __forceinline__ void multiply(const float* dw, const float* slab, int ks, int rows) {
+      warp_mma_3xtf32<MT, NT, KS>(acc, dw + wm * WTM * LDA + ks * KS, LDA, slab + wn * WTN, LDW,
+                                  lane, rows - wm * WTM);
+    }
+    static __device__ __forceinline__ void finish() {}
+    // as TcCfg::Product: rows >= `rows` hold values no stored row reads
+    __device__ __forceinline__ int row(int i) const {
+      return wm * WTM + (i >> 1) * 16 + (i & 1) * 8 + tc::frag_row(lane);
+    }
+    __device__ __forceinline__ int col(int j) const {
+      return wn * WTN + j * 8 + tc::frag_col(lane);
+    }
+    __device__ __forceinline__ float2 value(int i, int j) const {
+      return make_float2(acc[i >> 1][j][(i & 1) * 2], acc[i >> 1][j][(i & 1) * 2 + 1]);
+    }
+  };
+};
+
+template <class Cfg>
+size_t tc_smem_bytes(int pad) {
+  return ((size_t)Cfg::DW_ELEMS + (size_t)Cfg::NST * Cfg::SLAB +
+          (size_t)(Cfg::RM + 2 * pad) * Cfg::LDA) * sizeof(typename Cfg::T) +
+         3 * Cfg::C * sizeof(float);
+}
+
+// One unit of the depthwise pass (below): channels (c, c + 1) over output
+// rows r0..r0+7 -> acc, before the bias.
+template <class Cfg, int K>
+__device__ __forceinline__ void depthwise_unit(const typename Cfg::T* in,
+                                               const float* __restrict__ w,  // [k, C] of the stage
+                                               int c, int r0, int k, float2 (&acc)[8]) {
+  constexpr int C = Cfg::C, LDA = Cfg::LDA;
+  using E = Elem<typename Cfg::T>;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = make_float2(0.f, 0.f);
+  if (K > 0) {
+    float2 v[8 + (K > 0 ? K : 1) - 1];
+#pragma unroll
+    for (int i = 0; i < 8 + K - 1; ++i) v[i] = E::load2(in + (r0 + i) * LDA + c);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {  // taps in order, as the plain version sums them
+      const float2 wj = *reinterpret_cast<const float2*>(w + j * C + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i].x = fmaf(v[i + j].x, wj.x, acc[i].x);
+        acc[i].y = fmaf(v[i + j].y, wj.y, acc[i].y);
+      }
+    }
+  } else {
+    float2 wj = *reinterpret_cast<const float2*>(w + c);
+    for (int j = 0; j < k; ++j) {
+      const float2 wn = *reinterpret_cast<const float2*>(w + (j + 1 < k ? j + 1 : j) * C + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 v = E::load2(in + (r0 + i + j) * LDA + c);
+        acc[i].x = fmaf(v.x, wj.x, acc[i].x);
+        acc[i].y = fmaf(v.y, wj.y, acc[i].y);
+      }
+      wj = wn;
+    }
+  }
+}
+
+// Depthwise stage in -> dw for `rows` output rows: a thread owns a channel
+// pair over 8 rows (a unit); output row r reads input rows r..r+k-1. The
+// last group may run past `rows` (by less than 8, inside both buffers: RM is
+// a multiple of 8): those rows are computed from stale rows and never read
+// by a row that is stored. K > 0: k == K, the 8 + K - 1 input rows are read
+// once into registers; K == 0: any k, every tap re-read.
+//
+// Cfg::IN_PLACE (dw == in): the units run in waves of one a thread, each
+// wave read, then a barrier, then written. A unit writes only rows that it,
+// the other units of its wave and the units of earlier waves read (a later
+// wave's rows start lower down), so no row is overwritten before its last
+// read.
+template <class Cfg, int K>
+__device__ __forceinline__ void depthwise_pass(const typename Cfg::T* in, typename Cfg::T* dw,
+                                               const float* __restrict__ w,  // [k, C] of the stage
+                                               const float* __restrict__ bias, int rows, int k,
+                                               int tid) {
+  constexpr int C = Cfg::C;
+  using E = Elem<typename Cfg::T>;
+  const int units = (C / 2) * ((rows + 7) / 8);
+  if (!Cfg::IN_PLACE) {
+    for (int unit = tid; unit < units; unit += Cfg::NTHR) {
+      const int c = (unit % (C / 2)) * 2, r0 = (unit / (C / 2)) * 8;
+      const float2 b = *reinterpret_cast<const float2*>(bias + c);
+      float2 acc[8];
+      depthwise_unit<Cfg, K>(in, w, c, r0, k, acc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        E::store2(dw + Cfg::dw_offset(r0 + i, c), acc[i].x + b.x, acc[i].y + b.y);
+    }
+    return;
+  }
+  for (int base = 0; base < units; base += Cfg::NTHR) {
+    const int unit = base + tid;
+    const int c = (unit % (C / 2)) * 2, r0 = (unit / (C / 2)) * 8;
+    float2 acc[8];
+    if (unit < units) depthwise_unit<Cfg, K>(in, w, c, r0, k, acc);
+    __syncthreads();  // the wave's reads are done
+    if (unit < units) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        E::store2(dw + Cfg::dw_offset(r0 + i, c), acc[i].x + b.x, acc[i].y + b.y);
+    }
   }
 }
 
 // the taps of TitaNet S, M and L unrolled; any other odd k in a loop
 template <class Cfg>
-__device__ __forceinline__ void depthwise_stage(const __nv_bfloat16* in, __nv_bfloat16* dw,
+__device__ __forceinline__ void depthwise_stage(const typename Cfg::T* in, typename Cfg::T* dw,
                                                 const float* w, const float* bias, int rows,
                                                 int k, int tid) {
   switch (k) {
@@ -422,15 +641,16 @@ __device__ __forceinline__ void depthwise_stage(const __nv_bfloat16* in, __nv_bf
 // rows [t_first, t_first + rows) of one utterance -> in (padded rows), zero
 // where the time is outside [0, t_len); one cp.async group
 template <class Cfg>
-__device__ __forceinline__ void load_input_tile(__nv_bfloat16* in, const __nv_bfloat16* xb,
+__device__ __forceinline__ void load_input_tile(typename Cfg::T* in, const typename Cfg::T* xb,
                                                 int t_first, int rows, int t_len, int tid) {
-  constexpr int CV = Cfg::C / 8;  // 16-byte chunks of a row
+  constexpr int VEC = Elem<typename Cfg::T>::kVec;
+  constexpr int CV = Cfg::C / VEC;  // 16-byte chunks of a row
   for (int i = tid; i < rows * CV; i += Cfg::NTHR) {
     const int r = i / CV, v = i % CV;
     const int t = t_first + r;
-    __nv_bfloat16* dst = in + r * Cfg::LDA + v * 8;
+    typename Cfg::T* dst = in + r * Cfg::LDA + v * VEC;
     if (t >= 0 && t < t_len)
-      tc::cp_async16(dst, xb + (long long)t * Cfg::C + v * 8);
+      tc::cp_async16(dst, xb + (long long)t * Cfg::C + v * VEC);
     else
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
   }
@@ -440,56 +660,58 @@ __device__ __forceinline__ void load_input_tile(__nv_bfloat16* in, const __nv_bf
 // the first tb rows of in -> rows [t0, t0 + tb) of one utterance, where they
 // are inside [0, t_len)
 template <class Cfg>
-__device__ __forceinline__ void store_output_tile(__nv_bfloat16* ob, const __nv_bfloat16* in,
+__device__ __forceinline__ void store_output_tile(typename Cfg::T* ob, const typename Cfg::T* in,
                                                   int t0, int tb, int t_len, int tid) {
-  constexpr int CV = Cfg::C / 8;
+  constexpr int VEC = Elem<typename Cfg::T>::kVec;
+  constexpr int CV = Cfg::C / VEC;
   for (int i = tid; i < tb * CV; i += Cfg::NTHR) {
     const int r = i / CV, v = i % CV;
     if (t0 + r < t_len)
-      *reinterpret_cast<uint4*>(ob + (long long)(t0 + r) * Cfg::C + v * 8) =
-          *reinterpret_cast<const uint4*>(in + r * Cfg::LDA + v * 8);
+      *reinterpret_cast<uint4*>(ob + (long long)(t0 + r) * Cfg::C + v * VEC) =
+          *reinterpret_cast<const uint4*>(in + r * Cfg::LDA + v * VEC);
   }
 }
 
 template <class Cfg>
 __global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_tc_kernel(
-    const __nv_bfloat16* __restrict__ x,     // [B, T, C]
-    const float* __restrict__ dw_w,          // [S, k, C]
-    const float* __restrict__ dw_b,          // [S, C]
-    const __nv_bfloat16* __restrict__ pw_w,  // [S, C, C] (in, out)
-    const float* __restrict__ pw_b,          // [S, C]
-    const float* __restrict__ bn,            // [S, 2, C] folded (scale, shift)
-    __nv_bfloat16* __restrict__ out,         // [B, T, C]
+    const typename Cfg::T* __restrict__ x,     // [B, T, C]
+    const float* __restrict__ dw_w,            // [S, k, C]
+    const float* __restrict__ dw_b,            // [S, C]
+    const typename Cfg::T* __restrict__ pw_w,  // [S, C, C] (in, out)
+    const float* __restrict__ pw_b,            // [S, C]
+    const float* __restrict__ bn,              // [S, 2, C] folded (scale, shift)
+    typename Cfg::T* __restrict__ out,         // [B, T, C]
     int t_len, int n_stages, int k, int tb) {
+  using T = typename Cfg::T;
+  using E = Elem<T>;
   constexpr int C = Cfg::C, NC = Cfg::NC, KS = Cfg::KS, NST = Cfg::NST, AHEAD = Cfg::AHEAD;
-  constexpr int NTHR = Cfg::NTHR, LDA = Cfg::LDA;
+  constexpr int NTHR = Cfg::NTHR, LDA = Cfg::LDA, VEC = E::kVec;
   constexpr int SLABS = C / KS;  // slabs of one column chunk
   constexpr int PER_STAGE = (C / NC) * SLABS;
   using Product = typename Cfg::Product;
   extern __shared__ __align__(1024) unsigned char smem_raw[];  // wgmma tiles: 1 KB aligned
-  __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Cfg::dw_offset
-  __nv_bfloat16* ring = dw + Cfg::DW_ELEMS;                        // [NST] slabs, Cfg::slab_offset
-  float* par = reinterpret_cast<float*>(ring + NST * Cfg::SLAB);   // [3][C]: pw_b, scale, shift
-  __nv_bfloat16* in = reinterpret_cast<__nv_bfloat16*>(par + 3 * C);  // [RM + 2*pad][LDA]
+  T* ring = reinterpret_cast<T*>(smem_raw) + Cfg::DW_ELEMS;       // [NST] slabs, Cfg::slab_offset
+  float* par = reinterpret_cast<float*>(ring + NST * Cfg::SLAB);  // [3][C]: pw_b, scale, shift
+  T* in = reinterpret_cast<T*>(par + 3 * C);                      // [RM + 2*pad][LDA]
+  T* dw = Cfg::IN_PLACE ? in : reinterpret_cast<T*>(smem_raw);    // Cfg::dw_offset
 
   const int pad = (k - 1) / 2;
   const int halo = n_stages * pad;
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * tb;
-  const __nv_bfloat16* xb = x + (long long)b * t_len * C;
+  const T* xb = x + (long long)b * t_len * C;
   const int n_slabs = n_stages * PER_STAGE;
   Product prod(tid >> 5, tid & 31);
 
   auto prefetch = [&](int q) {  // slab q of the whole chain -> ring[q % NST]
     if (q < n_slabs) {
       const int s = q / PER_STAGE, rem = q % PER_STAGE;
-      const __nv_bfloat16* src =
-          pw_w + ((long long)s * C + (rem % SLABS) * KS) * C + (rem / SLABS) * NC;
-      __nv_bfloat16* dst = ring + (q % NST) * Cfg::SLAB;
-      for (int i = tid; i < KS * (NC / 8); i += NTHR) {
-        const int r = i / (NC / 8), v = i % (NC / 8);
-        tc::cp_async16(dst + Cfg::slab_offset(r, v * 8), src + (long long)r * C + v * 8);
+      const T* src = pw_w + ((long long)s * C + (rem % SLABS) * KS) * C + (rem / SLABS) * NC;
+      T* dst = ring + (q % NST) * Cfg::SLAB;
+      for (int i = tid; i < KS * (NC / VEC); i += NTHR) {
+        const int r = i / (NC / VEC), v = i % (NC / VEC);
+        tc::cp_async16(dst + Cfg::slab_offset(r, v * VEC), src + (long long)r * C + v * VEC);
       }
     }
     tc::cp_async_commit();
@@ -520,6 +742,7 @@ __global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_tc_kernel(
         prod.multiply(dw, ring + (q % NST) * Cfg::SLAB, ks, rows);
       }
       Product::finish();
+      if (Cfg::IN_PLACE) __syncthreads();  // every warp has read A: write over it
 #pragma unroll
       for (int j = 0; j < Product::COLS; ++j) {
         const int c = n0 + prod.col(j);
@@ -531,8 +754,7 @@ __global__ void __launch_bounds__(Cfg::NTHR, Cfg::MINB) megablock_tc_kernel(
           const float2 v = prod.value(i, j);
           const float v0 = (v.x + pb.x) * scale.x + shift.x;
           const float v1 = (v.y + pb.y) * scale.y + shift.y;
-          *reinterpret_cast<__nv_bfloat162*>(in + prod.row(i) * LDA + c) =
-              __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+          E::store2(in + prod.row(i) * LDA + c, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
         }
       }
     }
@@ -555,10 +777,10 @@ int launch_tc(const void* x, const void* dw_w, const void* dw_b, const void* pw_
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t_len + tb - 1) / tb, batch);
+  using T = typename Cfg::T;
   megablock_tc_kernel<Cfg><<<grid, Cfg::NTHR, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const float*)dw_w, (const float*)dw_b,
-      (const __nv_bfloat16*)pw_w, (const float*)pw_b, (const float*)bn, (__nv_bfloat16*)out,
-      t_len, n_stages, k, tb);
+      (const T*)x, (const float*)dw_w, (const float*)dw_b, (const T*)pw_w, (const float*)pw_b,
+      (const float*)bn, (T*)out, t_len, n_stages, k, tb);
   return (int)cudaGetLastError();
 }
 
@@ -572,6 +794,19 @@ using Tc1024 = TcCfg<1024, 32, 512, 2, 8, 16, 3, 1>;
 //                  C, RM/64, NC, KS, NST, blocks an SM
 using Wg256 = WgCfg<256, 2, 256, 32, 4, 1>;
 using Wg512 = WgCfg<512, 1, 512, 16, 4, 1>;
+// f32, 3xTF32 (ops/kernels/megablock.py::F32_TILES), a ring of two slabs:
+// at C = 128 and 256 two f32 buffers of RM rows (80 fit at C = 256: tiles
+// of 76 rows, 4 cover T = 301); at C = 512 two buffers fit only 32 rows, so
+// one buffer runs in place with 64 (tiles of 52 at k = 7), which halves the
+// weight bytes streamed from L2 a row. Of the tiles timed at (C, k) = (256,
+// 3) and (512, 7) (32 to 128 rows, two buffers or one, 4, 8 or 16 warps,
+// 16 or 32 slab rows, 2 or 3 stages, 128 to 512 columns a pass;
+// ops/kernels/megablock_sweep.py), these were the fastest (NVIDIA H100 80GB
+// HBM3, 700 W).
+//                    C,  RM,  NC, WM, WN, KS, NST, blocks an SM
+using Tf128 = Tf32Cfg<128, 64, 128, 2, 4, 32, 3, 1>;
+using Tf256 = Tf32Cfg<256, 80, 256, 1, 8, 16, 2, 1>;
+using Tf512 = Tf32Cfg<512, 64, 512, 1, 8, 16, 2, 1, true>;
 
 bool bad_shape(int batch, int t_len, int n_stages, int k) {
   return batch < 1 || batch > 65535 || t_len < 1 || n_stages < 1 || k < 1 || k % 2 == 0;
@@ -588,11 +823,11 @@ int titanet_megablock_f32(const void* x, const void* dw_w, const void* dw_b, con
                           const void* pw_b, const void* bn, void* out, int batch, int t_len,
                           int channels, int n_stages, int k, void* stream) {
   if (bad_shape(batch, t_len, n_stages, k)) return (int)cudaErrorInvalidValue;
-  switch (channels) {  // ops/kernels/megablock.py::_F32_ROWS
-    case 128: return launch<128, 64>(CHAIN_ARGS);
-    case 256: return launch<256, 64>(CHAIN_ARGS);
-    case 512: return launch<512, 64>(CHAIN_ARGS);
-    case 1024: return launch<1024, 32>(CHAIN_ARGS);
+  switch (channels) {  // ops/kernels/megablock.py::F32_TILES
+    case 128: return launch_tc<Tf128>(CHAIN_ARGS);
+    case 256: return launch_tc<Tf256>(CHAIN_ARGS);
+    case 512: return launch_tc<Tf512>(CHAIN_ARGS);
+    case 1024: return launch<1024, 32>(CHAIN_ARGS);  // the FP32-core design
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,9 +12,11 @@
 Every wrapper launches its kernel on a CUDA tensor (or raises), runs the
 plain version on a CPU tensor, and counts its launches in ``.launches``.
 
-Importing this package registers ``torch.ops.titanet_torch.log_mel_fused``
-(:func:`.melspec.log_mel_fused_op`), which an exported embedder with the
-fused frontend calls (:mod:`titanet_torch.utils.export`).
+Importing this package registers the operators that an exported embedder
+calls (:mod:`titanet_torch.utils.export`):
+``torch.ops.titanet_torch.log_mel_fused`` (:func:`.melspec.log_mel_fused_op`,
+the fused frontend) and ``torch.ops.titanet_torch.attentive_pool_fwd``
+(:func:`.pool.attentive_pool_fwd_op`, a bf16 model's attentive pooling).
 """
 
-from titanet_torch.ops.kernels import melspec  # noqa: F401  (registers the operator)
+from titanet_torch.ops.kernels import melspec, pool  # noqa: F401  (register the operators)

@@ -10,14 +10,20 @@ computes a mega-block's chain
 on ``x [B, T, C]`` without writing an intermediate activation to device
 memory. Inference only: no gradient.
 
-Two designs share the source. bf16 keeps a time tile of the activations in
-shared memory as bf16, runs the depthwise pass on every thread and the
-pointwise products on the tensor cores (``wgmma`` at C = 256 and 512,
-``mma.sync`` from ``ldmatrix`` fragments at C = 128 and 1024;
-``csrc/mma_bf16.cuh``) while ``cp.async`` streams the weights through a
-ring of slabs; f32, the parity surface, runs on the FP32 cores.
-:data:`TC_TILES`, :func:`tile_rows`, :func:`smem_bytes` and
-:func:`kernel_supports` mirror the tile geometry of both.
+One kernel holds a time tile of the activations in shared memory, runs the
+depthwise pass on every thread and the pointwise products on the tensor
+cores while ``cp.async`` streams the weights through a ring of slabs. bf16
+multiplies with ``wgmma`` at C = 256 and 512 and ``mma.sync`` from
+``ldmatrix`` fragments at C = 128 and 1024 (``csrc/mma_bf16.cuh``). f32,
+the parity surface, keeps f32 tiles and splits each operand into two TF32
+parts, ``hi = rna(x)`` and ``lo = rna(x - hi)``, adding ``a_lo*b_hi +
+a_hi*b_lo + a_hi*b_hi`` with ``mma.sync.m16n8k8`` ("3xTF32": about 21 bits
+a term, an f32 product's error) at C = 128, 256 and 512 (at 512 with one
+activation buffer in place); at C = 1024, where not even that fits shared
+memory, the FP32-core design runs.
+:data:`TC_TILES`, :data:`F32_TILES`, :func:`tile_rows`, :func:`smem_bytes`,
+:func:`kernel_supports` and :func:`kernel_design` mirror the tile geometry
+of the three.
 
 Edge rows. As in the kernel it replaces, only the INPUT is zero outside
 ``[0, T)``: every stage is also evaluated on the halo rows and is not
@@ -42,15 +48,19 @@ import torch.nn.functional as F
 from titanet_torch.ops.kernels import _build
 
 MAX_SMEM = 232448
-# f32 (FP32-core kernel): rows of the largest stage output a block computes,
-# by channel count (csrc/megablock.cu::dispatch)
-_F32_ROWS = {128: 64, 256: 64, 512: 64, 1024: 32}
 # bf16 (tensor-core kernels), by channel count: (instruction, rows RM, output
 # columns a pass NC, rows a weight slab KS, ring stages NST)
 # (csrc/megablock.cu::Tc* and Wg*)
 TC_TILES = {128: ("mma.sync", 64, 128, 32, 3), 256: ("wgmma", 128, 256, 32, 4),
             512: ("wgmma", 64, 512, 16, 4), 1024: ("mma.sync", 32, 512, 16, 3)}
+# f32, by channel count: (design, rows RM, output columns a pass NC, rows a
+# weight slab KS, ring stages NST) (csrc/megablock.cu::Tf*: two activation
+# buffers, or one "in place"; at C = 1024 the FP32-core megablock_kernel: one
+# chunk of all C columns, a slab of 8192 floats copied between two barriers)
+F32_TILES = {128: ("3xTF32", 64, 128, 32, 3), 256: ("3xTF32", 80, 256, 16, 2),
+             512: ("3xTF32 in place", 64, 512, 16, 2), 1024: ("fp32-core", 32, 1024, 8, 1)}
 _SMEM_ROW_PAD = 8  # bf16 elements (csrc/mma_bf16.cuh::kPad)
+_F32_A_PAD, _F32_W_PAD = 4, 8  # floats: activation and weight-slab row padding (Tf32Cfg)
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -62,13 +72,16 @@ def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
 def tile_rows(channels: int, dtype) -> int:
     """Rows RM of the largest stage output a block computes; a tile is
     ``RM - 2*pad*(S-1)`` output rows."""
-    return TC_TILES[channels][1] if dtype == torch.bfloat16 else _F32_ROWS[channels]
+    return (TC_TILES if dtype == torch.bfloat16 else F32_TILES)[channels][1]
 
 
 def kernel_design(dtype, channels: int) -> str:
     """Which of the source's kernels a dtype and width run."""
     if dtype != torch.bfloat16:
-        return "fp32-core"
+        design = F32_TILES[channels][0]
+        if design == "fp32-core":
+            return design
+        return "tensor-core, 3xTF32 mma.sync" + (", in place" if design.endswith("in place") else "")
     return f"tensor-core, {TC_TILES[channels][0]}"
 
 
@@ -86,15 +99,22 @@ def smem_bytes(channels: int, kernel_size: int, dtype) -> int:
         else:
             elems = (2 * rm + 2 * pad) * padded + nst * ks * (nc + _SMEM_ROW_PAD)
         return elems * 2 + 3 * channels * 4
-    slab = 4096 if channels <= 256 else 8192
-    return ((_F32_ROWS[channels] + 2 * pad) * channels + slab) * 4
+    design, rm, nc, ks, nst = F32_TILES[channels]
+    if design == "fp32-core":  # one buffer of RM + 2*pad rows and one weight slab
+        return ((rm + 2 * pad) * channels + ks * channels) * 4
+    # depthwise buffer (RM rows; none in place) + input buffer (RM + 2*pad
+    # rows), padded, + weight ring, f32; a stage's pw_b, scale and shift
+    padded = channels + _F32_A_PAD
+    buffer_rows = (rm + 2 * pad) + (0 if design.endswith("in place") else rm)
+    elems = buffer_rows * padded + nst * ks * (nc + _F32_W_PAD)
+    return elems * 4 + 3 * channels * 4
 
 
 def kernel_supports(channels: int, kernel_size: int, n_stages: int, dtype) -> bool:
     """What the CUDA kernels take: f32 or bf16, C in 128/256/512/1024, odd
     k, and a time tile of at least 8 rows that fits shared memory (TitaNet
     S, M and L do: (C, k) = (256, 3), (512, 7), (1024, 11), S = 3)."""
-    if dtype not in (torch.float32, torch.bfloat16) or channels not in _F32_ROWS:
+    if dtype not in (torch.float32, torch.bfloat16) or channels not in TC_TILES:
         return False
     if kernel_size < 1 or kernel_size % 2 == 0 or n_stages < 1:
         return False

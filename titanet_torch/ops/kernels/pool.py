@@ -19,9 +19,11 @@ surface, runs the FP32-core passes. Both reduce per-block partial sums in
 a fixed order, so repeated calls give the same bits.
 
 :func:`attentive_pool_fused` is the differentiable entry point (a
-``torch.autograd.Function``). On a CPU tensor :func:`attentive_pool_fwd`
-and :func:`attentive_pool_bwd` run their plain versions; on a CUDA tensor
-they launch the kernels or raise.
+``torch.autograd.Function``). :func:`attentive_pool_fwd_op` registers the
+forward as the operator ``torch.ops.titanet_torch.attentive_pool_fwd``,
+which a traced graph holds (an exported bf16 embedder). On a CPU tensor
+:func:`attentive_pool_fwd` and :func:`attentive_pool_bwd` run their plain
+versions; on a CUDA tensor they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -274,18 +276,50 @@ def attentive_pool_bwd(h, a, c, wa, ba, wb, bb, g, eps: float = 1e-6, fold: bool
 attentive_pool_bwd.launches = 0
 
 
+@torch.library.custom_op("titanet_torch::attentive_pool_fwd", mutates_args=())
+def attentive_pool_fwd_op(
+    h: torch.Tensor,
+    a: torch.Tensor,
+    c: torch.Tensor,
+    wa: torch.Tensor,
+    ba: torch.Tensor,
+    wb: torch.Tensor,
+    bb: torch.Tensor,
+    eps: float = 1e-6,
+    fold: bool = False,
+) -> torch.Tensor:
+    """:func:`attentive_pool_fwd` as the registered operator
+    ``torch.ops.titanet_torch.attentive_pool_fwd``, so that a traced graph
+    (``torch.export``, :mod:`titanet_torch.utils.export`) holds the kernel
+    as one node. On a CUDA tensor it launches the kernel, on a CPU tensor it
+    runs the plain version: the wrapper's own device rule. Forward only."""
+    return attentive_pool_fwd(h, a, c, wa, ba, wb, bb, eps, fold)
+
+
+@attentive_pool_fwd_op.register_fake
+def _attentive_pool_fwd_fake(h, a, c, wa, ba, wb, bb, eps=1e-6, fold=False):
+    _check(h, a, c, wa, ba, wb, bb)
+    return h.new_empty((h.shape[0], 2 * h.shape[2]))
+
+
+def kernel_operands(h, a, c, wa, ba, wb, bb):
+    """The kernels' operands from any float dtypes: ``h`` contiguous, the
+    weights ``wa``, ``wb`` in h's dtype, the vectors f32."""
+    dt = h.dtype
+    return (
+        h.contiguous(), a.float().contiguous(), c.float().contiguous(),
+        wa.to(dt).contiguous(), ba.float().contiguous(),
+        wb.to(dt).contiguous(), bb.float().contiguous(),
+    )
+
+
 class _AttentivePool(torch.autograd.Function):
     """Forward :func:`attentive_pool_fwd`, backward :func:`attentive_pool_bwd`
     (the TPU package's ``jax.custom_vjp`` around the two Pallas kernels)."""
 
     @staticmethod
     def forward(ctx, h, a, c, wa, ba, wb, bb, eps, fold):
-        dt = h.dtype
-        args = (
-            h.contiguous(), a.float().contiguous(), c.float().contiguous(),
-            wa.to(dt).contiguous(), ba.float().contiguous(),
-            wb.to(dt).contiguous(), bb.float().contiguous(),
-        )
+        args = kernel_operands(h, a, c, wa, ba, wb, bb)
         ctx.save_for_backward(*args)
         ctx.eps, ctx.fold = eps, fold
         ctx.grad_dtypes = tuple(x.dtype for x in (a, c, wa, ba, wb, bb))

@@ -10,7 +10,8 @@ With no mask, bf16 and aligned widths the whole chain runs in the fused
 kernels (:func:`titanet_torch.ops.kernels.pool.attentive_pool_fused`, a
 ``torch.autograd.Function`` whose forward and backward are CUDA kernels),
 including the optional ``relu(prescale * x + preshift)`` fold of an
-upstream BatchNorm. Otherwise
+upstream BatchNorm; under ``torch.export`` the forward is the registered
+operator ``torch.ops.titanet_torch.attentive_pool_fwd`` instead. Otherwise
 the plain path below runs; it is also the masked path. ``mask`` (``[B, T]``,
 1 = valid) keeps padded frames out of the softmax.
 """
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from titanet_torch.ops.dense import Dense
-from titanet_torch.ops.kernels.pool import attentive_pool_fused, kernel_supports
+from titanet_torch.ops.kernels.pool import attentive_pool_fused, kernel_operands, kernel_supports
 
 
 def attentive_stats(
@@ -80,13 +81,14 @@ class AttentiveStatsPooling(nn.Module):
         wb, bb = self.out_linear.weight, self.out_linear.bias
         if use_kernel:
             zeros = torch.zeros(ch, device=x.device, dtype=torch.float32)
-            return attentive_pool_fused(
-                x.to(dt),
-                prescale if fold else zeros,
-                preshift if fold else zeros,
-                wa.t(), ba, wb.t(), bb,
-                self.eps, fold,
-            )
+            args = (x.to(dt), prescale if fold else zeros, preshift if fold else zeros,
+                    wa.t(), ba, wb.t(), bb)
+            if torch.compiler.is_exporting():
+                # a traced graph holds the forward kernel as one operator node
+                return torch.ops.titanet_torch.attentive_pool_fwd(
+                    *kernel_operands(*args), self.eps, fold
+                )
+            return attentive_pool_fused(*args, self.eps, fold)
         if fold:
             x = torch.relu(x.float() * prescale + preshift).to(dt)
         e = torch.tanh(F.linear(x.to(dt), wa.to(dt), ba.to(dt)))

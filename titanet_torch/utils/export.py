@@ -5,16 +5,19 @@ The embedding extractor is exported ahead of time with ``torch.export``
 ``torch.export.save``, weights included; it loads without the
 model-building code and runs on the device it was exported on.
 
-Kernel routing follows the frontend config, as in the JAX package. The
-default (``use_pallas_fused=False``) exports the plain torch frontend.
-With ``use_pallas_fused=True`` the graph holds the hand-written fused
-log-mel kernel as the operator ``torch.ops.titanet_torch.log_mel_fused``
-(:func:`titanet_torch.ops.kernels.melspec.log_mel_fused_op`): loading such
-an artifact needs ``titanet_torch.ops.kernels`` imported, which
-:func:`load_embedder` does. A model whose forward would reach another
-kernel through its ctypes wrapper (the bf16 attentive-pool kernel on the
-card) cannot be traced, and export raises rather than record the plain
-route.
+Kernel routing follows the frontend config and the model's dtype, as in
+the JAX package. The default (``use_pallas_fused=False``) exports the plain
+torch frontend. With ``use_pallas_fused=True`` the graph holds the
+hand-written fused log-mel kernel as the operator
+``torch.ops.titanet_torch.log_mel_fused``
+(:func:`titanet_torch.ops.kernels.melspec.log_mel_fused_op`). A bf16 model
+whose attentive pooling takes the fused kernel (TitaNet, the Conformer)
+holds the pool forward as ``torch.ops.titanet_torch.attentive_pool_fwd``
+(:func:`titanet_torch.ops.kernels.pool.attentive_pool_fwd_op`): the
+exported embedder pools unmasked, so it always reaches that kernel. Each
+operator launches its kernel on the card and runs its plain version on the
+CPU. Loading such an artifact needs ``titanet_torch.ops.kernels``
+imported, which :func:`load_embedder` does.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def export_embedder(
 def load_embedder(path_or_bytes) -> Callable:
     """Load an exported artifact (a path or the bytes); returns a callable
     module (frozen weights)."""
-    import titanet_torch.ops.kernels  # noqa: F401  (registers the fused log-mel operator)
+    import titanet_torch.ops.kernels  # noqa: F401  (registers the log-mel and pool operators)
 
     blob = path_or_bytes
     if isinstance(path_or_bytes, (str, os.PathLike)):
@@ -91,20 +94,6 @@ class _Embedder(nn.Module):
         return l2_normalize(self.model(mel))
 
 
-def _refuse_untraceable_kernels(model: nn.Module, device: torch.device) -> None:
-    """The attentive-pool kernel is reached through ctypes in a bf16 model
-    on the card; a traced graph cannot hold it."""
-    from titanet_torch.ops.pooling import AttentiveStatsPooling
-
-    bf16_pools = [m for m in model.modules()
-                  if isinstance(m, AttentiveStatsPooling) and m.dtype == torch.bfloat16]
-    if device.type == "cuda" and bf16_pools:
-        raise NotImplementedError(
-            "exporting a bf16 model with attentive pooling on the card needs the pool kernel "
-            "registered as an operator (ROADMAP Queue 1 item 11); export it in f32"
-        )
-
-
 def export_titanet_embedder(
     model: nn.Module,
     variables=None,
@@ -130,7 +119,6 @@ def export_titanet_embedder(
             model.load_state_dict(variables)
     frontend = frontend or FrontendConfig()
     device = next(model.parameters()).device
-    _refuse_untraceable_kernels(model, device)
     model.eval()
     example = (
         torch.zeros(batch_size, num_samples, dtype=torch.float32, device=device),
