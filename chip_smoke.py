@@ -7,8 +7,16 @@ Phases (any failure exits non-zero and prints no result):
   1. build the CUDA kernels from ``titanet_torch/csrc`` (one nvcc each, in
      parallel), timed;
   2. fused log-mel kernel vs its plain version at the serving shapes
-     (B=128 x 3 s), f32 (``logmel_kernel``, atol 1e-4) and bf16 (the
-     tensor-core ``logmel_tc_kernel``, atol 2e-3), timed by device time;
+     (B=128 x 3 s), f32 (``logmel_dmma_kernel``: the DFT on the f64 tensor
+     cores, the mel product split TF32; atol 1e-4; two calls equal to the
+     bit) and bf16 (the tensor-core ``logmel_tc_kernel``, atol 2e-3), timed
+     by device time; which kernel ran by its launch counter and its name in
+     a profiler trace; f32 beside its 3xTF32 bound (both products three
+     times at the TF32 rate), the bound of its design (the DFT at the f64
+     tensor-core rate, three passes over the filterbank tiles it multiplies
+     at the TF32 rate), its FP32-core bound, the unfused library route
+     (cuBLAS f32 products, TF32 off, then the power, mel product, log and
+     norm) and the replaced FP32-core design's time;
   3. attentive-pool kernel vs its plain version at B=128, T=301, C=1536,
      H=128, with and without the fold, bf16 (rtol 2e-2) and f32 (rtol 1e-4);
   4. ``embed_step`` on TitaNet-S (17 mega-blocks, random weights from seed
@@ -38,10 +46,14 @@ Phases (any failure exits non-zero and prints no result):
      weights the two routes agree (loss 1e-3, gradient cosine > 0.99), and
      the bf16 step's loss agrees with the f32 step's (5e-2);
   9. frames log-mel kernel vs its plain version on the N = 128 x 301 frames
-     of the phase-2 waveforms, "highest" (atol 1e-4; FP32 cores) and
-     "default" (atol 2e-3; tensor cores), and vs the fused kernel's output on
-     the same waveforms (the same limits), timed by device time; "default"
-     on frames of one tap each: the power rounded once (1e-6), not apart;
+     of the phase-2 waveforms, "highest" (atol 1e-4; the f64 tensor-core
+     DFT, ``mel_frames_dmma_kernel``, the fused f32 route's device
+     function: equal to the fused kernel's output to the bit, two calls
+     equal to the bit; its bounds, library route and replaced design as in
+     phase 2) and "default" (atol 2e-3; bf16 tensor cores; vs the fused
+     kernel's output within the same limit), timed by device time;
+     "default" on frames of one tap each: the power rounded once (1e-6), not
+     apart;
   10. mega-block kernel vs its plain version at B=128, T=301, S=3, (C, k) =
      (256, 3), (512, 7), (1024, 11), f32 (1e-4 of the largest entry) and
      bf16 (one bf16 ulp of it), biases of std 0.3 so the edge rows carry
@@ -154,7 +166,7 @@ Phases (any failure exits non-zero and prints no result):
      with ``use_pallas_fused``: the graph holds the log-mel and pool-forward
      operators, each kernel launched once a call, cosine drift vs
      ``embed_step`` under 1e-5, ms a call; (c) ``profiling.trace`` around
-     three ``embed_step`` calls (the trace names ``logmel_kernel``),
+     three ``embed_step`` calls (the trace names ``logmel_dmma_kernel``),
      ``StepProfiler`` over ten, ``device_memory_stats`` (0 < in use <= peak
      <= the card's memory); (d) an epoch with ``figures.enabled``, ``infer
      --fig`` and ``trials --det-out``: the PNGs where matplotlib imports,
@@ -184,7 +196,10 @@ Phases (any failure exits non-zero and prints no result):
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
 kernels, the pallas-route training step for the backward kernels, the
-fused serving call for the frames and mega-block kernels; rows 1-4 also
+fused serving call for the frames and mega-block kernels; the f32 routes
+of rows 1, 5 and 6 in ``f32_*`` keys: the train step's log-mel launch, the
+f32 fused serving call's; ``f32_bound_ms`` is the 3xTF32 bound, rows 1 and
+6 add ``f32_design_bound_ms``, the f64 tensor-core design's; rows 1-4 also
 ``zoo_trainer_launches``: each zoo family's launches in its phase-15
 trainer run, ``device_corpus_trainer_launches``: phase 16's
 device-resident ``cli.train``, and ``ddp_trainer_launches``: rank 0's
@@ -209,7 +224,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}  # FP32 CUDA cores; tensor cores
+# FP32 CUDA cores; tensor cores (bf16, TF32, f64)
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12, "float64_tc": 67e12}
 B, SECONDS, SR = 128, 3, 16000
 # Least cosine of the fused serving path vs embed_step of the same model: the
 # fused kernel's edge rows (the first and last (S-1)*pad rows of every
@@ -241,7 +257,12 @@ PREV_MS = {
     # and shapes, profiler device time); and the fused f32 serving call of
     # phase 11 it ran in: median wall ms and device ms a call
     ("megablock_f32", 256): 0.7166, ("megablock_f32", 512): 2.9906, ("megablock_f32", 1024): 27.2492,
-    ("fused_f32", "median"): 25.335, ("fused_f32", "device"): 24.273,
+    # the f32 log-mel routes on the FP32 cores (logmel_kernel<float>,
+    # mel_frames_kernel), before the f64 tensor-core design (same card and
+    # shapes, profiler device time); and the fused f32 serving call of phase
+    # 11 with that frames kernel: median wall ms and device ms a call
+    ("logmel", "f32"): 1.1953, ("mel_frames", "highest"): 1.5583,
+    ("fused_f32", "median"): 19.373, ("fused_f32", "device"): 18.775,
 }
 DW_KERNELS = ("dw_bwd_kernel", "dw_reduce_kernel")
 # the kernels of csrc/attn_pool.cu, both routes, forward and backward
@@ -380,6 +401,85 @@ def bound_ms(n_bytes: float, n_ops: float, dtype: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def logmel_f32_costs(n_rows: int, n_bytes: float, frames, basis, fb, k_lo: int = 56, k_hi: int = 400 + 56):
+    """The f32 log-mel of ``n_rows`` frames at TitaNet's frontend:
+    ``(bound ms, bound_by, design bound ms, FP32-core bound ms, unfused
+    library route ms, note)``. The work is the DFT of the 400 window taps (2
+    x 400 x 514 a frame) and the dense mel product (2 x 257 x 80). The bound
+    is split TF32's: both products three times at the TF32 tensor-core rate.
+    The design bound is the f64 tensor-core design's own: the DFT at the f64
+    tensor-core rate, the mel product three times at the TF32 rate over the
+    filterbank tiles the kernels multiply (the non-zero (8-bin group, 8-mel)
+    tiles of ``dmma_filterbank``). The FP32-core bound takes both products
+    once at the FP32 rate. Each is held against ``n_bytes`` at the memory
+    rate. The library route (``frames [..., n_fft]``, a view) is what the
+    kernel fuses, as separate PyTorch calls: the two cuBLAS f32 products of
+    the window taps (TF32 off), the power, the mel product, the log and the
+    norm; its device time is all its kernels'."""
+    import torch
+
+    from titanet_torch.ops.kernels.melspec import dmma_filterbank
+
+    dft_ops, mel_ops = 2 * n_rows * 400 * 2 * 257, 2 * n_rows * 257 * 80
+    ops = dft_ops + mel_ops
+    n_tiles = sum(bin(int(m)).count("1") for m in dmma_filterbank(fb)[1][0].tolist())
+    tile_ops = 2 * n_rows * 8 * 8 * n_tiles
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    bms, by = bound_ms(n_bytes, 3 * ops, "tf32")
+    design_ms = max(dft_ops / PEAK_OPS["float64_tc"] + 3 * tile_ops / PEAK_OPS["tf32"], t_bytes) * 1e3
+    fp32_core_ms, _ = bound_ms(n_bytes, ops, "float32")
+
+    def library_route():
+        f = frames[..., k_lo:k_hi]
+        re, im = f @ basis[0, k_lo:k_hi], f @ basis[1, k_lo:k_hi]
+        db = 10.0 * torch.log10(torch.clamp((re * re + im * im) @ fb, min=1e-10))
+        return db / torch.clamp(torch.linalg.vector_norm(db, dim=-1, keepdim=True), min=1e-12)
+
+    lib_ms, _ = device_ms(library_route, iters=10)
+    note = (f"3xTF32 bound {bms:.4f} ms ({by}; 3 x {ops / 1e9:.2f} GFLOP at 495 TFLOP/s TF32), design bound "
+            f"{design_ms:.4f} ms ({dft_ops / 1e9:.2f} GFLOP at 67 TFLOP/s f64 tensor cores + 3 x "
+            f"{tile_ops / 1e9:.3f} GFLOP over the {n_tiles} filterbank tiles at 495 TFLOP/s TF32), FP32-core "
+            f"bound {fp32_core_ms:.4f} ms, unfused library route {lib_ms:.4f} ms (device time)")
+    return bms, by, design_ms, fp32_core_ms, lib_ms, note
+
+
+def ran_kernel(fn, kernel: str, counter, attr: str, iters: int = 10, attempts: int = 3) -> str:
+    """Holds that ``fn()`` launched ``kernel``: its wrapper's ``attr``
+    counter (``counter``) moved by one in one call, and a profiler trace of
+    ``iters`` calls, after a traced warm-up cycle of as many, records
+    log-mel kernels named ``kernel`` and no other, at most one a call. A
+    trace can lose records (see :func:`device_profile`; after phase 8 a
+    whole trace of ten calls was not always had in three attempts), so fewer
+    than ``iters`` is no fault; a trace that records no log-mel kernel is
+    taken again, ``attempts`` in all. Returns what the trace recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    before = getattr(counter, attr)
+    fn()
+    torch.cuda.synchronize()
+    moved = getattr(counter, attr) - before
+    names = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and ("logmel" in e.name or "mel_frames" in e.name)]
+        if names:
+            break
+    named = sum(kernel in n for n in names)
+    if moved != 1 or not names or named != len(names) or len(names) > iters:
+        raise AssertionError(f"expected one {kernel} launch a call: {attr} moved by {moved}; the profiler "
+                             f"recorded {len(names)} log-mel kernels over {iters} calls, {named} named {kernel}")
+    return f"{named} {kernel} launches recorded over {iters} calls in the profiler's trace, no other log-mel kernel"
 
 
 # Trainer phase (13): TitaNet-S at full width (17 mega-blocks, hidden 256,
@@ -549,6 +649,7 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str, label: str = "trainer") ->
 
     # the log-mel kernel on every batch, with the lengths each step passes
     mel_err, mel_calls, ragged = 0.0, 0, 0
+    dmma_before = log_mel_fused.dmma_launches
     for kind, batches in staged.items():
         for (wav, lengths, _), batch in batches:
             uniform = int(batch.lengths.min()) == wav.shape[1]
@@ -562,7 +663,10 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str, label: str = "trainer") ->
                                      f"max abs err {err} > 1e-4")
             mel_err, mel_calls = max(mel_err, err), mel_calls + 1
             ragged += lens is not None and not uniform
-    print(f"{label} kernels vs plain: log-mel f32 (logmel_kernel) on all {mel_calls} batches of the "
+    if log_mel_fused.dmma_launches - dmma_before != mel_calls:
+        raise AssertionError(f"{label}: {log_mel_fused.dmma_launches - dmma_before} of {mel_calls} f32 log-mel "
+                             "launches ran logmel_dmma_kernel")
+    print(f"{label} kernels vs plain: log-mel f32 (logmel_dmma_kernel) on all {mel_calls} batches of the "
           f"trainer's train/validation/test loaders ({ragged} with ragged lengths), "
           f"max abs err {mel_err:.3e} (atol 1e-4) {tag}")
 
@@ -806,8 +910,8 @@ class embedding_calls:
     the path looks the kernels up by (``frontend._log_mel_fused`` with the
     waveform, config and lengths it turns into the kernel's operands;
     ``pooling.attentive_pool_fused``) and the output. On exit ``calls``,
-    ``launches``, ``tc_launches``, ``pool_launches``, ``mel`` and ``pool``
-    hold them."""
+    ``launches``, ``tc_launches``, ``dmma_launches``, ``pool_launches``,
+    ``mel`` and ``pool`` hold them."""
 
     def __enter__(self):
         from titanet_torch.ops import frontend, pooling
@@ -823,7 +927,8 @@ class embedding_calls:
         self._wrap(frontend, "_log_mel_fused", self._keep_mel)
         self._wrap(pooling, "attentive_pool_fused", self._keep_pool)
         self._mel_fn, self._pool_fn = log_mel_fused, attentive_pool_fwd
-        log_mel_fused.launches = log_mel_fused.tc_launches = attentive_pool_fwd.launches = 0
+        log_mel_fused.launches = log_mel_fused.tc_launches = log_mel_fused.dmma_launches = 0
+        attentive_pool_fwd.launches = 0
         return self
 
     def _wrap(self, mod, name, make):
@@ -862,6 +967,7 @@ class embedding_calls:
         for mod, name, fn in reversed(self._saved):
             setattr(mod, name, fn)
         self.launches, self.tc_launches = self._mel_fn.launches, self._mel_fn.tc_launches
+        self.dmma_launches = self._mel_fn.dmma_launches
         self.pool_launches = self._pool_fn.launches
         return False
 
@@ -908,7 +1014,8 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
     miss, returns the summary.
 
     ``mel`` ``"f32"`` or ``"bf16"``: every embedding call launched the fused
-    log-mel kernel once (bf16: the tensor-core one), and each launch,
+    log-mel kernel once (bf16: the bf16 tensor-core one, f32: the f64
+    tensor-core one), and each launch,
     replayed on its own operands (the bucket width, the lengths, the filler
     rows of length 1 that ``SpeakerEmbedder`` pads a group with, which
     ``fillers`` requires to be among them), gives the command's output bit
@@ -924,9 +1031,11 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
     want_pool = calls.calls if pool else 0
     if calls.calls == 0 or calls.launches != want_mel or len(calls.mel) != want_mel \
             or calls.tc_launches != (want_mel if mel == "bf16" else 0) \
+            or calls.dmma_launches != (want_mel if mel == "f32" else 0) \
             or calls.pool_launches != want_pool or len(calls.pool) != want_pool:
         raise AssertionError(f"{what}: {calls.calls} embedding calls; {calls.launches} log-mel launches "
-                             f"({calls.tc_launches} tensor-core, {len(calls.mel)} kept), expected {want_mel} "
+                             f"({calls.tc_launches} bf16 tensor-core, {calls.dmma_launches} f64 tensor-core, "
+                             f"{len(calls.mel)} kept), expected {want_mel} "
                              f"{mel}; {calls.pool_launches} pool-forward launches ({len(calls.pool)} kept), "
                              f"expected {want_pool}")
     summary = {"calls": calls.calls, "launches": calls.launches, "pool_launches": calls.pool_launches}
@@ -937,7 +1046,7 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
         if fillers and n_fillers == 0:
             raise AssertionError(f"{what}: no launch held filler rows")
         summary["max_abs_err"] = err
-        route = "logmel_tc_kernel, bf16" if mel == "bf16" else "logmel_kernel, f32"
+        route = "logmel_tc_kernel, bf16" if mel == "bf16" else "logmel_dmma_kernel, f32"
         line += (f", all through the log-mel kernel ({route});"
                  f" replayed on every launch's operands, the command's output bit for bit, vs plain (buffers "
                  f"{sorted(widths)}, {n_fillers} filler rows of length 1): max abs err {err:.3e} (atol {atol})")
@@ -1786,7 +1895,7 @@ def utilities_phase(root: str, n_speakers: int, tag: str) -> dict:
         want = 1 if fused else 0
         if out.shape != (EXPORT_B, 192) or not torch.isfinite(out).all() or cos.min().item() <= 0.99999:
             raise AssertionError(f"export (fused={fused}): shape {tuple(out.shape)}, cosines vs embed_step {cos}")
-        if op_launches != want or len(mel_kernels) != want or (fused and "logmel_kernel" not in mel_kernels[0]):
+        if op_launches != want or len(mel_kernels) != want or (fused and "logmel_dmma_kernel" not in mel_kernels[0]):
             raise AssertionError(f"export (fused={fused}): {op_launches} log-mel wrapper launches, traced "
                                  f"kernels {mel_kernels}, expected {want}")
         med, lo, hi = median_ms(lambda: served(wav8, len8))
@@ -1851,8 +1960,8 @@ def utilities_phase(root: str, n_speakers: int, tag: str) -> dict:
         torch.cuda.synchronize()
     traces = glob.glob(os.path.join(logdir, "*.json"))
     text = open(traces[0]).read() if len(traces) == 1 else ""
-    if "logmel_kernel" not in text:
-        raise AssertionError(f"profiling: trace files {traces} do not name logmel_kernel")
+    if "logmel_dmma_kernel" not in text:
+        raise AssertionError(f"profiling: trace files {traces} do not name logmel_dmma_kernel")
     sp, box = tp.StepProfiler(), {}
     for _ in range(10):
         with sp.step("embed_step_b8", lambda: box["e"]):
@@ -1862,7 +1971,7 @@ def utilities_phase(root: str, n_speakers: int, tag: str) -> dict:
     if not (0 < mem["bytes_in_use"] <= mem["peak_bytes_in_use"] <= mem["bytes_limit"] == total):
         raise AssertionError(f"profiling: device_memory_stats {mem}, card memory {total}")
     print(f"profiling: trace() of 3 embed_step calls wrote {os.path.basename(traces[0])} "
-          f"({len(text) / 1e6:.2f} MB, names logmel_kernel); StepProfiler over 10 steps {sp.summary()}; "
+          f"({len(text) / 1e6:.2f} MB, names logmel_dmma_kernel); StepProfiler over 10 steps {sp.summary()}; "
           f"device_memory_stats {mem} {tag}")
 
     # (d) figures: one epoch with figures.enabled, infer --fig, trials --det-out
@@ -2034,7 +2143,7 @@ def ddp_steps(work: str, mesh=None, dtype: str = "bfloat16", lr=None, dropout=No
         return out
     # the held kernels: the log-mel kernel on each step's operands, then the
     # pool forward/backward and every dw_bwd launch of the first step
-    mel_err = 0.0
+    mel_err, dmma_before = 0.0, log_mel_fused.dmma_launches
     for wav, lengths, _ in batches:
         args, kw = tf.log_mel_fused_operands(ts._dequantize_waveform(wav), frontend, lengths)
         mel = log_mel_fused(*args, **kw)
@@ -2046,7 +2155,9 @@ def ddp_steps(work: str, mesh=None, dtype: str = "bfloat16", lr=None, dropout=No
     if len(kept["pool"]) != 1 or "g" not in kept["pool"][0] or len(kept["dw"]) != n_dw:
         raise AssertionError(f"data-parallel step: kept {len(kept['pool'])} pool calls, {len(kept['dw'])} "
                              "depthwise convs")
-    out["checks"] = [f"log-mel f32 (logmel_kernel) on the {DDP_STEPS} steps' rows, max abs err {mel_err:.3e} "
+    if log_mel_fused.dmma_launches - dmma_before != len(batches):
+        raise AssertionError("data-parallel log-mel f32: not every launch ran logmel_dmma_kernel")
+    out["checks"] = [f"log-mel f32 (logmel_dmma_kernel) on the {DDP_STEPS} steps' rows, max abs err {mel_err:.3e} "
                      "(atol 1e-4)", replay_pool(kept["pool"][0], "first step"),
                      replay_dw(kept["dw"], "the first step")]
     return out
@@ -2294,6 +2405,9 @@ def main() -> int:
     from titanet_torch.ops.kernels import pool as pool_kernels
     from titanet_torch.ops.kernels.megablock import fused_sub_blocks, fused_sub_blocks_plain, kernel_design
     from titanet_torch.ops.kernels.melspec import (
+        KERNEL_DESIGNS,
+        frames_kernel,
+        fused_kernel,
         log_mel_frames,
         log_mel_frames_plain,
         log_mel_fused,
@@ -2337,20 +2451,23 @@ def main() -> int:
     # 700 W), a square summed in another order landing on the other side of
     # a bf16 rounding
     buf32, n_frames, _ = tf._framing_buffer(wav, 512, 160, lengths)
-    for cfg, dt, atol, kernel in ((cfg32, torch.float32, 1e-4, "logmel_kernel"),
-                                  (cfg16, torch.bfloat16, 2e-3, "logmel_tc_kernel")):
+    for cfg, dt, atol, want, attr in ((cfg32, torch.float32, 1e-4, "logmel_dmma_kernel", "dmma_launches"),
+                                      (cfg16, torch.bfloat16, 2e-3, "logmel_tc_kernel", "tc_launches")):
         buf = buf32.to(dt).contiguous()
         _, _, _, basis, fb = tf._constants(cfg, dev, dt)
+        kernel = fused_kernel(dt, 512, 400, 160, 80)
+        if kernel != want:
+            raise AssertionError(f"log-mel {dt}: the router names {kernel}, expected {want}")
         run = lambda: log_mel_fused(buf, lengths, basis, fb, n_frames=n_frames, hop=160, win_length=400)  # noqa: E731
         plain = lambda: log_mel_fused_plain(buf, lengths, basis, fb, n_frames=n_frames, hop=160)  # noqa: E731
-        tc_before = log_mel_fused.tc_launches
-        out, ref = run(), plain()
+        traced = ran_kernel(run, kernel, log_mel_fused, attr)
+        out, again, ref = run(), run(), plain()
         torch.cuda.synchronize()
-        if log_mel_fused.tc_launches - tc_before != (dt == torch.bfloat16):
-            raise AssertionError(f"log-mel {dt}: expected {kernel}")
         err = (out - ref).abs().max().item()
         if not torch.isfinite(out).all() or err > atol:
             raise AssertionError(f"log-mel {dt}: max abs err {err} > {atol}")
+        if dt == torch.float32 and not torch.equal(out, again):
+            raise AssertionError("log-mel f32: two calls differ")
         n_bins, n_mels = 257, 80
         ops = 2 * B * n_frames * (400 * 2 * n_bins + n_bins * n_mels)
         # the buffer, the basis rows of the 400 window taps, fb, the output
@@ -2360,11 +2477,21 @@ def main() -> int:
         ms, timed_by = device_ms(run, names=(kernel,), iters=20)
         pms = cuda_ms(plain, iters=5)
         report[("logmel", dt)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                      timed_by=timed_by)
-        was = f"; FP32-core design: {PREV_MS['logmel', 'bf16']} ms by events" if dt == torch.bfloat16 else ""
-        print(f"logmel {dt} ({kernel}): max_abs_err {err:.3e} (atol {atol}); kernel {ms:.4f} ms (device time, "
-              f"{timed_by}{was}), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB) {tag}")
+                                      timed_by=timed_by, design=KERNEL_DESIGNS[kernel])
+        if dt == torch.float32:
+            frames_view = buf.unfold(1, 512, 160)[:, :n_frames]
+            t3, by3, design_ms, fp32_core_ms, lib_ms, note = logmel_f32_costs(B * n_frames, nbytes, frames_view,
+                                                                              basis, fb)
+            report[("logmel", dt)].update(bound_ms=t3, bound_by=by3, design_bound_ms=design_ms,
+                                          fp32_core_bound_ms=fp32_core_ms, unfused_ms=lib_ms)
+            print(f"logmel f32 ({kernel}: {KERNEL_DESIGNS[kernel]}; {traced}): max_abs_err {err:.3e} "
+                  f"(atol {atol}); two calls equal bits; kernel {ms:.4f} ms (device time, {timed_by}; replaced "
+                  f"FP32-core design: {PREV_MS['logmel', 'f32']} ms), plain {pms:.4f} ms, {note}; "
+                  f"{nbytes / 1e6:.1f} MB {tag}")
+            continue
+        print(f"logmel {dt} ({kernel}; {traced}): max_abs_err {err:.3e} (atol {atol}); kernel {ms:.4f} "
+              f"ms (device time, {timed_by}; FP32-core design: {PREV_MS['logmel', 'bf16']} ms by events), plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) {tag}")
 
     # 3. attentive-pool kernel vs plain
     t_frames, ch, hid = n_frames, 1536, 128
@@ -2598,10 +2725,13 @@ def main() -> int:
         st = new_state(torch.bfloat16, 0.5)
         for fn in counters.values():
             fn.launches = 0
+        log_mel_fused.dmma_launches = 0
         st, met = ts.train_step(st, wav_t, lengths, spk, frontend=cfg_train)
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in counters.items()}
-        expect = {"logmel": 1, "pool_fwd": 1, "pool_bwd": 1, "dw_bwd": 51 if route == "pallas" else 0}
+        counts["logmel_dmma"] = log_mel_fused.dmma_launches
+        expect = {"logmel": 1, "pool_fwd": 1, "pool_bwd": 1, "dw_bwd": 51 if route == "pallas" else 0,
+                  "logmel_dmma": 1}
         if counts != expect:
             raise AssertionError(f"train_step {route}: launches {counts}, expected {expect}")
         train_launches[route] = counts
@@ -2681,32 +2811,54 @@ def main() -> int:
     for cfg, dt, atol in ((cfg32, torch.float32, 1e-4), (cfg16, torch.bfloat16, 2e-3)):
         _, _, _, basis, fb = tf._constants(cfg, dev, dt)
         buf = buf32.to(dt).contiguous()
+        kernel = frames_kernel(cfg.precision, 512, 400, 80)
+        want = "mel_frames_dmma_kernel" if dt == torch.float32 else "mel_frames_tc_kernel"
+        if kernel != want:
+            raise AssertionError(f"mel_frames {cfg.precision}: the router names {kernel}, expected {want}")
         run = lambda: log_mel_frames(frames, basis, fb, precision=cfg.precision, win_length=400)  # noqa: E731
         plain = lambda: log_mel_frames_plain(frames, basis, fb, precision=cfg.precision)  # noqa: E731
         fused = lambda: log_mel_fused(buf, lengths, basis, fb, n_frames=n_frames, hop=160, win_length=400)  # noqa: E731
-        out, ref, other = run(), plain(), fused().reshape(B * n_frames, 80)
+        traced = ran_kernel(run, kernel, log_mel_frames, "dmma_launches") if dt == torch.float32 else \
+            ran_kernel(run, kernel, log_mel_frames, "launches")
+        out, again, ref, other = run(), run(), plain(), fused().reshape(B * n_frames, 80)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         err_fused = (out - other).abs().max().item()
         if not torch.isfinite(out).all() or err > atol or err_fused > atol:
             raise AssertionError(f"mel_frames {cfg.precision}: max abs err {err} vs plain, {err_fused} vs the "
                                  f"fused kernel > {atol}")
+        # "highest": the frames and fused kernels run one device function on
+        # the same f32 operands (the waveforms' full lengths mask nothing)
+        if dt == torch.float32 and not (torch.equal(out, other) and torch.equal(out, again)):
+            raise AssertionError(f"mel_frames highest: equal to the fused kernel's output {torch.equal(out, other)}, "
+                                 f"two calls equal {torch.equal(out, again)}")
         ops = 2 * B * n_frames * (400 * 2 * 257 + 257 * 80)
         # the function reads the 400 window taps of each frame and their
         # basis rows, fb, and writes the output
         nbytes = B * n_frames * 400 * 4 + out.numel() * 4 + (2 * 400 * 257 + fb.numel()) * basis.element_size()
         bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
-        ms, timed_by = device_ms(run, names=("mel_frames",), iters=20)
-        fms, _ = device_ms(fused, names=("logmel_kernel", "logmel_tc_kernel"), iters=20)
+        ms, timed_by = device_ms(run, names=(kernel,), iters=20)
+        fms, _ = device_ms(fused, names=(fused_kernel(dt, 512, 400, 160, 80),), iters=20)
         pms = cuda_ms(plain, iters=5)
         report[("mel_frames", dt)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                          timed_by=timed_by)
+                                          timed_by=timed_by, design=KERNEL_DESIGNS[kernel])
         was = PREV_MS.get(("mel_frames", cfg.precision))
-        print(f"mel_frames {cfg.precision}: N={B * n_frames}; max_abs_err {err:.3e} vs plain, {err_fused:.3e} vs the "
-              f"fused kernel (atol {atol}); kernel {ms:.4f} ms (device time, {timed_by}"
-              f"{f'; FP32-core design: {was} ms by events' if was else ''}), plain {pms:.4f} ms, fused kernel on "
-              f"the same waveforms {fms:.4f} ms (device time), bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB) {tag}")
+        if dt == torch.float32:
+            t3, by3, design_ms, fp32_core_ms, lib_ms, note = logmel_f32_costs(B * n_frames, nbytes, frames, basis,
+                                                                              fb)
+            report[("mel_frames", dt)].update(bound_ms=t3, bound_by=by3, design_bound_ms=design_ms,
+                                              fp32_core_bound_ms=fp32_core_ms, unfused_ms=lib_ms)
+            print(f"mel_frames highest ({kernel}: {KERNEL_DESIGNS[kernel]}; {traced}): N={B * n_frames}; "
+                  f"max_abs_err {err:.3e} vs plain (atol {atol}); equal to the fused kernel's output on the same "
+                  f"waveforms to the bit; two calls equal bits; kernel {ms:.4f} ms (device time, {timed_by}; "
+                  f"replaced FP32-core design: {was} ms), plain {pms:.4f} ms, fused kernel on the same waveforms "
+                  f"{fms:.4f} ms (device time), {note}; {nbytes / 1e6:.1f} MB {tag}")
+            continue
+        print(f"mel_frames {cfg.precision} ({kernel}; {traced}): N={B * n_frames}; max_abs_err {err:.3e} vs "
+              f"plain, {err_fused:.3e} vs the fused kernel (atol {atol}); kernel {ms:.4f} ms (device time, "
+              f"{timed_by}{f'; FP32-core design: {was} ms by events' if was else ''}), plain {pms:.4f} ms, fused "
+              f"kernel on the same waveforms {fms:.4f} ms (device time), bound {bms:.4f} ms ({by}; "
+              f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) {tag}")
     # Fault 3: "default" rounds re^2 + im^2 to bf16 once. One power-of-two
     # tap a frame makes re^2 and im^2 exact, so the kernel and its plain
     # version round the same power: 1e-6; rounding them apart lands further
@@ -2728,7 +2880,7 @@ def main() -> int:
                              f"(limit 1e-6), {e_apart} vs rounded apart (must exceed 1e-5)")
     print(f"mel_frames default, Fault 3: on 4096 one-tap frames max abs err {e_once:.3e} vs the power rounded once "
           f"(limit 1e-6), {e_apart:.3e} vs re^2 and im^2 rounded apart (must exceed 1e-5) {tag}")
-    del frames, buf32, buf, out, ref, other, one_tap, once, apart, re, im, db
+    del frames, buf32, buf, out, again, ref, other, one_tap, once, apart, re, im, db
 
     # 10. mega-block kernel vs plain; the unfused library route beside it
     n_sub = 3
@@ -2836,12 +2988,13 @@ def main() -> int:
     for label, dt, cfg, tol, min_cos in (("bf16", torch.bfloat16, cfg16, 1e-2, FUSED_VS_EMBED_STEP_BF16),
                                          ("f32", None, cfg32, 1e-5, FUSED_VS_EMBED_STEP_F32)):
         model = get_titanet(n_mega_blocks=17, dtype=dt, device=dev, generator=torch.Generator().manual_seed(0))
-        log_mel_frames.launches = fused_sub_blocks.launches = 0
+        log_mel_frames.launches = log_mel_frames.dmma_launches = fused_sub_blocks.launches = 0
         emb = fused_serve(model, cfg)
         torch.cuda.synchronize()
         counts = {"mel_frames": log_mel_frames.launches, "megablock": fused_sub_blocks.launches}
-        if counts != {"mel_frames": 1, "megablock": 17}:
-            raise AssertionError(f"fused serving {label}: launches {counts}")
+        if counts != {"mel_frames": 1, "megablock": 17} or log_mel_frames.dmma_launches != (dt is None):
+            raise AssertionError(f"fused serving {label}: launches {counts}, f64 tensor-core frames launches "
+                                 f"{log_mel_frames.dmma_launches}")
         fused_launches[label] = counts
         check_embeddings(emb, tol, f"fused serving {label}")
         ref = embed_step(model, wav, lengths, frontend=cfg, device=dev)
@@ -2868,7 +3021,7 @@ def main() -> int:
         emed, elo, ehi = median_ms(lambda: embed_step(model, wav, lengths, frontend=cfg, device=dev))
         dev_ms, timed_by = device_ms(lambda: fused_serve(model, cfg), iters=5)
         was = "" if dt is not None else (
-            f" (with the replaced fp32-core mega-block: median {PREV_MS['fused_f32', 'median']} ms, device "
+            f" (with the replaced FP32-core frames kernel: median {PREV_MS['fused_f32', 'median']} ms, device "
             f"{PREV_MS['fused_f32', 'device']} ms)")
         print(f"fused serving {label}: launches per call {counts}; min cosine vs embed_step {cos:.7f} (all-plain "
               f"fused route vs embed_step {cos_plain_ref:.7f}; limit {min_cos}); kernel route vs all-plain route "
@@ -2926,6 +3079,10 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # the f32 log-mel routes' launches on their paths: the train step's
+    # (its frontend is "highest"), the f32 fused serving call's
+    f32_launches = {"logmel": train_launches["pallas"]["logmel_dmma"],
+                    "mel_frames": fused_launches["f32"]["mel_frames"]}
     kernels = []
     for key, name_, src, line, path_launches, zoo_key in (
         (("logmel", torch.bfloat16), "logmel_fused", "titanet_torch/csrc/logmel.cu",
@@ -2944,6 +3101,13 @@ def main() -> int:
         r = report[key]
         zoo = {fam: n[zoo_key] for fam, n in zoo_launches.items()} if zoo_key else {}
         extra = {}
+        if key[0] in ("logmel", "mel_frames"):  # the f32 route at the same shape
+            f = report[key[0], torch.float32]
+            extra = {"f32_design": f["design"], "f32_launches": f32_launches[key[0]],
+                     "f32_max_abs_err": f["max_abs_err"], "f32_ms": f["ms"], "f32_plain_ms": f["plain_ms"],
+                     "f32_bound_ms": f["bound_ms"], "f32_bound_by": f["bound_by"],
+                     "f32_design_bound_ms": f["design_bound_ms"],
+                     "f32_fp32_core_bound_ms": f["fp32_core_bound_ms"], "f32_unfused_library_ms": f["unfused_ms"]}
         if key[0] == "megablock":  # the f32 route at the same shape, its launches those of the f32 fused call
             f = report["megablock", key[1], torch.float32]
             extra = {"f32_design": f["design"], "f32_launches": fused_launches["f32"]["megablock"],

@@ -16,6 +16,8 @@ import torch
 from titanet_torch.ops import frontend as tf
 from titanet_torch.ops.kernels import dwconv, megablock
 from titanet_torch.ops.kernels.melspec import (
+    frames_kernel,
+    fused_kernel,
     log_mel_frames,
     log_mel_frames_plain,
     log_mel_fused,
@@ -83,7 +85,13 @@ def test_mel_kernel_matches_plain(cuda_device, precision, geometry):
     buf, n_frames, _ = tf._framing_buffer(wav, n_fft, hop, lengths)
     _, _, _, basis, fb = tf._constants(cfg, cuda_device, dtype)
     buf = buf.to(dtype).contiguous()
+    kernel = fused_kernel(dtype, n_fft, win, hop, 80)
+    if geometry == (512, 400, 160) and dtype == torch.float32:
+        assert kernel == "logmel_dmma_kernel"  # TitaNet's frontend: the f64 tensor-core DFT
+    before = (log_mel_fused.launches, log_mel_fused.dmma_launches)
     out = log_mel_fused(buf, lengths, basis, fb, n_frames=n_frames, hop=hop, win_length=win)
+    assert (log_mel_fused.launches - before[0], log_mel_fused.dmma_launches - before[1]) == (
+        1, int(kernel == "logmel_dmma_kernel"))
     ref = log_mel_fused_plain(buf, lengths, basis, fb, n_frames=n_frames, hop=hop)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(out, ref, rtol=0, atol=tol)
@@ -154,6 +162,139 @@ def test_fused_tc_kernel_rounds_re2_and_im2_apart(cuda_device):
     assert torch.isfinite(out).all()
     assert (out - apart).abs().max().item() <= 1e-6
     assert (out - once).abs().max().item() > 1e-5
+
+
+def _tones_with_silence(seed, b, t, lengths, floor=1e-3):
+    """Tones of a few frequencies and levels over a noise floor of std
+    ``floor``, silent (exact zeros) in two stretches of each row, zero past
+    each row's length (the input of tests/test_torch_logmel_tf32.py)."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(t) / 16000.0
+    wav = np.zeros((b, t), np.float32)
+    for i in range(b):
+        for _ in range(3):
+            wav[i] += rng.uniform(0.05, 0.5) * np.sin(2 * np.pi * rng.uniform(80, 7000) * n + rng.uniform(0, 6))
+        wav[i] += rng.standard_normal(t) * floor
+        for _ in range(2):
+            start = rng.integers(0, t - 4000)
+            wav[i, start : start + rng.integers(1500, 4000)] = 0.0
+        wav[i, lengths[i] :] = 0.0
+    return wav
+
+
+@pytest.mark.cuda
+def test_f32_routes_hold_silent_stretches(cuda_device):
+    """Tones with silent stretches and a ragged zero tail, TitaNet's
+    frontend: both f32 routes run the f64 tensor-core kernels and stay
+    within 1e-4 of their plain versions, where one TF32 pass on the DFT
+    lands 6e-2 away (tests/test_torch_logmel_tf32.py emulates both); masked
+    rows zero."""
+    lengths = [32000, 25000, 17123]
+    wav = torch.from_numpy(_tones_with_silence(4, 3, 32000, lengths)).to(cuda_device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    cfg = tf.FrontendConfig.from_ms()
+    _, _, _, basis, fb = tf._constants(cfg, cuda_device, torch.float32)
+    buf, n_frames, _ = tf._framing_buffer(wav, 512, 160, lens)
+    buf = buf.contiguous()
+    before = (log_mel_fused.dmma_launches, log_mel_frames.dmma_launches)
+    out = log_mel_fused(buf, lens, basis, fb, n_frames=n_frames, hop=160, win_length=400)
+    frames = tf.frame_signal(wav, 512, 160, lengths=lens).reshape(-1, 512).contiguous()
+    fout = log_mel_frames(frames, basis, fb, precision="highest", win_length=400)
+    torch.cuda.synchronize()
+    assert (log_mel_fused.dmma_launches - before[0], log_mel_frames.dmma_launches - before[1]) == (1, 1)
+    ref = log_mel_fused_plain(buf, lens, basis, fb, n_frames=n_frames, hop=160)
+    fref = log_mel_frames_plain(frames, basis, fb, precision="highest")
+    assert torch.isfinite(out).all() and torch.isfinite(fout).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert (fout - fref).abs().max().item() <= 1e-4
+    assert not out[2, 1 + lengths[2] // 160 :].any()
+
+
+def _log_mel_f64(frames, basis, fb):
+    """The normalized log-mel of ``frames [..., n_fft]`` in f64 throughout."""
+    b64 = basis.double()
+    f = frames.double()
+    re, im = f @ b64[0], f @ b64[1]
+    db = 10.0 * torch.log10(((re * re + im * im) @ fb.double()).clamp(min=1e-10))
+    return db / torch.linalg.vector_norm(db, dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+@pytest.mark.cuda
+def test_f32_routes_are_exact_on_pure_tones(cuda_device):
+    """Pure tones (no noise floor) with digital silence and a ragged zero
+    tail, TitaNet's frontend. There the mel bands between the tones sit 130
+    dB below the loudest, and f32's own rounding moves the plain versions
+    past 1e-4 from the f64 result (1.9e-4 in tests/test_torch_logmel_tf32.py's
+    emulation): the f64 tensor-core DFT holds both routes within 1e-6 of the
+    f64 result, so they depart from the plain versions by what the plain
+    versions' own rounding puts there, and no further."""
+    lengths = [32000, 25000, 17123]
+    wav = torch.from_numpy(_tones_with_silence(4, 3, 32000, lengths, floor=0.0)).to(cuda_device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    cfg = tf.FrontendConfig.from_ms()
+    _, _, _, basis, fb = tf._constants(cfg, cuda_device, torch.float32)
+    buf, n_frames, _ = tf._framing_buffer(wav, 512, 160, lens)
+    buf = buf.contiguous()
+    frames = tf.frame_signal(wav, 512, 160, lengths=lens).reshape(-1, 512).contiguous()
+    before = (log_mel_fused.dmma_launches, log_mel_frames.dmma_launches)
+    out = log_mel_fused(buf, lens, basis, fb, n_frames=n_frames, hop=160, win_length=400)
+    fout = log_mel_frames(frames, basis, fb, precision="highest", win_length=400)
+    torch.cuda.synchronize()
+    assert (log_mel_fused.dmma_launches - before[0], log_mel_frames.dmma_launches - before[1]) == (1, 1)
+    mask = (torch.arange(n_frames, device=cuda_device)[None, :] < 1 + lens.long()[:, None] // 160)[..., None]
+    exact = _log_mel_f64(buf.unfold(1, 512, 160)[:, :n_frames], basis, fb) * mask
+    fexact = _log_mel_f64(frames, basis, fb)
+    plain = log_mel_fused_plain(buf, lens, basis, fb, n_frames=n_frames, hop=160)
+    fplain = log_mel_frames_plain(frames, basis, fb, precision="highest")
+    e_fused, e_frames = (out.double() - exact).abs().max().item(), (fout.double() - fexact).abs().max().item()
+    e_plain, e_fplain = (plain.double() - exact).abs().max().item(), (fplain.double() - fexact).abs().max().item()
+    assert e_fused <= 1e-6 and e_frames <= 1e-6, (e_fused, e_frames)
+    assert e_plain > 1e-4, e_plain  # the case where the kernels and the plain versions part
+    assert (out - plain).abs().max().item() <= e_plain + e_fused
+    assert (fout - fplain).abs().max().item() <= e_fplain + e_frames
+    assert not out[2, 1 + lengths[2] // 160 :].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [(512, 400, 160), (512, 400, 80), (256, 200, 159)])
+def test_f32_routes_give_equal_bits(cuda_device, geometry):
+    """The fused and frames f32 routes run one device function on the same
+    f32 operands: on the same waveforms (no mask) their outputs are equal to
+    the bit, and two calls of each give equal bits."""
+    n_fft, win, hop = geometry
+    cfg = tf.FrontendConfig(n_fft=n_fft, win_length=win, hop_length=hop)
+    wav = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 24000)) * 0.1).float().to(cuda_device)
+    _, _, _, basis, fb = tf._constants(cfg, cuda_device, torch.float32)
+    buf, n_frames, _ = tf._framing_buffer(wav, n_fft, hop, None)
+    buf = buf.contiguous()
+    frames = tf.frame_signal(wav, n_fft, hop).reshape(-1, n_fft).contiguous()
+    assert fused_kernel(torch.float32, n_fft, win, hop, 80) == "logmel_dmma_kernel"
+    assert frames_kernel("highest", n_fft, win, 80) == "mel_frames_dmma_kernel"
+    fused = [log_mel_fused(buf, None, basis, fb, n_frames=n_frames, hop=hop, win_length=win) for _ in range(2)]
+    own = [log_mel_frames(frames, basis, fb, precision="highest", win_length=win) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(fused[0], fused[1]) and torch.equal(own[0], own[1])
+    assert torch.equal(fused[0].reshape(-1, 80), own[0])
+
+
+@pytest.mark.cuda
+def test_f32_routes_by_geometry(cuda_device):
+    """f32 at TitaNet's frontend takes the f64 tensor-core kernels; 64 mels,
+    which they are not built for, the FP32-core ones (1e-4 either way)."""
+    for n_mels, dmma in ((80, 1), (64, 0)):
+        cfg = tf.FrontendConfig(n_mels=n_mels)
+        _, _, _, basis, fb = tf._constants(cfg, cuda_device, torch.float32)
+        wav = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 16000)) * 0.1).float().to(cuda_device)
+        buf, n_frames, _ = tf._framing_buffer(wav, 512, 160, None)
+        frames = tf.frame_signal(wav, 512, 160).reshape(-1, 512).contiguous()
+        before = (log_mel_fused.dmma_launches, log_mel_frames.dmma_launches)
+        out = log_mel_fused(buf.contiguous(), None, basis, fb, n_frames=n_frames, hop=160, win_length=400)
+        fout = log_mel_frames(frames, basis, fb, precision="highest", win_length=400)
+        torch.cuda.synchronize()
+        assert (log_mel_fused.dmma_launches - before[0], log_mel_frames.dmma_launches - before[1]) == (dmma, dmma)
+        ref = log_mel_fused_plain(buf.contiguous(), None, basis, fb, n_frames=n_frames, hop=160)
+        assert out.shape[-1] == n_mels and (out - ref).abs().max().item() <= 1e-4
+        assert (fout - log_mel_frames_plain(frames, basis, fb)).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
@@ -386,10 +527,14 @@ def test_mel_frames_kernel_matches_plain(cuda_device, precision, geometry, n_row
     frames = torch.from_numpy(np.random.default_rng(n_rows).standard_normal((n_rows, n_fft)) * 0.1)
     frames = frames.float().to(cuda_device)
     _, _, _, basis, fb = tf._constants(cfg, cuda_device, dtype)
-    before = log_mel_frames.launches
+    kernel = frames_kernel(precision, n_fft, win, 80)
+    if geometry == (512, 400, 160) and precision == "highest":
+        assert kernel == "mel_frames_dmma_kernel"
+    before = (log_mel_frames.launches, log_mel_frames.dmma_launches)
     out = log_mel_frames(frames, basis, fb, precision=precision, win_length=win)
     torch.cuda.synchronize()
-    assert log_mel_frames.launches == before + 1
+    assert (log_mel_frames.launches - before[0], log_mel_frames.dmma_launches - before[1]) == (
+        1, int(kernel == "mel_frames_dmma_kernel"))
     ref = log_mel_frames_plain(frames, basis, fb, precision=precision)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 if dtype == torch.float32 else 5e-2)
     # all taps (no window skip) give the same result

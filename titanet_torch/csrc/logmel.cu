@@ -6,9 +6,21 @@
 // package does outside its kernel; these kernels do everything after it:
 // framing, windowed real DFT, |.|^2, mel filterbank, 10*log10, L2 over mels
 // and the frame mask, and write only the [B, F, n_mels] result. No frames
-// tensor exists. Two designs:
+// tensor exists. Three designs:
 //
-// logmel_kernel (f32, and bf16 where the tensor-core kernel does not take
+// logmel_dmma_kernel (f32 at the geometries ops/kernels/melspec.py::
+// fused_dmma_supports takes, TitaNet's among them): the DFT on the f64
+// tensor cores, logmel_common.cuh::dmma_logmel_tile (the frames kernel's
+// f32 route runs the same function). One block per (utterance, tile of 64
+// frames): it stages the tile's sample span, (64 - 1) * hop + taps floats
+// from the first tap the window keeps, once, with 4 floats after every hop
+// when the hop is a multiple of 8 (so an A fragment's words fall in 32
+// banks), and cuts each A fragment at offset f * hop + k: no frames tile.
+// 43 KB of samples and a 64 KB basis ring at TitaNet's frontend: two
+// blocks of 8 warps an SM, the registers capped at 128 a thread (ptxas
+// spills a few bytes).
+//
+// logmel_kernel (f32 and bf16 where the tensor-core kernels do not take
 // the geometry): FP32 cores. Bound on the H100: operations. At B=128 x 3 s
 // (F=301) the DFT is 2*F*B*win*2*n_bins ~ 16 GFLOP (the window's zero taps
 // are skipped) and the mel product 2*F*B*n_bins*n_mels ~ 1.6 GFLOP, against
@@ -384,6 +396,55 @@ int tc_stages(int tpp, int n_groups, int n_mels) {
   return 0;
 }
 
+// ----------------------------------------------- f64 tensor-core design
+
+// buf: [B, >= buf_len] f32, row stride buf_stride; basis, fb, fb_table: the
+// packs of dmma_logmel_tile (taps from k0)
+template <int NTM>
+__global__ void __launch_bounds__(kDmThreads, 2) logmel_dmma_kernel(
+    const float* __restrict__ buf, long long buf_stride, int buf_len,
+    const int* __restrict__ lengths, const double* __restrict__ basis,
+    const float* __restrict__ fb, const int* __restrict__ fb_table, int n_walk,
+    float* __restrict__ out, int n_frames, int hop, int k0, int steps, int n_panels) {
+  extern __shared__ __align__(16) double dm_smem[];
+  double* ring = dm_smem;                                            // [kDmStages][kDmStage]
+  float* x = reinterpret_cast<float*>(ring + kDmStages * kDmStage);  // the sample span
+  int* table_s = reinterpret_cast<int*>(x + dmma_span_floats(hop, steps));
+  const bool pad = hop % 8 == 0;
+  const int b = blockIdx.y, f0 = blockIdx.x * kDmRows;
+  const long long s0 = (long long)f0 * hop + k0;  // the span's first sample in the row
+  const int span = (kDmRows - 1) * hop + 8 * steps;
+  const float* src = buf + b * buf_stride + s0;
+  for (int i = threadIdx.x; i < 2 * n_walk; i += kDmThreads) table_s[i] = fb_table[i];
+  const int rows = min(kDmRows, n_frames - f0);
+  const int valid = (lengths ? 1 + lengths[b] / hop : n_frames) - f0;
+  dmma_logmel_tile<NTM, false>(
+      x, pad ? hop + kDmPad : hop, pad ? hop : (1 << 30), ring, table_s, n_walk, basis, fb, steps,
+      n_panels,
+      [&] {  // while the basis prologue is in flight: the span, kDmPad floats
+             // after every hop (none when the hop is not a multiple of 8),
+             // zero past the row
+        for (int i = threadIdx.x; i < span; i += kDmThreads)
+          x[pad ? i + kDmPad * (i / hop) : i] = s0 + i < buf_len ? __ldg(src + i) : 0.f;
+      },
+      [](int) {}, out + ((long long)b * n_frames + f0) * (NTM * 8), rows, valid);
+}
+
+template <int NTM>
+int launch_dmma(const float* buf, long long buf_stride, int buf_len, int batch, const int* lengths,
+                const double* basis, const float* fb, const int* fb_table, int n_walk, float* out,
+                int n_frames, int hop, int k0, int steps, int n_panels, size_t smem,
+                cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(logmel_dmma_kernel<NTM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n_frames + kDmRows - 1) / kDmRows, batch);
+  logmel_dmma_kernel<NTM><<<grid, kDmThreads, smem, st>>>(
+      buf, buf_stride, buf_len, lengths, basis, fb, fb_table, n_walk, out, n_frames, hop, k0, steps,
+      n_panels);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -420,6 +481,29 @@ int titanet_logmel_bf16_tc(const void* buf, long long buf_stride, int batch, con
   return run_tc((const bf16*)buf, buf_stride, (const int*)lengths, (const bf16*)basis,
                 (const bf16*)fb, (float*)out, batch * n_frames, n_frames, hop, k0, taps, tpp,
                 n_groups, (cudaStream_t)stream);
+}
+
+// f32 with the DFT on the f64 tensor cores: basis, fb and fb_table ([2,
+// n_walk] int32) from ops/kernels/melspec.py::dmma_basis and
+// dmma_filterbank, taps [k0, k0 + taps) of each frame, n_mels 80
+// (TitaNet's); a block's shared memory must fit (melspec.py::
+// fused_dmma_supports)
+int titanet_logmel_f32_dmma(const void* buf, long long buf_stride, int buf_len, int batch,
+                            const void* lengths, const void* basis, const void* fb,
+                            const void* fb_table, int n_walk, void* out, int n_frames, int hop,
+                            int k0, int taps, int n_bins, int n_mels, void* stream) {
+  const int steps = ((taps + 7) / 8 + kDmSteps - 1) / kDmSteps * kDmSteps;
+  const int n_panels = ((n_bins - 1 + 7) / 8 + 7) / 8;
+  if (batch < 1 || batch > 65535 || n_frames < 1 || hop < 1 || k0 < 0 || taps < 1 || n_bins < 2 ||
+      n_mels != 80 || n_walk != n_panels * 8 + 1)
+    return (int)cudaErrorInvalidValue;
+  const int a_floats = dmma_span_floats(hop, steps);
+  const size_t smem = dmma_smem_bytes(a_floats, n_walk);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  return launch_dmma<10>((const float*)buf, buf_stride, buf_len, batch, (const int*)lengths,
+                         (const double*)basis, (const float*)fb, (const int*)fb_table, n_walk,
+                         (float*)out, n_frames, hop, k0, steps, n_panels, smem,
+                         (cudaStream_t)stream);
 }
 
 long long titanet_logmel_smem_bytes(int hop, int n_fft, int n_mels) {

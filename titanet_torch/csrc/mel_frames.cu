@@ -7,12 +7,23 @@
 // |.|^2, the mel filterbank, 10*log10, and the L2 norm over the mels, and
 // writes only the [N, n_mels] result. The frame mask stays outside.
 //
-// Two designs, by precision:
+// Three designs:
 //
-// "highest" (f32 operands, f32 accumulation, no TF32): mel_frames_kernel,
-// the FP32-core device functions it shares with the fused kernel
-// (logmel_common.cuh). At N = 128 x 301 frames the two products are ~17.4
-// GFLOP, which bound it on the FP32 cores (0.26 ms at 67 TFLOP/s).
+// "highest" (f32 operands, f32 accumulation) at the geometries
+// ops/kernels/melspec.py::frames_dmma_supports takes, TitaNet's among
+// them: mel_frames_dmma_kernel, the DFT on the f64 tensor cores, the
+// device function it shares with the fused kernel's f32 route
+// (logmel_common.cuh::dmma_logmel_tile: the same frames give the same bits
+// on both routes). At N = 128 x 301 frames the two products are ~17.4
+// GFLOP, 0.26 ms on the FP32 cores at their peak; the DFT's 15.8 GFLOP take
+// 0.236 ms on the f64 tensor cores at theirs. A block takes 64 frames and
+// streams their taps [k0, k0 + taps) beside the basis, 16 taps of the 64
+// rows a ring stage (16-byte cp.async), read again from L2 for each panel,
+// so that two blocks fit an SM (84 KB of shared memory each at TitaNet's
+// frontend; a resident 64-row f32 tile would take 105 KB).
+//
+// "highest" at any other geometry: mel_frames_kernel, the FP32-core device
+// functions it shares with the fused kernel (logmel_common.cuh).
 //
 // "default" (bf16 operands, f32 accumulation): mel_frames_tc_kernel, on the
 // bf16 tensor cores (csrc/mma_bf16.cuh: wgmma for the DFT, mma.sync for the
@@ -373,6 +384,63 @@ int launch_tc_fit(const float* frames, int n_rows, const bf16* basis, const bf16
   return (int)cudaErrorInvalidValue;
 }
 
+// ----------------------------------------------- f64 tensor-core design
+
+// frames: [n_rows, n_fft] f32; basis, fb, fb_table: the packs of
+// dmma_logmel_tile (taps from k0)
+template <int NTM>
+__global__ void __launch_bounds__(kDmThreads, 2) mel_frames_dmma_kernel(
+    const float* __restrict__ frames, int n_rows, int n_fft, int k0, int taps,
+    const double* __restrict__ basis, const float* __restrict__ fb, const int* __restrict__ fb_table,
+    int n_walk, float* __restrict__ out, int steps, int n_panels) {
+  extern __shared__ __align__(16) double dm_smem[];
+  double* ring = dm_smem;                                            // [kDmStages][kDmStage]
+  float* x = reinterpret_cast<float*>(ring + kDmStages * kDmStage);  // [kDmStages][kDmRows][stride]
+  constexpr int stride = 8 * kDmSteps + kDmPad;
+  int* table_s = reinterpret_cast<int*>(x + kDmStreamFloats);
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kDmRows, rows = min(kDmRows, n_rows - n0);
+  const int spp = steps / kDmSteps;
+  for (int i = tid; i < 2 * n_walk; i += kDmThreads) table_s[i] = fb_table[i];
+  // walk stage i: the rows' taps 8 kDmSteps (i % spp) .., 4 at a time
+  // (chunk c: row c / (2 kDmSteps)), into slot i % kDmStages; zero past the
+  // taps and the rows
+  constexpr int kChunks = 2 * kDmSteps;  // 4-tap chunks of a row a stage
+  const bool vec = ((n_fft | k0) & 3) == 0 && (reinterpret_cast<uintptr_t>(frames) & 15) == 0;
+  dmma_logmel_tile<NTM, true>(
+      x, stride, 1 << 30, ring, table_s, n_walk, basis, fb, steps, n_panels, [] {},
+      [&](int i) {
+        float* slot = x + (i % kDmStages) * (kDmRows * stride);
+        const int kb = 8 * kDmSteps * (i % spp);
+        for (int c = tid; c < kDmRows * kChunks; c += kDmThreads) {
+          const int r = c / kChunks, kc = 4 * (c % kChunks), k = kb + kc;
+          const float* src = frames + (long long)(n0 + r) * n_fft + k0 + k;  // read for rows < rows only
+          float* dst = slot + r * stride + kc;
+          const int n_valid = r < rows ? max(0, min(4, taps - k)) : 0;
+          if (vec) {
+            tc::cp_async16_zfill(dst, n_valid ? src : frames, 4 * n_valid);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dst[e] = e < n_valid ? src[e] : 0.f;
+          }
+        }
+      },
+      out + (long long)n0 * (NTM * 8), rows, rows);
+}
+
+template <int NTM>
+int launch_dmma(const float* frames, int n_rows, int n_fft, int k0, int taps, const double* basis,
+                const float* fb, const int* fb_table, int n_walk, float* out, int steps,
+                int n_panels, size_t smem, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(mel_frames_dmma_kernel<NTM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (n_rows + kDmRows - 1) / kDmRows;
+  mel_frames_dmma_kernel<NTM><<<grid, kDmThreads, smem, st>>>(
+      frames, n_rows, n_fft, k0, taps, basis, fb, fb_table, n_walk, out, steps, n_panels);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -391,6 +459,26 @@ int titanet_mel_frames_f32(const void* frames, int n_rows, const void* basis, co
       (const float*)frames, (const float*)basis, (const float*)fb, (float*)out, n_rows, n_fft,
       k_lo, k_hi, n_mels);
   return (int)cudaGetLastError();
+}
+
+// "highest" with the DFT on the f64 tensor cores: basis, fb and fb_table
+// ([2, n_walk] int32) from ops/kernels/melspec.py::dmma_basis and
+// dmma_filterbank, taps [k0, k0 + taps) of each frame, n_mels 80
+// (TitaNet's); a block's shared memory must fit (melspec.py::
+// frames_dmma_supports)
+int titanet_mel_frames_dmma(const void* frames, int n_rows, const void* basis, const void* fb,
+                            const void* fb_table, int n_walk, void* out, int n_fft, int k0,
+                            int taps, int n_bins, int n_mels, void* stream) {
+  const int steps = ((taps + 7) / 8 + kDmSteps - 1) / kDmSteps * kDmSteps;
+  const int n_panels = ((n_bins - 1 + 7) / 8 + 7) / 8;
+  if (n_rows < 1 || k0 < 0 || taps < 1 || k0 + taps > n_fft || n_bins < 2 || n_mels != 80 ||
+      n_walk != n_panels * 8 + 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = dmma_smem_bytes(kDmStreamFloats, n_walk);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  return launch_dmma<10>((const float*)frames, n_rows, n_fft, k0, taps, (const double*)basis,
+                         (const float*)fb, (const int*)fb_table, n_walk, (float*)out, steps,
+                         n_panels, smem, (cudaStream_t)stream);
 }
 
 // basis and fb in the layout of mel_frames_tc_kernel; taps from k_lo on,

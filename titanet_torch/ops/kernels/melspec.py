@@ -9,17 +9,26 @@
   exists. bf16 runs on the tensor cores (``logmel_tc_kernel``, basis and
   filterbank rearranged once per tensor: :func:`tc_basis`,
   :func:`fused_tc_filterbank`) wherever :func:`fused_tc_supports` holds,
-  f32 and any other bf16 geometry on the FP32 cores (``logmel_kernel``).
+  f32 with its DFT on the f64 tensor cores (``logmel_dmma_kernel``, basis
+  and filterbank rearranged once per tensor: :func:`dmma_basis`,
+  :func:`dmma_filterbank`) wherever :func:`fused_dmma_supports` holds, any
+  other geometry on the FP32 cores (``logmel_kernel``).
 - :func:`log_mel_frames`, CUDA source ``titanet_torch/csrc/mel_frames.cu``
   (replaces ``..melspec.py::_mel_frames_pallas``): takes materialized
   frames ``[N, n_fft]`` (f32) and returns ``[N, n_mels]``;
   :func:`log_mel_spectrogram_pallas` is the frontend built on it (plain
   torch framing and frame mask around the kernel). Its "default" route runs
   on the bf16 tensor cores, with the basis and filterbank rearranged once
-  per tensor (:func:`tc_basis`, :func:`tc_filterbank`).
+  per tensor (:func:`tc_basis`, :func:`tc_filterbank`); its "highest" route
+  with its DFT on the f64 tensor cores (``mel_frames_dmma_kernel``, the
+  fused route's f32 device function and packs) wherever
+  :func:`frames_dmma_supports` holds, else on the FP32 cores
+  (``mel_frames_kernel``).
 
-On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises.
+:func:`fused_kernel` and :func:`frames_kernel` name the kernel a call
+takes, a pure function of the geometry; a kernel that fails to build or
+launch raises and gives way to no other. On a CPU tensor a wrapper runs
+its plain version; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -56,6 +65,11 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.titanet_logmel_f32, lib.titanet_logmel_bf16):
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.titanet_logmel_f32_dmma.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
+    lib.titanet_logmel_f32_dmma.restype = ctypes.c_int
     lib.titanet_logmel_bf16_tc.argtypes = (
         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -139,7 +153,9 @@ def log_mel_fused(
     ``[B, n_frames, n_mels]`` f32. ``win_length`` lets the kernel skip the
     basis rows the window zeroes (the default reads all ``n_fft``).
     ``log_mel_fused.launches`` counts every launch,
-    ``log_mel_fused.tc_launches`` those of the tensor-core kernel."""
+    ``log_mel_fused.tc_launches`` those of the bf16 tensor-core kernel,
+    ``log_mel_fused.dmma_launches`` those of the f32 one
+    (:func:`fused_kernel` names the kernel a call takes)."""
     _check(buf, lengths, basis, fb, n_frames, hop)
     if buf.device.type == "cpu":
         return log_mel_fused_plain(buf, lengths, basis, fb, n_frames=n_frames, hop=hop)
@@ -147,8 +163,8 @@ def log_mel_fused(
         raise RuntimeError(f"no fused log-mel kernel for device {buf.device}")
     n_fft, n_bins, n_mels = basis.shape[1], basis.shape[2], fb.shape[1]
     win_length = win_length if win_length else n_fft
-    tc = buf.dtype == torch.bfloat16 and fused_tc_supports(n_fft, win_length, n_mels)
-    if not tc and smem_bytes(hop, n_fft, n_mels) > MAX_SMEM:
+    kernel = fused_kernel(buf.dtype, n_fft, win_length, hop, n_mels)
+    if kernel == "logmel_kernel" and smem_bytes(hop, n_fft, n_mels) > MAX_SMEM:
         raise ValueError(
             f"n_fft={n_fft}, hop={hop}: a {TILE_FRAMES}-frame tile does not fit "
             "in shared memory"
@@ -159,13 +175,22 @@ def log_mel_fused(
     lens = lengths.data_ptr() if lengths is not None else None
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream(buf.device).cuda_stream
-        if tc:
+        if kernel == "logmel_tc_kernel":
             k0, taps = tc_taps(k_lo, k_hi)
             panels = _tc_cached(basis, (k0, k_hi), lambda: tc_basis(basis, k0, k_hi))
             fbd = _tc_cached(fb, "fused", lambda: fused_tc_filterbank(fb))
             code = lib.titanet_logmel_bf16_tc(
                 buf.data_ptr(), buf.stride(0), buf.shape[0], lens, panels.data_ptr(),
                 fbd.data_ptr(), out.data_ptr(), n_frames, hop, k0, taps, n_bins, n_mels, stream,
+            )
+        elif kernel == "logmel_dmma_kernel":
+            k0, taps = tc_taps(k_lo, k_hi)
+            pack = _tc_cached(basis, ("dmma", k0, k_hi), lambda: dmma_basis(basis, k0, k_hi))
+            fbp, table = _tc_cached(fb, "dmma", lambda: dmma_filterbank(fb))
+            code = lib.titanet_logmel_f32_dmma(
+                buf.data_ptr(), buf.stride(0), buf.shape[1], buf.shape[0], lens, pack.data_ptr(),
+                fbp.data_ptr(), table.data_ptr(), table.shape[1], out.data_ptr(), n_frames, hop,
+                k0, taps, n_bins, n_mels, stream,
             )
         else:
             fn = lib.titanet_logmel_f32 if buf.dtype == torch.float32 else lib.titanet_logmel_bf16
@@ -179,12 +204,14 @@ def log_mel_fused(
             f"log-mel kernel launch failed: {lib.titanet_logmel_error_string(code).decode()}"
         )
     log_mel_fused.launches += 1
-    log_mel_fused.tc_launches += tc
+    log_mel_fused.tc_launches += kernel == "logmel_tc_kernel"
+    log_mel_fused.dmma_launches += kernel == "logmel_dmma_kernel"
     return out
 
 
 log_mel_fused.launches = 0
 log_mel_fused.tc_launches = 0
+log_mel_fused.dmma_launches = 0
 
 
 @torch.library.custom_op("titanet_torch::log_mel_fused", mutates_args=())
@@ -223,6 +250,11 @@ def _frames_lib() -> ctypes.CDLL:
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+    lib.titanet_mel_frames_dmma.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    lib.titanet_mel_frames_dmma.restype = ctypes.c_int
     lib.titanet_mel_frames_error_string.argtypes = [ctypes.c_int]
     lib.titanet_mel_frames_error_string.restype = ctypes.c_char_p
     return lib
@@ -362,6 +394,164 @@ def fused_tc_supports(n_fft: int, win_length: int, n_mels: int) -> bool:
     return fused_tc_stages(taps, n_fft // 2 + 1, n_mels) > 0
 
 
+# The f32 routes' tensor-core kernels (csrc/logmel_common.cuh
+# dmma_logmel_tile, launched by logmel.cu logmel_dmma_kernel and mel_frames.cu
+# mel_frames_dmma_kernel): the DFT on the f64 tensor cores, the mel product
+# split TF32. The host-side layout of their operands and their shared
+# memory, mirrored here. They take the bf16 routes' basis layout and tap
+# window (tc_basis's columns in panels of 64 bins, tc_taps), in fragment order.
+DMMA_ROWS = 64  # frame rows a block (kDmRows)
+DMMA_STAGES = 4  # basis ring depth (kDmStages)
+DMMA_MELS = (80,)  # n_mels the kernels are built for (TitaNet's)
+DMMA_PAD = 4  # floats after each row (each hop) of the A operand (kDmPad)
+DMMA_STEPS = 2  # k8 steps a ring stage (kDmSteps)
+DMMA_STAGE_BYTES = DMMA_STEPS * 16 * 32 * 16  # k8 steps of a panel: 16 n8 tiles x 32 lanes x 2 f64
+
+
+def tf32_split(x: torch.Tensor):
+    """``(hi, lo)`` of f32 ``x``: ``hi`` = x rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero: ``cvt.rna.tf32.f32``, done on the
+    float's bits), ``lo`` = ``x - hi`` (exact in f32) rounded the same way;
+    both TF32 values held in f32."""
+
+    def rna(v):
+        bits = v.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x.float() - hi)
+
+
+def dmma_layout(taps: int, n_bins: int):
+    """``(steps, n_panels, n_walk)``: k8 steps over the taps (padded to a
+    multiple of ``8 * DMMA_STEPS`` with zero basis rows), panels of 64 bins
+    of bins ``0 .. n_bins - 2`` (the Nyquist bin rides in bin 0's sin
+    column), and the filterbank groups of the walk: 8 a panel and the
+    Nyquist bin's."""
+    steps = -(-taps // (8 * DMMA_STEPS)) * DMMA_STEPS
+    n_panels = -(-(-(-(n_bins - 1) // 8)) // 8)
+    return steps, n_panels, n_panels * 8 + 1
+
+
+def dmma_basis(basis: torch.Tensor, k_lo: int, k_hi: int) -> torch.Tensor:
+    """``[2, n_fft, n_bins]`` f32 -> the f64 kernels' basis, flat f64: for
+    panel ``p`` and k8 step ``s``, 16 n8 tiles ``j`` x 32 lanes ``4 g + t``
+    x ``(b0, b1)``, with ``b0`` the panel's entry at tap ``k_lo + 8 s + t``,
+    column ``8 j + g`` and ``b1`` four taps on (an mma.sync B fragment's
+    words): :func:`tc_basis`'s columns in panels of 64 bins (column ``16 grp
+    + 8 cs + jj``: bin ``64 p + 8 grp + jj``, cos for ``cs = 0``, sin for
+    ``cs = 1``; bin 0's sin column holds the Nyquist bin's cos), each f32
+    entry widened exactly; zero past the taps and the bins."""
+    taps, n_bins = k_hi - k_lo, basis.shape[2]
+    steps, n_panels, _ = dmma_layout(taps, n_bins)
+    cs = basis.new_zeros(2, 8 * steps, n_panels * 64, dtype=torch.float64)
+    cs[:, :taps, : n_bins - 1] = basis[:, k_lo:k_hi, : n_bins - 1]
+    cs[1, :taps, 0] = basis[0, k_lo:k_hi, n_bins - 1]
+    panels = cs.reshape(2, 8 * steps, n_panels, 8, 8).permute(2, 1, 3, 0, 4)
+    # [p][k = 8 s + 4 h + t][n = 8 j + g] -> [p][s][j][g][t][h]
+    frag = panels.reshape(n_panels, steps, 2, 4, 16, 8).permute(0, 1, 4, 5, 3, 2)
+    return frag.reshape(-1).contiguous()
+
+
+def dmma_filterbank(fb: torch.Tensor):
+    """``[n_bins, n_mels]`` f32 -> ``(pack, table)``, the B operand of the
+    f64 kernels' mel product (split TF32), in their walk's order of 8-bin
+    groups: panel 0's 8 groups, the Nyquist bin (alone in its group, at k
+    slot 0), then the other panels' groups. The power tile of a group is an
+    A fragment whose k slot ``t`` holds bin ``2 t`` and slot ``t + 4`` bin
+    ``2 t + 1``, so a group's fragment for 8-mel tile ``mt`` is, for lane
+    ``4 g + t``, ``(b0_hi, b1_hi, b0_lo, b1_lo)`` with ``b0 = fb[bin 2 t,
+    mel 8 mt + g]``, ``b1 = fb[bin 2 t + 1, ...]``, split once
+    (:func:`tf32_split`). ``pack`` (flat f32) holds only the tiles with a
+    non-zero entry, group by group (a skipped tile would add exact zeros);
+    ``table`` (int32 ``[2, n_walk]``): each group's mask (bit ``mt`` set
+    where its tile is stored), then its first tile's index in ``pack``."""
+    n_bins, n_mels = fb.shape
+    _, n_panels, n_walk = dmma_layout(1, n_bins)
+    rows = fb.new_zeros(n_panels * 64, n_mels, dtype=torch.float32)
+    rows[: n_bins - 1] = fb[: n_bins - 1]
+    nyq = fb.new_zeros(8, n_mels, dtype=torch.float32)
+    nyq[0] = fb[n_bins - 1]
+    walk = torch.cat((rows[:64], nyq, rows[64:])).reshape(n_walk, 4, 2, n_mels // 8, 8)
+    walk = walk.permute(0, 3, 4, 1, 2)  # [group][mt][g][t][h], bin 2 t + h
+    hi, lo = tf32_split(walk)
+    tiles = torch.stack((hi, lo), dim=-2).reshape(n_walk, n_mels // 8, 128)
+    keep = (walk != 0).flatten(2).any(-1)
+    bits = torch.arange(n_mels // 8, device=fb.device)
+    masks = (keep.to(torch.int64) << bits).sum(-1)
+    offsets = torch.cumsum(keep.sum(-1), 0) - keep.sum(-1)
+    table = torch.stack((masks, offsets)).to(torch.int32)
+    return tiles[keep].reshape(-1).contiguous(), table.contiguous()
+
+
+def dmma_a_floats(taps: int, hop: Optional[int] = None) -> int:
+    """Floats of a block's A operand: the fused route's sample span
+    (``hop`` given), ``DMMA_PAD`` floats after every hop when the hop is a
+    multiple of 8; the frames route's (``hop`` None) streamed slots, one a
+    ring stage: ``8 DMMA_STEPS`` taps of ``DMMA_ROWS`` rows padded by
+    ``DMMA_PAD``."""
+    if hop is None:
+        return DMMA_STAGES * DMMA_ROWS * (8 * DMMA_STEPS + DMMA_PAD)
+    steps = dmma_layout(taps, 2)[0]
+    span = (DMMA_ROWS - 1) * hop + 8 * steps
+    return span + DMMA_PAD * -(-span // hop) if hop % 8 == 0 else span
+
+
+def dmma_smem_bytes(taps: int, n_bins: int, hop: Optional[int] = None) -> int:
+    """Dynamic shared memory of a block of an f64 kernel: the basis ring
+    (``DMMA_STAGE_BYTES`` a stage), the A operand (:func:`dmma_a_floats`,
+    f32), the filterbank table (two ints a group)."""
+    n_walk = dmma_layout(taps, n_bins)[2]
+    return DMMA_STAGES * DMMA_STAGE_BYTES + 4 * dmma_a_floats(taps, hop) + 8 * n_walk
+
+
+def dmma_fits(taps: int, n_bins: int, n_mels: int, hop: Optional[int] = None) -> bool:
+    """Whether an f64 kernel takes the geometry (``hop`` given: the fused
+    route's, else the frames route's): ``n_mels`` is one it is built for and
+    its block fits shared memory."""
+    return n_mels in DMMA_MELS and dmma_smem_bytes(taps, n_bins, hop) <= MAX_SMEM
+
+
+def fused_dmma_supports(n_fft: int, win_length: int, hop: int, n_mels: int) -> bool:
+    """Whether :func:`log_mel_fused` sends f32 at this geometry to
+    ``logmel_dmma_kernel`` (else to ``logmel_kernel``)."""
+    _, taps = tc_taps(*_window_taps(n_fft, win_length))
+    return dmma_fits(taps, n_fft // 2 + 1, n_mels, hop)
+
+
+def frames_dmma_supports(n_fft: int, win_length: int, n_mels: int) -> bool:
+    """Whether :func:`log_mel_frames` sends "highest" at this geometry to
+    ``mel_frames_dmma_kernel`` (else to ``mel_frames_kernel``)."""
+    _, taps = tc_taps(*_window_taps(n_fft, win_length))
+    return dmma_fits(taps, n_fft // 2 + 1, n_mels)
+
+
+def fused_kernel(dtype: torch.dtype, n_fft: int, win_length: int, hop: int, n_mels: int) -> str:
+    """The kernel :func:`log_mel_fused` launches on a CUDA buffer of
+    ``dtype`` at this geometry (its name in a profiler trace)."""
+    if dtype == torch.bfloat16:
+        return "logmel_tc_kernel" if fused_tc_supports(n_fft, win_length, n_mels) else "logmel_kernel"
+    return "logmel_dmma_kernel" if fused_dmma_supports(n_fft, win_length, hop, n_mels) else "logmel_kernel"
+
+
+def frames_kernel(precision: str, n_fft: int, win_length: int, n_mels: int) -> str:
+    """The kernel :func:`log_mel_frames` launches on CUDA frames at this
+    precision and geometry (its name in a profiler trace)."""
+    if _operand_dtype(precision) == torch.bfloat16:
+        return "mel_frames_tc_kernel"
+    return "mel_frames_dmma_kernel" if frames_dmma_supports(n_fft, win_length, n_mels) else "mel_frames_kernel"
+
+
+KERNEL_DESIGNS = {
+    "logmel_tc_kernel": "tensor-core, bf16 (wgmma DFT, mma.sync mel)",
+    "logmel_dmma_kernel": "tensor-core, f64 mma.sync DFT, split-TF32 mel",
+    "logmel_kernel": "fp32-core",
+    "mel_frames_tc_kernel": "tensor-core, bf16 (wgmma DFT, mma.sync mel)",
+    "mel_frames_dmma_kernel": "tensor-core, f64 mma.sync DFT, split-TF32 mel",
+    "mel_frames_kernel": "fp32-core",
+}
+
+
 # tensor -> {key: (the tensor's in-place version, operand)}; an entry goes
 # with its tensor
 _tc_cache = WeakTensorKeyDictionary()
@@ -436,15 +626,22 @@ def log_mel_frames(
     and fb in f32); ``"default"``: operands rounded to bf16, f32
     accumulation (basis and fb in bf16; the frames stay f32 in device
     memory and are rounded in the kernel). ``win_length`` lets the kernel
-    skip the basis rows the window zeroes."""
+    skip the basis rows the window zeroes. ``log_mel_frames.launches``
+    counts every launch, ``log_mel_frames.dmma_launches`` those of the
+    f64 tensor-core kernel (:func:`frames_kernel` names the kernel a call
+    takes)."""
     _check_frames(frames, basis, fb, precision)
     if frames.device.type == "cpu":
         return log_mel_frames_plain(frames, basis, fb, precision=precision)
     if frames.device.type != "cuda":
         raise RuntimeError(f"no frames log-mel kernel for device {frames.device}")
     n_fft, n_bins, n_mels = basis.shape[1], basis.shape[2], fb.shape[1]
-    k_lo, k_hi = _window_taps(n_fft, win_length if win_length else n_fft)
-    if precision == "highest":
+    win_length = win_length if win_length else n_fft
+    k_lo, k_hi = _window_taps(n_fft, win_length)
+    kernel = frames_kernel(precision, n_fft, win_length, n_mels)
+    if kernel == "mel_frames_dmma_kernel":
+        fits = True
+    elif precision == "highest":
         fits = frames_smem_bytes(k_hi - k_lo, n_fft, n_mels) <= MAX_SMEM
     else:
         taps = tc_taps(k_lo, k_hi)[1]
@@ -460,7 +657,16 @@ def log_mel_frames(
     lib = _frames_lib()
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        if precision == "highest":
+        if kernel == "mel_frames_dmma_kernel":
+            k0, taps = tc_taps(k_lo, k_hi)
+            pack = _tc_cached(basis, ("dmma", k0, k_hi), lambda: dmma_basis(basis, k0, k_hi))
+            fbp, table = _tc_cached(fb, "dmma", lambda: dmma_filterbank(fb))
+            code = lib.titanet_mel_frames_dmma(
+                frames.data_ptr(), frames.shape[0], pack.data_ptr(), fbp.data_ptr(),
+                table.data_ptr(), table.shape[1], out.data_ptr(), n_fft, k0, taps, n_bins, n_mels,
+                stream,
+            )
+        elif precision == "highest":
             code = lib.titanet_mel_frames_f32(
                 frames.data_ptr(), frames.shape[0], basis.data_ptr(), fb.data_ptr(),
                 out.data_ptr(), n_fft, k_lo, k_hi, n_mels, stream,
@@ -479,10 +685,12 @@ def log_mel_frames(
             f"{lib.titanet_mel_frames_error_string(code).decode()}"
         )
     log_mel_frames.launches += 1
+    log_mel_frames.dmma_launches += kernel == "mel_frames_dmma_kernel"
     return out
 
 
 log_mel_frames.launches = 0
+log_mel_frames.dmma_launches = 0
 
 
 def log_mel_spectrogram_pallas(
