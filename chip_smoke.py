@@ -23,7 +23,8 @@ Phases (any failure exits non-zero and prints no result):
      0) at B=128 x 3 s, serving bf16 and parity f32 (TF32 off): launch
      counts (bf16 through the tensor-core log-mel kernel), unit-norm finite
      embeddings, bf16-vs-f32 cosine, agreement with
-     the all-plain route, median ms per batch;
+     the all-plain route, median ms per batch (each step through its CUDA
+     graph, the default on the card: phase 18);
   5. ``SpeakerEmbedder.embed`` on 1.2 s, 3 s, 7 s and 40 s requests: each
      padded-batch embedding equals the request's solo embedding; every
      log-mel launch on the tensor-core kernel;
@@ -192,6 +193,32 @@ Phases (any failure exits non-zero and prints no result):
      ``generic.device_corpus``, each equal to the bit (metrics and
      checkpoint) to the same epoch without the contract; model ms a step of
      both.
+  18. step capture (``titanet_torch/train/capture.py``; the steps the JAX
+     package jits run as one CUDA graph a shape, the default on the card
+     since phase 4), TitaNet-S at full width (17 mega-blocks, hidden 256,
+     weights from seed 0) at B=128 x 3 s: (a) ``embed_step`` bf16 and f32,
+     unmasked and masked (ragged lengths), and ``embed_step_quantized``,
+     each against ``capture=False``: equal bits on the capture call and on
+     replays of new inputs, the replay-aware launch counters (one log-mel
+     launch a call; bf16 unmasked one pool forward), median wall ms of 20
+     calls of each route in turns, device ms, idle share, kernels and host
+     launch calls a call, the capture's ms and the graph pool's MiB; (b)
+     ``SpeakerEmbedder`` at the service's 4 buckets (batch 8) and the
+     default 10 (batch 32): ``warmup()``'s seconds, each bucket's capture
+     and the pool after it, phase 5's requests equal to an eager embedder's
+     to the bit with no capture at a request; (c) ``eval_step`` on phase
+     13's validation batches with run A: loss, preds and embeddings equal to
+     eager's to the bit, one graph a batch shape; (d) in (a)-(c) every
+     log-mel and pool-forward launch inside each graph replayed on the
+     graph's own operands (kept by reference during its capture, cloned
+     after a replay) and held against its plain version at phases 2 and 3's
+     tolerances, the graph's output bit for bit; (e) a second process calls
+     ``enable_compilation_cache`` on the directory a first one built the
+     kernels into and runs no ``nvcc``. Phases 13-17 hold each launch of
+     their commands on the launch's own operands, kept by wrappers that a
+     replay does not run, so inside ``embedding_calls`` the steps run
+     eagerly; outside it the entry points run their graphs (phase 13's
+     trainer validates through them, its launch counts unchanged).
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
@@ -203,7 +230,8 @@ f32 fused serving call's; ``f32_bound_ms`` is the 3xTF32 bound, rows 1 and
 ``zoo_trainer_launches``: each zoo family's launches in its phase-15
 trainer run, ``device_corpus_trainer_launches``: phase 16's
 device-resident ``cli.train``, and ``ddp_trainer_launches``: rank 0's
-three steps in phase 17), error
+three steps in phase 17; rows 1 and 2 add ``graph_launches``: the launches a
+captured call of each path of phase 18 counted), error
 vs its plain version, time, plain time, bound and library time, every number
 from this run, and ``timed_by``: ``"profiler"`` (device time of the
 kernel's launches), or ``"events"`` (CUDA events around its wrapper) where
@@ -684,7 +712,7 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str, label: str = "trainer") ->
                   augment=cli._augment_config(cfg, None))
     dw_launches = dwconv.dw_bwd.launches - dw_before
     (vwav, vlengths, vspeakers), _ = staged["val"][0]
-    ts.eval_step(state, vwav, vlengths, vspeakers, frontend=frontend)
+    ts.eval_step(state, vwav, vlengths, vspeakers, frontend=frontend, capture=False)  # hooks run eagerly only
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
@@ -769,6 +797,7 @@ def trainer_phase(tag: str):
     from titanet_torch.ops.kernels.melspec import log_mel_fused
     from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
     from titanet_torch.train import checkpoint as ckpt
+    from titanet_torch.train.capture import GRAPHS
 
     counters = {"logmel": log_mel_fused, "pool_fwd": attentive_pool_fwd,
                 "pool_bwd": attentive_pool_bwd, "dw_bwd": dwconv.dw_bwd}
@@ -817,9 +846,11 @@ def trainer_phase(tag: str):
         os.environ["TITANET_DW_BWD"] = route
         # run A: two epochs straight, validation every epoch, verification at the end
         torch.cuda.reset_peak_memory_stats()
+        captures = GRAPHS.captures
         t0 = time.perf_counter()
         _, counts = counted(lambda: cli.train(trainer_config(root, f"a-{route}", 2, augmented)))
         wall = time.perf_counter() - t0
+        captures = GRAPHS.captures - captures
         peak = torch.cuda.max_memory_allocated()
         run_a = os.path.join(root, f"a-{route}")
         rec_a = read_jsonl(os.path.join(run_a, "metrics.jsonl"))
@@ -856,7 +887,9 @@ def trainer_phase(tag: str):
               f"verification included; {n_utt / (data_s + model_s):.1f} utt/s over the training steps "
               f"alone); StepTimer data {data_s:.3f} s / model {model_s:.3f} s over {2 * steps} steps; "
               f"epoch 2 wall {ts_[1] - ts_[0]:.2f} s (train record to train record: 11 steps, epoch 1's "
-              f"validation and checkpoint); peak memory {peak / 2**30:.2f} GiB {tag}")
+              f"validation and checkpoint); peak memory {peak / 2**30:.2f} GiB; {captures} CUDA graphs captured "
+              f"(eval_step and embed_step, one a shape and model: validation, {val_batches} batches an epoch, "
+              f"and verification, {test_batches}) {tag}")
 
         # run B: one epoch, then resumed for the second
         cli.train(trainer_config(root, f"b-{route}", 1, augmented))
@@ -911,7 +944,11 @@ class embedding_calls:
     waveform, config and lengths it turns into the kernel's operands;
     ``pooling.attentive_pool_fused``) and the output. On exit ``calls``,
     ``launches``, ``tc_launches``, ``dmma_launches``, ``pool_launches``,
-    ``mel`` and ``pool`` hold them."""
+    ``mel`` and ``pool`` hold them. Inside, the steps run eagerly
+    (``capture=False`` whatever the caller asks): a CUDA graph's replay runs
+    no Python, so only the eager route hands each launch's operands to the
+    wrappers; phase 18 holds the captured route, each launch of a replay on
+    that graph's own operands."""
 
     def __enter__(self):
         from titanet_torch.ops import frontend, pooling
@@ -926,6 +963,7 @@ class embedding_calls:
                     self._wrap(mod, name, self._counted)
         self._wrap(frontend, "_log_mel_fused", self._keep_mel)
         self._wrap(pooling, "attentive_pool_fused", self._keep_pool)
+        self._wrap(state, "wanted", lambda fn: lambda capture, device: False)
         self._mel_fn, self._pool_fn = log_mel_fused, attentive_pool_fwd
         log_mel_fused.launches = log_mel_fused.tc_launches = log_mel_fused.dmma_launches = 0
         attentive_pool_fwd.launches = 0
@@ -2389,6 +2427,338 @@ def parallel_phase(root: str, tag: str) -> dict:
     return got[0]["counts"]
 
 
+# Capture phase (18): the steps the JAX package jits, as CUDA graphs
+# (titanet_torch/train/capture.py), on TitaNet-S at full width (17
+# mega-blocks, hidden 256, weights from seed 0) at B=128 x 3 s; each graph
+# against the same step run eagerly (capture=False) in the same process.
+CAPTURE_CALLS = 20  # timed calls of each route, graph and eager interleaved
+# the runtime calls that launch work on the device, as the profiler names them
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+               "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def host_launches(fn, iters: int = 3) -> dict:
+    """The host's launch calls (``LAUNCH_APIS``) a call of ``fn`` makes, by
+    name, from a profiler trace of ``iters`` calls after one warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in LAUNCH_APIS:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return {k: v / iters for k, v in sorted(counts.items())}
+
+
+class graph_operands:
+    """While a step is captured, keeps references (no copies: a copy would
+    be captured too) to what each fused log-mel and pool-forward call of
+    the step was given and gave, at the names the path looks the kernels up
+    by (``frontend._log_mel_fused``, ``pooling.attentive_pool_fused``).
+    These are tensors of the graph, which every replay rewrites:
+    :meth:`snapshot` after a replay clones them into the records that
+    :func:`replay_mel` and :func:`pool_fwd_vs_plain` hold against the plain
+    versions."""
+
+    def __enter__(self):
+        import torch
+
+        from titanet_torch.ops import frontend, pooling
+
+        self.mel, self.pool, self._saved = [], [], []
+        for mod, name, keep in ((frontend, "_log_mel_fused", self.mel), (pooling, "attentive_pool_fused", self.pool)):
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+
+            def call(*args, _fn=fn, _keep=keep):
+                out = _fn(*args)
+                if torch.cuda.is_current_stream_capturing():
+                    _keep.append((args, out))
+                return out
+
+            setattr(mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+    def snapshot(self):
+        """``(log-mel records, pool-forward records)`` of the last replay."""
+        import torch
+
+        clone = lambda t: t.clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
+        mel = [dict(waveform=a[0].clone(), cfg=a[1], lengths=clone(a[2]), out=o.clone()) for a, o in self.mel]
+        pool = []
+        for (h, a, c, wa, ba, wb, bb, eps, fold), out in self.pool:
+            dt = h.dtype  # the operands as the pool's autograd function hands them to the kernel
+            args = (h.contiguous(), a.float().contiguous(), c.float().contiguous(), wa.to(dt).contiguous(),
+                    ba.float().contiguous(), wb.to(dt).contiguous(), bb.float().contiguous())
+            pool.append(dict(args=tuple(t.clone() for t in args), eps=eps, fold=fold, out=out.clone()))
+        return mel, pool
+
+
+def hold_graph_kernels(ops: "graph_operands", what: str, mel_dtype, n_pool: int) -> str:
+    """Every kernel launch of the graph whose capture ``ops`` watched,
+    replayed on that graph's operands as its last replay left them: the
+    log-mel (``mel_dtype``; phase 2's tolerances) and ``n_pool`` pool
+    forwards (phase 3's). Each replay must give the graph's output bit for
+    bit. Raises on a miss; returns the summary."""
+    mel, pool = ops.snapshot()
+    if len(mel) != 1 or len(pool) != n_pool:
+        raise AssertionError(f"{what}: the graph holds {len(mel)} log-mel and {len(pool)} pool-forward calls, "
+                             f"expected 1 and {n_pool}")
+    err, _, widths = replay_mel(mel, what, mel_dtype)
+    line = f"log-mel on the graph's operands {sorted(widths)} max abs err {err:.3e}"
+    for rec in pool:
+        perr = pool_fwd_vs_plain(rec["args"], rec["eps"], rec["fold"], rec["out"], f"{what}: pool forward")
+        line += f", pool forward {tuple(rec['args'][0].shape)} max abs err {perr:.3e}"
+    return line + ", each the graph's output bit for bit"
+
+
+def capture_phase(root: str, n_speakers: int, tag: str) -> dict:
+    """Phase 18: (a) ``embed_step`` bf16 and f32, unmasked and masked, and
+    ``embed_step_quantized``, each through its CUDA graph against
+    ``capture=False``: equal bits on the capture call and on replays of new
+    inputs, median wall ms of graph and eager calls in turns, device ms,
+    idle share, kernels and host launch calls a call, the capture's seconds
+    and its graph pool's bytes; (b) ``SpeakerEmbedder`` at the service's
+    buckets and at the default ten: ``warmup()``'s seconds and the pool's
+    bytes after each bucket, then phase 5's requests through the graphs
+    against an eager embedder, equal bits; (c) ``eval_step`` on phase 13's
+    validation batches with run A, equal bits; (d) inside (a)-(c) every
+    log-mel and pool-forward launch of each graph replayed on that graph's
+    operands against its plain version; (e) a second process reuses the
+    kernels a first one built into ``enable_compilation_cache``'s
+    directory and runs no ``nvcc``. Every measured graph is captured into a
+    ``StepGraphs`` of its own, so its pool holds only its memory. Returns
+    the log-mel and pool-forward launches a captured call of each path
+    counted (replay-aware counters)."""
+    import numpy as np
+    import torch
+
+    from titanet_torch import cli, serve
+    from titanet_torch.models import get_titanet
+    from titanet_torch.models.quantized import quantize_titanet
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.kernels.melspec import log_mel_fused
+    from titanet_torch.ops.kernels.pool import attentive_pool_fwd
+    from titanet_torch.train import capture, loop
+    from titanet_torch.train import state as ts
+    from titanet_torch.train.extractor import SpeakerEmbedder, geometric_buckets
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+    n = SECONDS * SR
+    wavs = [torch.from_numpy((rng.standard_normal((B, n)) * 0.1).astype(np.float32)).to(dev) for _ in range(2)]
+    full = torch.full((B,), n, dtype=torch.int32, device=dev)
+    ragged = torch.from_numpy(rng.integers(SR // 2, n + 1, B).astype(np.int32)).to(dev)
+    cfg32 = tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    cfg16 = cfg32._replace(precision="default")
+    m16 = get_titanet(n_mega_blocks=17, dtype=torch.bfloat16, device=dev, generator=torch.Generator().manual_seed(0))
+    m32 = get_titanet(n_mega_blocks=17, device=dev, generator=torch.Generator().manual_seed(0))
+    qtree = quantize_titanet(m32)
+    graph_launches = {"logmel": {}, "pool_fwd": {}}
+
+    def own_graphs():
+        """A fresh graph cache for the steps (its own pool), restored by the caller."""
+        graphs = capture.StepGraphs()
+        ts.GRAPHS = graphs
+        return graphs
+
+    # (a) the serving steps
+    variants = (
+        ("embed_step bf16", lambda c, w, ln: ts.embed_step(m16, w, ln, frontend=cfg16, device=dev, capture=c),
+         full, torch.bfloat16, 1),
+        ("embed_step bf16 masked", lambda c, w, ln: ts.embed_step(m16, w, ln, frontend=cfg16, masked=True,
+                                                                  device=dev, capture=c), ragged, torch.bfloat16, 0),
+        ("embed_step f32", lambda c, w, ln: ts.embed_step(m32, w, ln, frontend=cfg32, device=dev, capture=c),
+         full, torch.float32, 0),
+        ("embed_step f32 masked", lambda c, w, ln: ts.embed_step(m32, w, ln, frontend=cfg32, masked=True,
+                                                                 device=dev, capture=c), ragged, torch.float32, 0),
+        ("embed_step_quantized", lambda c, w, ln: ts.embed_step_quantized(qtree, w, ln, frontend=cfg32, device=dev,
+                                                                          capture=c), full, torch.float32, 0),
+    )
+    try:
+        for label, step, lens, mel_dt, n_pool in variants:
+            graphs = own_graphs()
+            with graph_operands() as ops:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                first = step(None, wavs[0], lens)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            if graphs.captures != 1 or len(graphs) != 1:
+                raise AssertionError(f"capture {label}: {graphs.captures} captures, {len(graphs)} graphs")
+            entry, pool_b = graphs.graphs()[0], graphs.pool_bytes()
+            equal = [torch.equal(first, step(False, wavs[0], lens))]
+            for w in wavs + wavs:
+                equal.append(torch.equal(step(None, w, lens), step(False, w, lens)))
+            if not all(equal):
+                raise AssertionError(f"capture {label}: graph vs eager bits {equal}")
+            log_mel_fused.launches = log_mel_fused.tc_launches = log_mel_fused.dmma_launches = 0
+            attentive_pool_fwd.launches = 0
+            for w in wavs:
+                step(None, w, lens)
+            torch.cuda.synchronize()
+            counts = {"logmel": log_mel_fused.launches / 2, "pool_fwd": attentive_pool_fwd.launches / 2,
+                      "logmel on its tensor-core route": (log_mel_fused.tc_launches if mel_dt == torch.bfloat16
+                                                          else log_mel_fused.dmma_launches) / 2}
+            if counts != {"logmel": 1, "pool_fwd": n_pool, "logmel on its tensor-core route": 1}:
+                raise AssertionError(f"capture {label}: launches a replay {counts}")
+            graph_launches["logmel"][label], graph_launches["pool_fwd"][label] = 1, n_pool
+            held = hold_graph_kernels(ops, f"capture {label}", mel_dt, n_pool)
+            times = {"graph": [], "eager": []}
+            for i in range(CAPTURE_CALLS):
+                for route in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(None if route == "graph" else False, wavs[i % 2], lens)
+                    torch.cuda.synchronize()
+                    times[route].append((time.perf_counter() - t0) * 1e3)
+            parts = []
+            for route, c in (("graph", None), ("eager", False)):
+                call = lambda: step(c, wavs[1], lens)  # noqa: E731
+                dms, busy, n_k, timed_by = device_profile(call, iters=5, warmup=1)
+                api = host_launches(call)
+                med = statistics.median(times[route])
+                parts.append(f"{route}: median {med:.3f} ms (min {min(times[route]):.3f}, max "
+                             f"{max(times[route]):.3f}), device {dms:.3f} ms ({timed_by}), idle share "
+                             f"{1 - busy / med:.3f}, {n_k} kernels a call, host launch calls a call {api}")
+            print(f"capture {label} (TitaNet-S 17 blocks, B={B} x {SECONDS} s): graph == eager to the bit on the "
+                  f"capture call and on 4 replays of 2 inputs; launches a replay {counts}; {held}; first call "
+                  f"{first_s * 1e3:.1f} ms (warm-up and capture), capture {entry.capture_s * 1e3:.1f} ms, graph "
+                  f"pool {pool_b / 2**20:.1f} MiB; {CAPTURE_CALLS} calls each, in turns: {' | '.join(parts)} {tag}")
+            del graphs, entry, ops
+    finally:
+        ts.GRAPHS = capture.GRAPHS
+    del qtree, m32
+    torch.cuda.empty_cache()
+
+    # (b) SpeakerEmbedder: the service's 4 buckets (batch 8, --fast-frontend's
+    # bf16 log-mel) and the default 10 (batch 32), then phase 5's requests
+    reqs = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in (1.2, 3, 7, 40)]
+    parser_default = serve.build_parser().parse_args([]).batch_size
+    for what, buckets, bs in (("service", list(serve.BUCKETS), parser_default),
+                              ("default", geometric_buckets(), 32)):
+        graphs = own_graphs()
+        try:
+            embedder = SpeakerEmbedder(m16, cfg16, buckets=buckets, batch_size=bs, device=dev)
+            eager = SpeakerEmbedder(m16, cfg16, buckets=buckets, batch_size=bs, device=dev, capture=False)
+            marks, padded = [], embedder._embed_padded
+
+            def timed(group, bucket, _padded=padded):
+                t1 = time.perf_counter()
+                out = _padded(group, bucket)
+                marks.append((bucket, time.perf_counter() - t1, graphs.pool_bytes()))
+                return out
+
+            embedder._embed_padded = timed
+            t0 = time.perf_counter()
+            embedder.warmup()
+            warm_s = time.perf_counter() - t0
+            del embedder._embed_padded
+            if graphs.captures != len(buckets):
+                raise AssertionError(f"SpeakerEmbedder {what}: warmup captured {graphs.captures} graphs for "
+                                     f"{len(buckets)} buckets")
+            got = [embedder.embed(reqs), embedder.embed(reqs[::-1])]
+            want = [eager.embed(reqs), eager.embed(reqs[::-1])]
+            if graphs.captures != len(buckets) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"SpeakerEmbedder {what}: graph vs eager bits differ or a request captured "
+                                     f"({graphs.captures} captures)")
+            log_mel_fused.launches = 0
+            embedder.embed(reqs)
+            graph_launches["logmel"][f"SpeakerEmbedder {what}"] = log_mel_fused.launches
+            steps = [f"{b}: {s * 1e3:.1f} ms, pool {p / 2**20:.1f} MiB" for b, s, p in marks]
+            print(f"capture SpeakerEmbedder {what} buckets ({len(buckets)}, batch {bs}, bf16 fused log-mel): "
+                  f"warmup() {warm_s:.3f} s, one graph a bucket ({'; '.join(steps)}); pool after warmup "
+                  f"{graphs.pool_bytes() / 2**20:.1f} MiB; phase 5's requests (1.2/3/7/40 s, both orders) equal "
+                  f"to an eager embedder's to the bit, no capture at a request; {log_mel_fused.launches} log-mel "
+                  f"launches a request set (replay-aware counters) {tag}")
+            del embedder, eager, graphs
+        finally:
+            ts.GRAPHS = capture.GRAPHS
+        torch.cuda.empty_cache()
+    del m16
+
+    # (c) eval_step on phase 13's validation batches, run A as served
+    cfg = trainer_config(root, "a-pallas", SERVE_EPOCHS, ("chunk", "specaugment", "noise"))
+    state, frontend, epoch = cli._restore_for_eval(cfg, n_speakers, os.path.join(root, "a-pallas"), None, "cuda")
+    train_ds, val_ds, test_ds, _ = cli._datasets(cfg, True)
+    val_loader = cli._loaders(cfg, train_ds, val_ds, test_ds, None)[1]
+    batches = list(loop._staged_batches(val_loader, dev))
+    graphs = own_graphs()
+    try:
+        held, shapes = [], set()
+        for (wav, lengths, speakers), _ in batches:
+            with graph_operands() as ops:
+                first = ts.eval_step(state, wav, lengths, speakers, frontend=frontend)
+            outs = [first, ts.eval_step(state, wav, lengths, speakers, frontend=frontend)]
+            ref = ts.eval_step(state, wav, lengths, speakers, frontend=frontend, capture=False)
+            for out in outs:
+                if any(not torch.equal(out[k], ref[k]) for k in ("loss", "preds", "embeddings")):
+                    raise AssertionError(f"capture eval_step on a validation batch {tuple(wav.shape)}: graph vs "
+                                         "eager bits differ")
+            if ops.mel:
+                held.append(hold_graph_kernels(ops, f"capture eval_step {tuple(wav.shape)}", torch.float32, 1))
+            shapes.add(tuple(wav.shape))
+        if graphs.captures != len(shapes):
+            raise AssertionError(f"capture eval_step: {graphs.captures} graphs for shapes {sorted(shapes)}")
+        print(f"capture eval_step (run A epoch {epoch}, phase 13's {len(batches)} validation batches, shapes "
+              f"{sorted(shapes)}): loss, preds and embeddings equal to eager to the bit, {graphs.captures} graphs "
+              f"(one a batch shape), pool {graphs.pool_bytes() / 2**20:.1f} MiB; {'; '.join(held)} {tag}")
+        graph_launches["logmel"]["eval_step"] = graph_launches["pool_fwd"]["eval_step"] = 1
+    finally:
+        ts.GRAPHS = capture.GRAPHS
+    del state, batches, graphs
+    torch.cuda.empty_cache()
+
+    # (e) the compilation cache across processes
+    from titanet_torch.ops.kernels import _build
+    from titanet_torch.utils import enable_compilation_cache
+
+    cache = os.path.join(root, "kernel_cache")
+    default_dir = _build.BUILD_DIR
+    try:
+        enable_compilation_cache(cache)
+        t0 = time.perf_counter()
+        built = _build.build()
+        first_s = time.perf_counter() - t0
+    finally:
+        _build.set_build_dir(default_dir)
+    child = ("import json, sys, time; sys.path.insert(0, sys.argv[2]); "
+             "from titanet_torch.ops.kernels import _build; from titanet_torch.utils import enable_compilation_cache\n"
+             "def no_nvcc():\n    raise RuntimeError('nvcc ran')\n"
+             "_build.nvcc = no_nvcc; enable_compilation_cache(sys.argv[1]); t0 = time.perf_counter()\n"
+             "built = _build.build(); load = {}\n"
+             "for name in _build.SOURCES:\n    t1 = time.perf_counter(); _build.load(name); load[name] = time.perf_counter() - t1\n"
+             "print(json.dumps({'nvcc_runs': len(built), 'build_s': time.perf_counter() - t0, 'load_s': load, "
+             "'dir': str(_build.BUILD_DIR)}))")
+    out = subprocess.run([sys.executable, "-c", child, cache, os.path.dirname(os.path.abspath(__file__))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"compilation cache: the second process failed: {out.stderr[-2000:]}")
+    second = json.loads(out.stdout.strip().splitlines()[-1])
+    if second["nvcc_runs"] != 0 or sorted(second["load_s"]) != sorted(_build.SOURCES) \
+            or os.path.realpath(second["dir"]) != os.path.realpath(cache):
+        raise AssertionError(f"compilation cache: {second}")
+    print(f"compilation cache: the first process built {len(built)} libraries into "
+          f"enable_compilation_cache's directory in {first_s:.2f} s ({sorted(built)}); a second process "
+          f"({sys.executable} -c) ran {second['nvcc_runs']} nvcc, build() {second['build_s']:.3f} s, loaded "
+          f"{ {k: round(v, 4) for k, v in second['load_s'].items()} } s {tag}")
+    print(f"capture phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
+    return graph_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2570,7 +2940,7 @@ def main() -> int:
             if i >= 3:
                 times.append((time.perf_counter() - t0) * 1e3)
         med = statistics.median(times)
-        print(f"embed_step {label}: median {med:.3f} ms per batch of {B} x {SECONDS} s "
+        print(f"embed_step {label} (CUDA graph): median {med:.3f} ms per batch of {B} x {SECONDS} s "
               f"(min {min(times):.3f}, max {max(times):.3f}, 10 runs) {tag}")
     del m32, e32, plain32
 
@@ -3076,6 +3446,9 @@ def main() -> int:
 
         # 17. data-parallel training: two ranks on the card, the CLI under the launcher contract
         ddp_launches = parallel_phase(root, tag)
+
+        # 18. step capture: the serving steps, the embedder and eval_step as CUDA graphs
+        graph_launches = capture_phase(root, n_speakers, tag)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3122,6 +3495,7 @@ def main() -> int:
             "zoo_trainer_launches": zoo,
             "device_corpus_trainer_launches": dc_launches[zoo_key] if zoo_key else None,
             "ddp_trainer_launches": ddp_launches[zoo_key] if zoo_key else None,
+            "graph_launches": graph_launches.get(zoo_key, {}),
             **extra,
         })
     print(json.dumps({"kernels": kernels}))

@@ -723,7 +723,10 @@ def test_speaker_embedder_requests_through_the_fused_log_mel_kernel(cuda_device,
     filler rows of length 1. Every log-mel launch of the call runs the
     kernel (bf16: the tensor-core kernel) and matches its plain version on
     the launch's own operands; each padded embedding equals the
-    request's solo ``embed_step`` (no filler rows, no other requests)."""
+    request's solo ``embed_step`` (no filler rows, no other requests). The
+    embedder runs eagerly (``capture=False``): a graph's replay runs no
+    Python, so only the eager route hands each launch's operands to
+    ``keep``; the captured route is held in ``test_captured_*``."""
     from titanet_torch.models import get_titanet
     from titanet_torch.train.extractor import SpeakerEmbedder
     from titanet_torch.train.state import embed_step
@@ -731,7 +734,7 @@ def test_speaker_embedder_requests_through_the_fused_log_mel_kernel(cuda_device,
     bf16 = precision == "default"
     model = get_titanet(n_mega_blocks=3, dtype=torch.bfloat16 if bf16 else None, device=cuda_device)
     fe = tf.FrontendConfig.from_ms(precision=precision, use_pallas_fused=True)
-    embedder = SpeakerEmbedder(model, fe, batch_size=4, device=cuda_device)
+    embedder = SpeakerEmbedder(model, fe, batch_size=4, device=cuda_device, capture=False)
     rng = np.random.default_rng(11)
     reqs = [(rng.standard_normal(int(s * 16000)) * 0.1).astype(np.float32) for s in (0.3, 1.2, 7.0, 40.0)]
     record, frontend_call = [], tf._log_mel_fused
@@ -834,3 +837,153 @@ def test_exported_fused_embedder_launches_the_kernels(cuda_device, dtype):
     assert (1.0 - cos).max().item() < 1e-5
     if dtype is None:
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+
+# ------------------------------------------------------------ step capture
+
+
+def _capture_model(device, dtype=None, seed=0, n=2):
+    from titanet_torch.models import get_titanet
+
+    return get_titanet(n_mega_blocks=n, dtype=dtype, device=device,
+                       generator=torch.Generator().manual_seed(seed)).eval()
+
+
+def _capture_batch(device, seed=0, b=4, t=24000):
+    rng = np.random.default_rng(seed)
+    wav = torch.from_numpy((rng.standard_normal((b, t)) * 0.1).astype(np.float32)).to(device)
+    lengths = torch.tensor([t, t - 5000, 9000, 1][:b], dtype=torch.int32, device=device)
+    return wav, lengths
+
+
+def _captured_steps(device, dtype, masked):
+    """name -> fn(capture, wav, lengths) of every step captured on the card."""
+    from titanet_torch.losses import build_head
+    from titanet_torch.models.quantized import quantize_titanet
+    from titanet_torch.train import state as ts
+
+    model = _capture_model(device, dtype)
+    fe = tf.FrontendConfig.from_ms(precision="default" if dtype else "highest", use_pallas_fused=True)
+    head = build_head("ce", 192, 7, device=device)
+    state = ts.TrainState(model=model, head=head, optimizer=None, opt_state=None, generator=None,
+                          aug_generator=None, noise_generator=None)
+    qtree = quantize_titanet(model) if dtype is None else None
+    spk = torch.tensor([0, 3, 6, 1], device=device)
+    steps = {
+        "embed_step": lambda c, w, n: ts.embed_step(model, w, n, frontend=fe, masked=masked, device=device,
+                                                    capture=c),
+        "eval_step": lambda c, w, n: ts.eval_step(state, w, n, spk, frontend=fe, masked=masked, capture=c),
+    }
+    if qtree is not None:
+        steps["embed_step_quantized"] = lambda c, w, n: ts.embed_step_quantized(
+            qtree, w, n, frontend=fe, masked=masked, device=device, capture=c)
+    return model, steps
+
+
+def _leaves(out):
+    return [t for t in torch.utils._pytree.tree_leaves(out) if t is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_captured_steps_equal_eager_to_the_bit(cuda_device, dtype, masked):
+    """Each step through its graph (the capture call, then replays on new
+    inputs of the same shape, int16 PCM too) equals ``capture=False`` to the
+    bit; one graph a step and shape."""
+    from titanet_torch.train.capture import GRAPHS
+
+    _, steps = _captured_steps(cuda_device, dtype, masked)
+    for name, step in steps.items():
+        before = GRAPHS.captures
+        for seed in (0, 1, 2):
+            wav, lengths = _capture_batch(cuda_device, seed)
+            got, want = step(None, wav, lengths), step(False, wav, lengths)
+            for a, b in zip(_leaves(got), _leaves(want)):
+                assert torch.equal(a, b), (name, seed)
+        pcm = (wav * 32767).to(torch.int16)
+        if name != "eval_step":
+            for _ in range(2):
+                assert torch.equal(step(None, pcm, lengths), step(False, pcm, lengths)), name
+        assert GRAPHS.captures == before + (1 if name == "eval_step" else 2), name
+
+
+@pytest.mark.cuda
+def test_captured_embed_step_follows_in_place_updates_and_replacement(cuda_device):
+    """A replay after ``load_state_dict`` and an in-place scale equals the
+    eager step on the new weights with no new capture; parameters replaced
+    by new storage (as ``model.to`` replaces them; a TitaNet's compute dtype
+    is a constructor argument, so the test copies each in place of itself)
+    change the key and capture again."""
+    from titanet_torch.train.capture import GRAPHS
+    from titanet_torch.train.state import embed_step
+
+    model, donor = _capture_model(cuda_device, seed=0), _capture_model(cuda_device, seed=1)
+    fe = tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    wav, lengths = _capture_batch(cuda_device)
+    run = lambda c: embed_step(model, wav, lengths, frontend=fe, masked=True, device=cuda_device, capture=c)  # noqa: E731
+    first = run(None)
+    captures = GRAPHS.captures
+    model.load_state_dict(donor.state_dict())
+    with torch.no_grad():
+        model.encoder.prolog.conv.weight.mul_(0.5)
+    got, want = run(None), run(False)
+    assert GRAPHS.captures == captures and torch.equal(got, want) and not torch.equal(got, first)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.clone()
+    again = run(None)
+    assert GRAPHS.captures == captures + 1 and torch.equal(again, want)
+    assert torch.equal(run(None), run(False))
+
+
+@pytest.mark.cuda
+def test_embedders_sharing_the_pool_keep_their_outputs(cuda_device):
+    """Two embedders (two models, every bucket captured into the one pool)
+    called in turns: each output equals its own eager embedding."""
+    from titanet_torch.train.extractor import SpeakerEmbedder
+
+    fe = tf.FrontendConfig.from_ms(precision="default", use_pallas_fused=True)
+    embedders = [SpeakerEmbedder(_capture_model(cuda_device, torch.bfloat16, seed=s), fe, buckets=[16000, 32000],
+                                 batch_size=4, device=cuda_device) for s in (0, 1)]
+    eager = [SpeakerEmbedder(e.model, fe, buckets=[16000, 32000], batch_size=4, device=cuda_device, capture=False)
+             for e in embedders]
+    for e in embedders:
+        e.warmup()
+    rng = np.random.default_rng(3)
+    for i in range(3):
+        reqs = [(rng.standard_normal(int(s * 16000)) * 0.1).astype(np.float32) for s in (0.7, 1.6, 2.5)]
+        for e, ref in zip(embedders, eager):
+            np.testing.assert_array_equal(e.embed(reqs), ref.embed(reqs))
+
+
+@pytest.mark.cuda
+def test_counters_count_the_launches_of_replays(cuda_device):
+    """A replay adds the launches its graph holds: one log-mel and (bf16,
+    unmasked) one pool-forward launch a call, on the capture call and on
+    every replay."""
+    from titanet_torch.train.state import embed_step
+
+    model = _capture_model(cuda_device, torch.bfloat16, seed=2)
+    fe = tf.FrontendConfig.from_ms(precision="default", use_pallas_fused=True)
+    wav, lengths = _capture_batch(cuda_device, b=3, t=20000)
+    log_mel_fused.launches = log_mel_fused.tc_launches = attentive_pool_fwd.launches = 0
+    for i in range(1, 5):
+        embed_step(model, wav, lengths, frontend=fe, device=cuda_device)
+        assert (log_mel_fused.launches, log_mel_fused.tc_launches, attentive_pool_fwd.launches) == (i, i, i)
+
+
+@pytest.mark.cuda
+def test_a_step_that_cannot_be_captured_raises(cuda_device):
+    """No fallback: a step that reads a device value on the host runs in
+    its warm-up and then fails its capture; the error reaches the caller
+    and no graph is kept."""
+    from titanet_torch.train.capture import StepGraphs
+
+    graphs = StepGraphs()
+    x = torch.ones(8, device=cuda_device)
+    step = lambda t: t * float(t.sum().item())  # noqa: E731
+    with pytest.raises(RuntimeError):
+        graphs.run("host_read", None, (), step, (x,))
+    assert len(graphs) == 0 and graphs.captures == 0
+    torch.cuda.synchronize()
+    assert torch.equal(x * 2, torch.full_like(x, 2.0))  # the device works on

@@ -17,13 +17,11 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# names that stay JAX-only, with the ROADMAP Queue 1 item that holds each
+# names that stay JAX-only, with the ROADMAP Queue 1 item that holds each:
+# XLA compiler flags, which nothing in PyTorch takes (not ported, by decision)
 JAX_ONLY = {
-    "stack_mega_block_params": 9,  # the scan layout of the mega-blocks
-    "unstack_mega_block_params": 9,
-    "infer_xla_options": 2,  # step capture
-    "train_xla_options": 2,
-    "enable_compilation_cache": 2,
+    "infer_xla_options": 9,
+    "train_xla_options": 9,
 }
 PACKAGES = ["", "data", "losses", "models", "ops", "parallel", "train", "utils"]
 

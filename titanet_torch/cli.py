@@ -53,6 +53,12 @@ concatenated batch. Two ways to start the ranks:
   ``--device cuda``), as the JAX mesh takes every visible device.
 
 Only rank 0 writes checkpoints, metrics, event files and figures.
+
+``generic.compilation_cache_dir`` keeps the compiled kernels in that
+directory (:func:`titanet_torch.utils.enable_compilation_cache`), read by
+``train`` and by every command that restores a checkpoint, as the JAX CLI
+reads it. On the card the embedding and evaluation steps run as CUDA
+graphs, one a shape (:mod:`titanet_torch.train.capture`).
 """
 
 from __future__ import annotations
@@ -105,6 +111,7 @@ from titanet_torch.utils import (
     TensorBoardLogger,
     WandbLogger,
     chart_dependencies,
+    enable_compilation_cache,
     set_seed,
 )
 
@@ -458,6 +465,8 @@ def _train(cfg: Config, dev: torch.device, rows_of_each_batch: bool):
     and each rank keeps its rows."""
     mesh = make_mesh(None, cfg.mesh.data_axis, device=dev)
     dev = mesh.device
+    if cfg.generic.compilation_cache_dir:
+        enable_compilation_cache(cfg.generic.compilation_cache_dir)
     set_seed(cfg.generic.seed)
     frontend = _frontend(cfg)
     train_ds, val_ds, test_ds, n_speakers = _datasets(cfg, cfg.test.enabled)
@@ -596,6 +605,8 @@ def _train_on_local_ranks(cfg: Config, dev: torch.device, n: int):
 def _rebuild_state(cfg: Config, n_speakers: int, device="cuda"):
     """(model, head, frontend, state) shaped as training built them, to
     restore a checkpoint into."""
+    if cfg.generic.compilation_cache_dir:
+        enable_compilation_cache(cfg.generic.compilation_cache_dir)
     dev = resolve_device(device)
     model, head, state = _new_state(cfg, n_speakers, dev)
     return model, head, _frontend(cfg), state

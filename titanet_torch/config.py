@@ -4,11 +4,15 @@ The same dataclasses, keys and defaults as the JAX package, so every
 ``configs/*.yml`` loads to the same ``to_dict()``. PyYAML is imported only
 by :meth:`Config.from_yaml`; a ``Config`` built in code needs no YAML.
 
-Keys the port reads but does not run yet raise where the trainer meets
-them (``titanet_torch/cli.py``): ``figures.enabled``,
-``generic.device_corpus``, corpus ``download``, more than one device. Keys that steer only the JAX package's
-compiler (``generic.fast_prng``, ``generic.compilation_cache_dir``,
-``titanet.scan_blocks``) are accepted and have no effect here.
+Of the keys that steer the JAX package's compiler,
+``generic.compilation_cache_dir`` keeps the port's compiled kernels in
+that directory (:func:`titanet_torch.utils.enable_compilation_cache`);
+``generic.fast_prng`` (JAX's PRNG implementation; torch's CUDA generator
+has one, Philox) and ``titanet.scan_blocks`` as a layout of the model (the
+port runs its mega-blocks one after another either way) are accepted and
+have no effect. The weights of a ``scan_blocks`` run load into the port's
+model (:func:`titanet_torch.utils.weights.load_jax_variables` unstacks
+them).
 """
 
 from __future__ import annotations
@@ -232,7 +236,8 @@ class TitanetConfig:
     dropout: float = 0.1
     # Run the mega-blocks as one lax.scan with [N]-stacked params: ~N-fold
     # smaller encoder HLO (compile time); param layout changes — see
-    # models.stack_mega_block_params. Perf measured in BENCHMARKS.md.
+    # models.stack_mega_block_params. Perf measured in BENCHMARKS.md. The
+    # port's model ignores it; the stacked weights load (utils.weights).
     scan_blocks: bool = False
 
 
@@ -331,8 +336,8 @@ class GenericConfig:
     # The JAX package's PRNG implementation choice (rbg vs threefry); the
     # port draws from torch generators and ignores it.
     fast_prng: bool = True
-    # The JAX package's persistent compilation cache; the port compiles no
-    # step and ignores it (ROADMAP Queue 1 item 2, step capture).
+    # The persistent compilation cache: the port keeps its compiled kernels
+    # there (utils.enable_compilation_cache); CUDA graphs live in-process.
     compilation_cache_dir: str = ""
     # Memoize decoded+resampled waveforms (int16 PCM, per loader) so epochs
     # >= 2 skip audio decode — the host pipeline's dominant cost

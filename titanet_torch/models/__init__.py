@@ -39,7 +39,9 @@ from titanet_torch.models.titanet import (  # noqa: F401
     TitaNet,
     find_n_mega_blocks,
     get_titanet,
+    stack_mega_block_params,
     titanet_param_count,
+    unstack_mega_block_params,
 )
 
 

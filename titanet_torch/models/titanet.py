@@ -34,8 +34,10 @@ training from the batch statistics).
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -362,3 +364,55 @@ def find_n_mega_blocks(
         if dist < best_dist:
             best, best_dist = n, dist
     return best
+
+
+def _stack_leaves(trees):
+    """Stack matching leaves of ``trees`` (nested dicts of arrays or
+    tensors) along a new leading axis: ``torch.stack`` for tensors,
+    ``np.stack`` for anything else."""
+    first = trees[0]
+    if isinstance(first, Mapping):
+        return {k: _stack_leaves([t[k] for t in trees]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def _index_leaves(tree, i: int):
+    if isinstance(tree, Mapping):
+        return {k: _index_leaves(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def stacked_size(tree) -> int:
+    """The leading axis of a stacked tree's first leaf."""
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def stack_mega_block_params(collection: dict, n_mega_blocks: int) -> dict:
+    """Convert one variable collection (params / batch_stats / ...) from the
+    unrolled layout (``encoder/mega_block_{i}/...``) to the ``scan_blocks``
+    layout (``encoder/mega_blocks/block/...`` with a leading ``[N]`` axis),
+    as the JAX package's function of this name does; the inverse is
+    :func:`unstack_mega_block_params`. Works on nested dicts of numpy
+    arrays or tensors."""
+    enc = dict(collection["encoder"])
+    blocks = [enc.pop(f"mega_block_{i}") for i in range(n_mega_blocks)]
+    enc["mega_blocks"] = {"block": _stack_leaves(blocks)}
+    out = dict(collection)
+    out["encoder"] = enc
+    return out
+
+
+def unstack_mega_block_params(collection: dict) -> dict:
+    """Inverse of :func:`stack_mega_block_params`: the ``[N]`` axis of
+    ``encoder/mega_blocks/block`` becomes ``encoder/mega_block_{i}``."""
+    enc = dict(collection["encoder"])
+    stacked = enc.pop("mega_blocks")["block"]
+    for i in range(stacked_size(stacked)):
+        enc[f"mega_block_{i}"] = _index_leaves(stacked, i)
+    out = dict(collection)
+    out["encoder"] = enc
+    return out

@@ -115,11 +115,13 @@ class FrontendConfig(NamedTuple):
         return 1 + num_samples // self.hop_length
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _constants(cfg: FrontendConfig, device: torch.device, dtype: torch.dtype):
-    """Device-resident constants, built once per (config, device, dtype):
-    (window [n_fft], cos [n_fft, bins], sin [n_fft, bins],
-     windowed basis [2, n_fft, bins], mel fb [bins, n_mels])."""
+    """Device-resident constants, built once per (config, device, dtype) and
+    never freed (a captured step's CUDA graph reads them,
+    :mod:`titanet_torch.train.capture`): (window [n_fft], cos [n_fft,
+    bins], sin [n_fft, bins], windowed basis [2, n_fft, bins], mel fb
+    [bins, n_mels])."""
     n_bins = cfg.n_fft // 2 + 1
     cos_m, sin_m = _dft_matrices(cfg.n_fft)
     window = padded_window(cfg.n_fft, cfg.win_length)

@@ -10,7 +10,9 @@
   and its autograd Function.
 
 Every wrapper launches its kernel on a CUDA tensor (or raises), runs the
-plain version on a CPU tensor, and counts its launches in ``.launches``.
+plain version on a CPU tensor, and counts its launches in ``.launches``
+(:func:`launch_counters` lists every counter; a replayed CUDA graph adds
+its launches to them, :mod:`titanet_torch.train.capture`).
 
 Importing this package registers the operators that an exported embedder
 calls (:mod:`titanet_torch.utils.export`):
@@ -20,3 +22,17 @@ the fused frontend) and ``torch.ops.titanet_torch.attentive_pool_fwd``
 """
 
 from titanet_torch.ops.kernels import melspec, pool  # noqa: F401  (register the operators)
+
+
+def launch_counters() -> tuple:
+    """Every launch counter of the wrappers, as ``(wrapper, attribute)``
+    pairs."""
+    from titanet_torch.ops.kernels import dwconv, megablock
+
+    return (
+        (melspec.log_mel_fused, "launches"), (melspec.log_mel_fused, "tc_launches"),
+        (melspec.log_mel_fused, "dmma_launches"), (melspec.log_mel_frames, "launches"),
+        (melspec.log_mel_frames, "dmma_launches"), (megablock.fused_sub_blocks, "launches"),
+        (pool.attentive_pool_fwd, "launches"), (pool.attentive_pool_bwd, "launches"),
+        (dwconv.dw_bwd, "launches"),
+    )

@@ -2,9 +2,13 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled at first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``titanet_torch/_build/lib<name>-<digest>.so`` (git-ignored; the digest
+``<build dir>/lib<name>-<digest>.so`` and loaded with ``ctypes``. The digest
 covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
-edit rebuilds) and loaded with ``ctypes``. No PyTorch header is compiled, so a build takes seconds.
+edit rebuilds, and the same sources find a library that another process or
+checkout built into the same directory. The build directory is
+``titanet_torch/_build`` (git-ignored) unless :func:`set_build_dir` names
+another (:func:`titanet_torch.utils.enable_compilation_cache` does). No
+PyTorch header is compiled, so a build takes seconds.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches, and
 its Python wrapper raises on a non-zero code.
@@ -24,7 +28,7 @@ from typing import Dict, Iterable, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+BUILD_DIR = PACKAGE_DIR / "_build"  # set_build_dir() changes it for the process
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -49,6 +53,16 @@ def nvcc() -> str:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def set_build_dir(path) -> Path:
+    """Build and look up the libraries in ``path`` (created if missing)
+    from now on; libraries already loaded stay loaded. Returns the
+    directory."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
 
 
 def library_path(name: str) -> Tuple[Path, Path]:

@@ -1,0 +1,240 @@
+"""Step capture: one CUDA graph a step and shape, the port's counterpart
+of the executables ``jax.jit`` compiles (``_jitted_embed_step``,
+``embed_step_quantized`` and ``eval_step`` in the JAX package's
+``train/state.py``).
+
+A graph holds the step's kernels in their order and replays them with one
+host launch. :class:`StepGraphs` keeps one for each key: the step's name
+and static arguments (frontend, ``masked``), each input's shape and dtype,
+and, for each module or tree the step reads (its "owners"), its identity
+and the address and dtype of every parameter and buffer. So
+
+- a parameter updated in place (an optimizer step, ``load_state_dict``,
+  the JAX weight bridge) is seen by the next replay, as JAX sees new
+  argument values;
+- a parameter replaced (``model.to(...)``) changes the key, and the step
+  is captured again;
+- the graphs of an owner are dropped once the owner is collected.
+
+The first call of a key runs the step eagerly on a side stream (the
+warm-up, which also fixes cuBLAS workspaces and cuDNN algorithm choices
+before capture) and returns that output; then it captures the step on the
+same stream into the process's one memory pool
+(``torch.cuda.graph_pool_handle()``). Every later call copies the inputs
+into the graph's static buffers, replays and returns a copy of the output:
+the static output is overwritten by the next replay. Replays run one after
+another on that stream under a lock, and each output is copied out before
+the next, so the graphs can share the pool. Each call thus launches every
+kernel of the step once.
+
+A kernel wrapper counts its launches in Python (``.launches``), which a
+replay does not run. Capture records each counter's change and takes it
+back (capture launches nothing); every replay adds it again, so a counter
+still counts launches.
+
+There is no fallback: a capture or replay that fails raises. A capture of
+host work (a read of a device value, a host-to-device copy of pageable
+memory) fails, so the steps keep such work outside ``fn``. Python side
+effects of ``fn`` (hooks, prints) run at the warm-up and the capture only,
+as the body of a jitted function runs only while it is traced.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+import weakref
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+from torch import nn
+from torch.utils import _pytree as pytree
+
+
+def wanted(capture: Optional[bool], device: torch.device) -> bool:
+    """Whether a step on ``device`` runs as a graph: ``capture`` None means
+    on CUDA and not on the CPU; ``True`` on another device than CUDA
+    raises."""
+    if capture is None:
+        return device.type == "cuda"
+    if capture and device.type != "cuda":
+        raise ValueError(f"step capture needs a CUDA device, got {device}")
+    return bool(capture)
+
+
+def owned_tensors(owner) -> list:
+    """The tensors a step reads from ``owner``: a module's parameters and
+    buffers, or every tensor of a tree (dataclass, named tuple, list,
+    dict)."""
+    if isinstance(owner, nn.Module):  # each module's own dicts: half the time of parameters() + buffers()
+        return [t for m in owner.modules() for d in (m._parameters, m._buffers) for t in d.values() if t is not None]
+    if isinstance(owner, torch.Tensor):
+        return [owner]
+    if dataclasses.is_dataclass(owner):
+        return [t for f in dataclasses.fields(owner) for t in owned_tensors(getattr(owner, f.name))]
+    if isinstance(owner, (list, tuple)):
+        return [t for item in owner for t in owned_tensors(item)]
+    if isinstance(owner, dict):
+        return [t for item in owner.values() for t in owned_tensors(item)]
+    return []
+
+
+def _owner_key(owner) -> tuple:
+    tensors = owned_tensors(owner)
+    return (id(owner), tuple(map(torch.Tensor.data_ptr, tensors)), tuple(t.dtype for t in tensors))
+
+
+def _input_key(x) -> tuple:
+    return None if x is None else (tuple(x.shape), x.stride(), x.dtype)
+
+
+def _counters():
+    from titanet_torch.ops.kernels import launch_counters
+
+    return launch_counters()
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """One captured step: the graph, its static inputs and output leaves,
+    the output's tree structure, each launch counter's change a replay
+    makes, and the seconds capture took."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    outputs: list
+    spec: pytree.TreeSpec
+    deltas: tuple
+    capture_s: float
+    owners: tuple
+
+
+class StepGraphs:
+    """The cache of captured steps (module docstring). ``captures`` counts
+    the graphs this cache captured."""
+
+    def __init__(self):
+        self._graphs: Dict[tuple, StepGraph] = {}
+        self._lock = threading.RLock()
+        self._pools: dict = {}
+        self._streams: dict = {}
+        self._watched: set = set()
+        self._dead: list = []
+        self.captures = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def graphs(self) -> list:
+        """The captured steps, in capture order."""
+        return list(self._graphs.values())
+
+    def run(self, name: str, static, owners: Sequence, fn: Callable, inputs: Sequence):
+        """``fn(*inputs)`` through the graph of its key (module docstring).
+        ``inputs``: CUDA tensors or None, all on one device; ``static``:
+        hashable arguments ``fn`` closes over that change what it
+        computes; ``owners``: the modules or trees whose tensors ``fn``
+        reads. Returns ``fn``'s output (a tree of tensors and None), new
+        tensors the caller owns."""
+        inputs = tuple(inputs)
+        key = self.key(name, static, owners, inputs)
+        dev = key[2]
+        with self._lock:
+            self._collect_dead()
+            entry = self._graphs.get(key)
+            if entry is None:
+                return self._capture(key, owners, fn, inputs, dev)
+            return self._replay(entry, inputs, dev)
+
+    @staticmethod
+    def key(name: str, static, owners: Sequence, inputs: Sequence) -> tuple:
+        """The key of a step's graph: ``(name, static, device, each input's
+        shape, strides and dtype, each owner's identity and the address and
+        dtype of each of its tensors)``."""
+        dev = next(x.device for x in inputs if x is not None)
+        return (name, static, dev, tuple(_input_key(x) for x in inputs), tuple(_owner_key(o) for o in owners))
+
+    def pool_bytes(self, device=None) -> int:
+        """Bytes the shared pool of ``device`` (the current CUDA device by
+        default) holds: its segments in the allocator's snapshot."""
+        dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+        pool = self._pools.get(dev)
+        if pool is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["device"] == dev.index and tuple(seg["segment_pool_id"]) == tuple(pool))
+
+    def _stream(self, dev: torch.device) -> torch.cuda.Stream:
+        """The side stream of ``dev`` that warms up, captures and replays;
+        ``dev``'s pool is made with it."""
+        if dev not in self._streams:
+            self._streams[dev] = torch.cuda.Stream(dev)
+            self._pools[dev] = torch.cuda.graph_pool_handle()
+        return self._streams[dev]
+
+    def _watch(self, owners) -> None:
+        """Drop an owner's graphs once it is collected: the finalizer only
+        notes its id (it may run inside a capture), the next call drops."""
+        for owner in owners:
+            if id(owner) not in self._watched:
+                self._watched.add(id(owner))
+                weakref.finalize(owner, self._dead.append, id(owner))
+
+    def _collect_dead(self) -> None:
+        while self._dead:
+            oid = self._dead.pop()
+            self._watched.discard(oid)
+            for key in [k for k, g in self._graphs.items() if oid in g.owners]:
+                del self._graphs[key]
+
+    def _capture(self, key, owners, fn, inputs, dev):
+        stream = self._stream(dev)
+        current = torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            out = fn(*inputs)  # the warm-up: this call's result
+            static_in = tuple(None if x is None else torch.empty_like(x) for x in inputs)
+        current.wait_stream(stream)
+        for t in pytree.tree_leaves(out):
+            if t is not None:
+                t.record_stream(current)
+        counters = _counters()
+        before = [getattr(obj, attr) for obj, attr in counters]
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self._pools[dev], stream=stream):
+                static_out = fn(*static_in)
+        finally:
+            deltas = tuple(getattr(obj, attr) - b for (obj, attr), b in zip(counters, before))
+            for (obj, attr), b in zip(counters, before):
+                setattr(obj, attr, b)
+        outputs, spec = pytree.tree_flatten(static_out)
+        self._watch(owners)
+        self._graphs[key] = StepGraph(graph, static_in, outputs, spec, deltas, time.perf_counter() - t0,
+                                      tuple(id(o) for o in owners))
+        self.captures += 1
+        return out
+
+    def _replay(self, entry: StepGraph, inputs, dev):
+        stream = self._stream(dev)
+        current = torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            for static, x in zip(entry.inputs, inputs):
+                if static is not None:
+                    static.copy_(x)
+            entry.graph.replay()
+            outputs = [None if t is None else t.clone() for t in entry.outputs]
+        current.wait_stream(stream)
+        for t in outputs:
+            if t is not None:
+                t.record_stream(current)
+        for (obj, attr), d in zip(_counters(), entry.deltas):
+            if d:
+                setattr(obj, attr, getattr(obj, attr) + d)
+        return pytree.tree_unflatten(outputs, entry.spec)
+
+
+GRAPHS = StepGraphs()  # the process's graphs, as jax.jit's cache of executables is the process's

@@ -7,6 +7,12 @@ utterance's solo embedding. Utterances longer than the largest bucket are
 cut into overlapping windows whose unit-norm embeddings are averaged and
 re-normalized. ``quantized=True`` embeds through the int8 tree
 (:mod:`titanet_torch.models.quantized`), built once from the model.
+
+On the card every (bucket, ``batch_size``) shape is one CUDA graph
+(:mod:`titanet_torch.train.capture`), captured by :meth:`SpeakerEmbedder.warmup`
+or by the first batch of that shape and replayed by every later one;
+``capture=False`` embeds eagerly, ``capture`` as
+:func:`titanet_torch.train.state.embed_step`'s.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ class SpeakerEmbedder:
         window_overlap: float = 0.5,
         quantized: bool = False,
         device="cuda",
+        capture: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
+        self.capture = capture
         self.model = model
         self.frontend = frontend or FrontendConfig.from_ms()
         self.buckets = sorted(buckets) if buckets else geometric_buckets()
@@ -75,12 +83,12 @@ class SpeakerEmbedder:
             if self.qtree is not None:
                 emb = embed_step_quantized(
                     self.qtree, batch, lengths,
-                    frontend=self.frontend, masked=True, device=self.device,
+                    frontend=self.frontend, masked=True, device=self.device, capture=self.capture,
                 )
             else:
                 emb = embed_step(
                     self.model, batch, lengths,
-                    frontend=self.frontend, masked=True, device=self.device,
+                    frontend=self.frontend, masked=True, device=self.device, capture=self.capture,
                 )
             out.append(emb.float().cpu().numpy()[: len(group)])
         return np.concatenate(out)
@@ -97,8 +105,13 @@ class SpeakerEmbedder:
         return wins
 
     def warmup(self) -> None:
-        """Run every (bucket, batch_size) shape once."""
-        for bucket in self.buckets:
+        """Run every (bucket, batch_size) shape once: on the card this
+        captures each shape's graph, so that no request pays for a
+        capture (the JAX package compiles each executable here). Largest
+        bucket first: the graphs share one memory pool, and a smaller
+        graph's capture reuses the blocks a larger one freed, where in
+        rising order each needs blocks larger than any freed before it."""
+        for bucket in reversed(self.buckets):
             self._embed_padded([np.zeros(bucket, np.float32)], bucket)
 
     def embed(self, waveforms: Sequence[np.ndarray]) -> np.ndarray:

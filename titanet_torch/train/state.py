@@ -2,7 +2,9 @@
 ``titanet_tpu/train/state.py``).
 
 - :func:`embed_step`: wav -> unit-norm embeddings (serving);
-  :func:`embed_step_quantized` is its int8 twin.
+  :func:`embed_step_quantized` is its int8 twin. On the card both, and
+  :func:`eval_step`, run as one CUDA graph a shape
+  (:mod:`titanet_torch.train.capture`) unless ``capture=False``.
 - :func:`train_step`: in-step frontend (no grad) -> backbone in training
   mode (batch statistics, dropout from the state's generator) -> head ->
   loss -> gradients -> ONE running-statistics update over every BatchNorm
@@ -49,6 +51,7 @@ from titanet_torch.ops.augment import AugmentConfig, add_noise, log_mel_specaugm
 from titanet_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from titanet_torch.ops.norm import ema_update_batch_stats
 from titanet_torch.parallel import distributed as pd
+from titanet_torch.train.capture import GRAPHS, wanted
 
 
 def _dequantize_waveform(waveform: torch.Tensor) -> torch.Tensor:
@@ -66,11 +69,17 @@ def embed_step(
     frontend: FrontendConfig,
     masked: bool = False,
     device="cuda",
+    capture: Optional[bool] = None,
 ) -> torch.Tensor:
     """``waveform [B, T]`` (float or int16 PCM; tensor or array) and
     ``lengths [B]`` -> unit-norm embeddings ``[B, E]`` on ``device``, in the
     model's dtype. With ``masked``, SE and pooling ignore padded frames, so
-    a padded row's embedding equals the utterance's solo embedding."""
+    a padded row's embedding equals the utterance's solo embedding.
+
+    ``capture`` (:func:`titanet_torch.train.capture.wanted`): None runs the
+    step as a CUDA graph on the card, one a shape
+    (:mod:`titanet_torch.train.capture`, as the JAX step is jitted), and
+    eagerly on the CPU; False runs it eagerly; True on the CPU raises."""
     dev = resolve_device(device)
     param = next(model.parameters())
     if param.device.type != dev.type:
@@ -78,10 +87,15 @@ def embed_step(
     wav = torch.as_tensor(waveform, device=dev)
     lens = torch.as_tensor(lengths, device=dev)
     model.eval()
-    with torch.inference_mode():
+
+    def step(wav, lens):
         mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
-        emb = model(mel, mask=mask if masked else None)
-        return l2_normalize(emb)
+        return l2_normalize(model(mel, mask=mask if masked else None))
+
+    with torch.inference_mode():
+        if not wanted(capture, dev):
+            return step(wav, lens)
+        return GRAPHS.run("embed_step", (frontend, masked), (model,), step, (wav, lens))
 
 
 def embed_step_quantized(
@@ -92,10 +106,12 @@ def embed_step_quantized(
     frontend: FrontendConfig,
     masked: bool = False,
     device="cuda",
+    capture: Optional[bool] = None,
 ) -> torch.Tensor:
     """Int8 serving twin of :func:`embed_step`: ``qtree`` is the tree
     :func:`titanet_torch.models.quantized.quantize_titanet` builds; wav ->
-    unit-norm embeddings ``[B, E]`` (f32) on ``device``."""
+    unit-norm embeddings ``[B, E]`` (f32) on ``device``; ``capture`` as
+    :func:`embed_step`'s."""
     from titanet_torch.models.quantized import titanet_apply_quantized
 
     dev = resolve_device(device)
@@ -105,10 +121,15 @@ def embed_step_quantized(
         )
     wav = torch.as_tensor(waveform, device=dev)
     lens = torch.as_tensor(lengths, device=dev)
-    with torch.inference_mode():
+
+    def step(wav, lens):
         mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
-        emb = titanet_apply_quantized(qtree, mel, mask=mask if masked else None)
-        return l2_normalize(emb)
+        return l2_normalize(titanet_apply_quantized(qtree, mel, mask=mask if masked else None))
+
+    with torch.inference_mode():
+        if not wanted(capture, dev):
+            return step(wav, lens)
+        return GRAPHS.run("embed_step_quantized", (frontend, masked), (qtree,), step, (wav, lens))
 
 
 def _as_augment_config(augment) -> Optional[AugmentConfig]:
@@ -527,19 +548,31 @@ def eval_step(
     frontend: FrontendConfig,
     masked: bool = False,
     mesh=None,
+    capture: Optional[bool] = None,
 ):
     """No-grad mirror of :func:`train_step` in eval mode: ``{"loss",
     "preds", "embeddings"}``. Under a ``mesh`` of P > 1 ranks the rows are
-    this rank's share of a global batch and ``loss`` is the global mean."""
+    this rank's share of a global batch and ``loss`` is the global mean
+    (the all-reduce runs after the step, outside its graph). ``capture`` as
+    :func:`embed_step`'s: on the card the frontend, model and head run as
+    one CUDA graph a shape."""
     wav, lens, spk = _as_device_tensors(state, waveform, lengths, speakers)
-    mel, mask = log_mel_spectrogram(wav, frontend, lengths=lens)
     state.model.eval()
     state.head.eval()
-    emb = state.model(mel, mask=mask if masked else None)
-    norm_emb, preds, loss = state.head(emb, spk)
+
+    def step(wav, lens, spk):
+        mel, mask = log_mel_spectrogram(wav, frontend, lengths=lens)
+        emb = state.model(mel, mask=mask if masked else None)
+        norm_emb, preds, loss = state.head(emb, spk)
+        return {"loss": loss, "preds": preds, "embeddings": norm_emb}
+
+    if wanted(capture, wav.device):
+        out = GRAPHS.run("eval_step", (frontend, masked), (state.model, state.head), step, (wav, lens, spk))
+    else:
+        out = step(wav, lens, spk)
     if _sharded(mesh):
-        loss = mean_over_ranks([loss], mesh, "loss")[0]
-    return {"loss": loss, "preds": preds, "embeddings": norm_emb}
+        out["loss"] = mean_over_ranks([out["loss"]], mesh, "loss")[0]
+    return out
 
 
 # ----------------------------------------------------------------- metrics

@@ -1,7 +1,8 @@
 """Utilities of the port: seeding, the loggers (:mod:`.logging`,
 :mod:`.tb_events`), the JAX weight bridge (:mod:`.weights`), figures
-(:mod:`.viz`), profiling (:mod:`.profiling`), export (:mod:`.export`) and
-downloads (:mod:`.download`)."""
+(:mod:`.viz`), profiling (:mod:`.profiling`), export (:mod:`.export`),
+downloads (:mod:`.download`) and the kernels' compilation cache
+(:func:`enable_compilation_cache`)."""
 
 import torch
 
@@ -31,6 +32,27 @@ def set_seed(seed: int) -> torch.Generator:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
+
+
+def enable_compilation_cache(cache_dir: str) -> None:
+    """Persistent on-disk cache of the compiled kernels (the counterpart of
+    the JAX package's XLA compilation cache): builds and loads the
+    ``csrc/*.cu`` libraries in ``cache_dir`` from now on
+    (:func:`titanet_torch.ops.kernels._build.set_build_dir`), so that a
+    relaunched or resumed run with the same sources loads them and runs no
+    ``nvcc``. Libraries are named by the digest of their sources and flags:
+    an edit builds anew beside the old ones.
+
+    The compiled kernels are the only compiled artifact the port keeps
+    across processes. A step's CUDA graph (:mod:`titanet_torch.train.capture`)
+    lives only in its process, as XLA's in-memory executables do, and is
+    captured anew by the first call of each shape.
+
+    Safe to call more than once; creates ``cache_dir`` if missing.
+    """
+    from titanet_torch.ops.kernels import _build
+
+    _build.set_build_dir(cache_dir)
 
 
 def chart_dependencies(model, n_mels: int = 80, seed: int = 0) -> bool:

@@ -21,6 +21,12 @@ module attribute names are the JAX tree's keys.
   ``weight [E, N*K]``, GE2E's ``w`` and ``b``) -> the leaf of its own name,
   in the JAX layout.
 
+A TitaNet tree in the JAX ``scan_blocks`` layout (``encoder/mega_blocks/
+block/...``, every mega-block's leaves stacked on a leading ``[N]`` axis)
+is unstacked first (:func:`titanet_torch.models.titanet.unstack_mega_block_params`,
+as the JAX package's ``quantize_titanet`` does); ``N`` must equal the
+model's ``encoder.n_mega_blocks``.
+
 ``load_jax_train_state(model, head, params, batch_stats)`` does the same
 for a train state's ``params = {"backbone", "head"}``.
 
@@ -37,6 +43,7 @@ import torch
 from torch import nn
 
 from titanet_torch.models.baselines import LSTMLayer
+from titanet_torch.models.titanet import stacked_size, unstack_mega_block_params
 from titanet_torch.ops.conv import Conv2d, SamePadConv1d
 from titanet_torch.ops.dense import Dense
 from titanet_torch.ops.norm import BatchNorm, LayerNorm
@@ -67,11 +74,25 @@ def _assign(target: torch.Tensor, value, where: str) -> None:
         target.copy_(torch.from_numpy(arr))
 
 
+def _unrolled(model: nn.Module, tree: Mapping) -> Mapping:
+    """``tree`` with a ``scan_blocks`` encoder unstacked (the tree itself
+    otherwise); raises where the stacked ``[N]`` is not the model's count."""
+    enc = tree.get("encoder")
+    if not isinstance(enc, Mapping) or "mega_blocks" not in enc:
+        return tree
+    n = stacked_size(_node(enc, ["mega_blocks", "block"]))
+    want = getattr(getattr(model, "encoder", None), "n_mega_blocks", None)
+    if n != want:
+        raise ValueError(f"encoder/mega_blocks stacks {n} mega-blocks, the model has {want}")
+    return unstack_mega_block_params(tree)
+
+
 def load_jax_variables(
     model: nn.Module, params: Mapping, batch_stats: Optional[Mapping] = None
 ) -> nn.Module:
     """Fill ``model`` from the JAX trees in place; returns ``model``."""
-    batch_stats = batch_stats or {}
+    params = _unrolled(model, params)
+    batch_stats = _unrolled(model, batch_stats or {})
     used_params = used_stats = 0
     for name, mod in model.named_modules():
         path = name.split(".") if name else []
