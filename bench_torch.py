@@ -14,8 +14,9 @@ quantized one (``embed_step_quantized`` on the f32 model's tree), ``all``
 the three in turn; ``frames`` the frames log-mel wrapper alone
 (``log_mel_frames`` on the batch's B x 301 frames, "default" and
 "highest"). ``--train``: ``train_step`` on TitaNet-S
-(bf16, dropout 0.5, fused f32 mel, CE over 251 classes, Adam 1e-3) under
-``TITANET_DW_BWD`` = xla, pallas, pallas, xla in turn, on one fixed batch.
+(bf16, dropout 0.5, fused f32 mel, CE over 251 classes, Adam 1e-3), through
+its CUDA graph (the default on the card), under ``TITANET_DW_BWD`` = xla,
+pallas, pallas, xla in turn, on one fixed batch.
 
 For each mode: the median wall time per call (host clock around
 synchronized calls) with quartiles, the median host time per call (the

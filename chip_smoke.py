@@ -40,7 +40,8 @@ Phases (any failure exits non-zero and prints no result):
      two calls giving identical bits, the workspace against its mirror;
   8. ``train_step`` on TitaNet-S (17 blocks, dropout 0.5, bf16, fused mel,
      CE over 251 classes, Adam 1e-3) at B=128 x 3 s from seed 0, under
-     ``TITANET_DW_BWD=xla`` and ``=pallas``: launches per step, every
+     ``TITANET_DW_BWD=xla`` and ``=pallas``, through its CUDA graph (the
+     default on the card since phase 19): launches per step, every
      gradient finite, the loss falling over 20 steps on one batch, median ms
      per step, utterances/s, peak memory and device time a step (the
      depthwise backward's share under ``pallas``); at dropout 0 from equal
@@ -82,12 +83,13 @@ Phases (any failure exits non-zero and prints no result):
      log-mel kernel with the lengths each step passes, ragged ones
      included, atol 1e-4; the pool forward at the train and validation T,
      the pool backward and all 51 ``dw_bwd`` launches of one train step,
-     their inputs and output gradients kept by hooks, at phases 3, 6 and 7's
-     tolerances); then ``titanet_torch.cli.train`` on a synthetic
+     their inputs and output gradients kept by hooks on an eager step, at
+     phases 3, 6 and 7's tolerances); then ``titanet_torch.cli.train``, its
+     train steps through their CUDA graphs (one a batch shape), on a synthetic
      corpus (64 speakers x 16 utterances), TitaNet-S at full width, bf16,
      CE, B=64, chunk + SpecAugment + noise, under ``TITANET_DW_BWD=pallas``
      and ``=xla``: run A trains 2 epochs straight (validation every epoch,
-     verification at the end), run B trains 1 epoch and resumes for the
+     verification at the end; the graphs it captured), run B trains 1 epoch and resumes for the
      second, and B's epoch-2 metrics must equal A's (identical bits under
      pallas, ``RESUME_XLA_RTOL`` under xla); finite losses, both
      checkpoints, the launches of the four kernels of the path against the
@@ -130,11 +132,14 @@ Phases (any failure exits non-zero and prints no result):
      MFA-Conformer 6 x 256 FF 2048, d-vector LSTM 3 x 768, the smoke
      convnet 10 x 256; bf16, seed 0), one line a family: ``cli.train`` for
      one epoch of phase 13's corpus with ``[chunk]`` only under
-     ``TITANET_DW_BWD=pallas`` (finite loss, the checkpoint) and
+     ``TITANET_DW_BWD=pallas``, its train steps through their CUDA graphs
+     (finite loss, the checkpoint; every launch of the graphs replayed on the
+     graphs' operands against its plain version) and
      ``cli.evaluate_checkpoint`` (EER, minDCF in [0, 1]); 20 ``train_step``s
-     on one batch of 64 x 3 s (every gradient finite, the last loss below
-     the first; median ms a step, kernels and device ms a step, idle share,
-     peak memory); ``embed_step`` at B=128 x 3 s (median and device ms,
+     on one batch of 64 x 3 s, the first eagerly (its hooks), then through
+     the graph (every gradient finite, the last loss below the first; median
+     ms a step, kernels and device ms a step, idle share, peak memory), then
+     graph and eager in turns (median and device ms, idle share); ``embed_step`` at B=128 x 3 s (median and device ms,
      idle share); ``SpeakerEmbedder`` padded == solo (cosine > 0.999) on
      1.2, 3, 7 and 40 s requests; ``infer --audio`` on the trained
      checkpoint equal to a direct ``SpeakerEmbedder.embed`` (1e-6); the
@@ -210,8 +215,8 @@ Phases (any failure exits non-zero and prints no result):
      13's validation batches with run A: loss, preds and embeddings equal to
      eager's to the bit, one graph a batch shape; (d) in (a)-(c) every
      log-mel and pool-forward launch inside each graph replayed on the
-     graph's own operands (kept by reference during its capture, cloned
-     after a replay) and held against its plain version at phases 2 and 3's
+     graph's own operands (kept by reference during its capture, a
+     parameter operand cloned inside it; cloned after a replay) and held against its plain version at phases 2 and 3's
      tolerances, the graph's output bit for bit; (e) a second process calls
      ``enable_compilation_cache`` on the directory a first one built the
      kernels into and runs no ``nvcc``. Phases 13-17 hold each launch of
@@ -219,6 +224,27 @@ Phases (any failure exits non-zero and prints no result):
      replay does not run, so inside ``embedding_calls`` the steps run
      eagerly; outside it the entry points run their graphs (phase 13's
      trainer validates through them, its launch counts unchanged).
+  19. the train step as one CUDA graph a step shape (the JAX package's
+     jitted, donated train step) and the mega-blocks' remat, TitaNet-S at
+     full width, bf16, dropout 0.5, CE over 251 classes, Adam 1e-3 with
+     clipping at 1.0, a 2-step warm-up and a cosine, weight EMA, B=128 x 3
+     s: (a) 5 captured steps against 5 ``capture=False`` steps from one
+     state, after two eager runs against each other (eager's own spread,
+     the limit; 0 so far), under ``TITANET_DW_BWD=xla`` and ``=pallas``,
+     with and without SpecAugment + noise (ragged lengths), with
+     ``accumulate_steps=2`` (two graphs: accumulate, update) and with an
+     ArcFace margin warm-up + renorm: losses, grad norms, every parameter,
+     running statistic, Adam moment, weight EMA, the counters and each
+     generator's state; (b) graph and eager in turns, 20 steps each: median
+     wall ms, utt/s, device ms, idle share, kernels and host launch calls
+     a step, the first call's and the capture's seconds, the graph pool's
+     MiB; (c) every launch of rows 1-4 inside the pallas-route graph (the
+     f32 log-mel, the pool forward and backward, all 51 ``dw_bwd``)
+     replayed on the graph's own operands, bit for bit, and held against
+     its plain version at phases 2, 3, 6 and 7's limits; (d) plain,
+     ``remat=True`` and ``remat_policy="dots_saveable"`` at B=128 and
+     B=512: peak memory, ms a step, and the state after 2 captured steps
+     equal to the plain model's (within (a)'s spread).
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
@@ -231,7 +257,8 @@ f32 fused serving call's; ``f32_bound_ms`` is the 3xTF32 bound, rows 1 and
 trainer run, ``device_corpus_trainer_launches``: phase 16's
 device-resident ``cli.train``, and ``ddp_trainer_launches``: rank 0's
 three steps in phase 17; rows 1 and 2 add ``graph_launches``: the launches a
-captured call of each path of phase 18 counted), error
+captured call of each path of phase 18 counted; rows 1-4 add
+``train_graph_launches``: a replay of phase 19's train graph), error
 vs its plain version, time, plain time, bound and library time, every number
 from this run, and ``timed_by``: ``"profiler"`` (device time of the
 kernel's launches), or ``"events"`` (CUDA events around its wrapper) where
@@ -709,7 +736,7 @@ def trainer_kernels_vs_plain(cfg, datasets, tag: str, label: str = "trainer") ->
     uniform = int(batch.lengths.min()) == wav.shape[1]
     dw_before = dwconv.dw_bwd.launches
     ts.train_step(state, wav, None if uniform else lengths, speakers, frontend=frontend,
-                  augment=cli._augment_config(cfg, None))
+                  augment=cli._augment_config(cfg, None), capture=False)  # hooks run eagerly only
     dw_launches = dwconv.dw_bwd.launches - dw_before
     (vwav, vlengths, vspeakers), _ = staged["val"][0]
     ts.eval_step(state, vwav, vlengths, vspeakers, frontend=frontend, capture=False)  # hooks run eagerly only
@@ -888,8 +915,8 @@ def trainer_phase(tag: str):
               f"alone); StepTimer data {data_s:.3f} s / model {model_s:.3f} s over {2 * steps} steps; "
               f"epoch 2 wall {ts_[1] - ts_[0]:.2f} s (train record to train record: 11 steps, epoch 1's "
               f"validation and checkpoint); peak memory {peak / 2**30:.2f} GiB; {captures} CUDA graphs captured "
-              f"(eval_step and embed_step, one a shape and model: validation, {val_batches} batches an epoch, "
-              f"and verification, {test_batches}) {tag}")
+              f"(train_step, eval_step and embed_step, one a shape and model: the train steps, {steps} an epoch, "
+              f"validation, {val_batches} batches an epoch, and verification, {test_batches}) {tag}")
 
         # run B: one epoch, then resumed for the second
         cli.train(trainer_config(root, f"b-{route}", 1, augmented))
@@ -944,11 +971,13 @@ class embedding_calls:
     waveform, config and lengths it turns into the kernel's operands;
     ``pooling.attentive_pool_fused``) and the output. On exit ``calls``,
     ``launches``, ``tc_launches``, ``dmma_launches``, ``pool_launches``,
-    ``mel`` and ``pool`` hold them. Inside, the steps run eagerly
-    (``capture=False`` whatever the caller asks): a CUDA graph's replay runs
-    no Python, so only the eager route hands each launch's operands to the
-    wrappers; phase 18 holds the captured route, each launch of a replay on
-    that graph's own operands."""
+    ``mel`` and ``pool`` hold them. Inside, the embedding steps and
+    ``eval_step`` run eagerly (``capture=False`` whatever the caller asks):
+    a CUDA graph's replay runs no Python, so only the eager route hands each
+    launch's operands to the wrappers; phase 18 holds the captured route,
+    each launch of a replay on that graph's own operands. The train step
+    keeps its default route (a graph on the card); the calls a capture
+    makes launch nothing and are not kept."""
 
     def __enter__(self):
         from titanet_torch.ops import frontend, pooling
@@ -958,12 +987,11 @@ class embedding_calls:
 
         self.calls, self.mel, self.pool, self._saved = 0, [], [], []
         for mod in (extractor, loop, state):
-            for name in ("embed_step", "embed_step_quantized"):
+            for name in ("embed_step", "embed_step_quantized", "eval_step"):
                 if getattr(mod, name, None) is not None:
-                    self._wrap(mod, name, self._counted)
+                    self._wrap(mod, name, self._eager if name == "eval_step" else self._counted)
         self._wrap(frontend, "_log_mel_fused", self._keep_mel)
         self._wrap(pooling, "attentive_pool_fused", self._keep_pool)
-        self._wrap(state, "wanted", lambda fn: lambda capture, device: False)
         self._mel_fn, self._pool_fn = log_mel_fused, attentive_pool_fwd
         log_mel_fused.launches = log_mel_fused.tc_launches = log_mel_fused.dmma_launches = 0
         attentive_pool_fwd.launches = 0
@@ -977,20 +1005,32 @@ class embedding_calls:
     def _counted(self, fn):
         def call(*a, **k):
             self.calls += 1
-            return fn(*a, **k)
+            return fn(*a, **{**k, "capture": False})
         return call
 
+    @staticmethod
+    def _eager(fn):
+        return lambda *a, **k: fn(*a, **{**k, "capture": False})
+
     def _keep_mel(self, fn):
+        import torch
+
         def call(waveform, cfg, lengths):
             out = fn(waveform, cfg, lengths)
+            if torch.cuda.is_current_stream_capturing():
+                return out
             self.mel.append(dict(waveform=waveform.clone(), cfg=cfg, out=out.clone(),
                                  lengths=None if lengths is None else lengths.clone()))
             return out
         return call
 
     def _keep_pool(self, fn):
+        import torch
+
         def call(h, a, c, wa, ba, wb, bb, eps, fold):
             out = fn(h, a, c, wa, ba, wb, bb, eps, fold)
+            if torch.cuda.is_current_stream_capturing():
+                return out
             dt = h.dtype  # the operands as the pool's autograd function hands them to the kernel
             args = (h.contiguous(), a.float().contiguous(), c.float().contiguous(), wa.to(dt).contiguous(),
                     ba.float().contiguous(), wb.to(dt).contiguous(), bb.float().contiguous())
@@ -1413,6 +1453,7 @@ ZOO_FAMILIES = (
     ("dumb", {"dumb": {"enabled": True, "n_layers": 10, "hidden_size": 256}}, None),
 )
 ZOO_STEPS = 20  # train steps on one batch of TRAIN_BATCH x SECONDS s
+ZOO_TURNS = 5  # more train steps of each route, graph and eager in turns
 
 
 def zoo_phase(tag: str) -> dict:
@@ -1444,6 +1485,7 @@ def zoo_phase(tag: str) -> dict:
     from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
     from titanet_torch.train import checkpoint as ckpt
     from titanet_torch.train import state as ts
+    from titanet_torch.train.capture import GRAPHS
     from titanet_torch.train.extractor import SpeakerEmbedder
 
     dev = torch.device("cuda")
@@ -1496,21 +1538,28 @@ def zoo_phase(tag: str) -> dict:
             run = os.path.join(root, name)
             os.environ["TITANET_DW_BWD"] = "pallas"
 
-            # 1. the trainer: one epoch, then the verification of its checkpoint
+            # 1. the trainer: one epoch, its train steps through their CUDA
+            # graphs (their launches held on the graphs' operands), then the
+            # verification of its checkpoint
             zero()
+            captures = GRAPHS.captures
             t0 = time.perf_counter()
-            with embedding_calls() as calls:
+            with embedding_calls() as calls, graph_operands() as ops:
                 cli.train(cfg)
                 train_s = time.perf_counter() - t0
                 metrics = cli.evaluate_checkpoint(cfg, run)
             trainer = read()
+            n_graphs = GRAPHS.captures - captures
             want = {"logmel": steps + val_batches + 2 * test_batches,
                     "pool_fwd": steps + val_batches if conformer else 0, "pool_bwd": steps if conformer else 0,
                     "dw_bwd": 0}
-            if trainer != want or len(calls.mel) != want["logmel"]:
-                raise AssertionError(f"zoo {name} trainer: launches {trainer} ({len(calls.mel)} log-mel kept), "
-                                     f"expected {want}")
+            # the calls kept on the eager route: all but the train graphs' replays
+            if trainer != want or not 1 <= n_graphs < steps or len(calls.mel) != want["logmel"] - steps + n_graphs:
+                raise AssertionError(f"zoo {name} trainer: launches {trainer} ({len(calls.mel)} log-mel kept, "
+                                     f"{n_graphs} train graphs), expected {want}")
             mel_err, _, _ = replay_mel(calls.mel, f"zoo {name} trainer", torch.float32)
+            graph_held = hold_train_graph_kernels(ops, f"zoo {name} train graph", n_graphs, int(conformer), 0)
+            del ops
             loss = epoch_record(read_jsonl(os.path.join(run, "metrics.jsonl")), 1, "train/")["train/avg_loss"]
             if not np.isfinite(loss) or ckpt.latest_epoch(run) != 1:
                 raise AssertionError(f"zoo {name} trainer: loss {loss}, checkpoint {ckpt.latest_epoch(run)}")
@@ -1526,14 +1575,15 @@ def zoo_phase(tag: str) -> dict:
             frontend = cli._frontend(cfg)
             kept = []
             hooks = keep_pool_calls(state.model, kept) if conformer else []
-            step = lambda: ts.train_step(state, batch_wav, None, batch_spk, frontend=frontend)  # noqa: E731
+            step = lambda c=None: ts.train_step(state, batch_wav, None, batch_spk, frontend=frontend,  # noqa: E731
+                                                capture=c)
             losses, norms, step_ms = [], [], []
             torch.cuda.reset_peak_memory_stats()
             zero()
             for i in range(ZOO_STEPS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                _, met = step()
+                _, met = step(False if hooks else None)  # the hooked first step eagerly, then the graph
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 for h in hooks:
@@ -1559,7 +1609,20 @@ def zoo_phase(tag: str) -> dict:
                                          f"{[tuple(r['args'][0].shape) for r in kept]}")
                 pool_line = "; " + replay_pool(kept[0], "train step")
             step_dev, step_busy, step_kernels, timed_by = device_profile(step, iters=3, warmup=1)
-            step_med = statistics.median(step_ms[1:])
+            step_med = statistics.median(step_ms[2:])
+            turns = {None: [], False: []}
+            for i in range(ZOO_TURNS):
+                for c in ((None, False) if i % 2 == 0 else (False, None)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(c)
+                    torch.cuda.synchronize()
+                    turns[c].append((time.perf_counter() - t0) * 1e3)
+            eager_dev, eager_busy, _, _ = device_profile(lambda: step(False), iters=3, warmup=1)
+            turn_line = (f"; graph vs eager in turns ({ZOO_TURNS} steps each): median {statistics.median(turns[None]):.2f}"
+                         f" vs {statistics.median(turns[False]):.2f} ms, device {step_dev:.2f} vs {eager_dev:.2f} ms, "
+                         f"idle {1 - step_busy / statistics.median(turns[None]):.2f} vs "
+                         f"{1 - eager_busy / statistics.median(turns[False]):.2f}")
 
             # 3. embedding: embed_step at B=128 x 3 s (the bf16 tensor-core
             # log-mel kernel; unmasked, so the Conformer pools through the
@@ -1653,11 +1716,13 @@ def zoo_phase(tag: str) -> dict:
                   f"{TRAIN_BATCH}, [chunk]) {train_s:.2f} s, train/avg_loss {loss:.4f}, test/eer "
                   f"{metrics['test/eer']:.4f}, test/mindcf {metrics['test/mindcf']:.4f}, launches {trainer}, "
                   f"all {n_mel} log-mel launches replayed vs plain max abs err {mel_err:.3e} (atol 1e-4); "
-                  f"train_step x{ZOO_STEPS} on B={TRAIN_BATCH} x {SECONDS} s: loss {losses[0]:.4f} -> "
-                  f"{losses[-1]:.4f}, grad norms finite, median {step_med:.2f} ms a step (min {min(step_ms[1:]):.2f}, "
-                  f"max {max(step_ms[1:]):.2f}), device {step_dev:.2f} ms, busy {step_busy:.2f} ms ({timed_by}), "
+                  f"{n_graphs} train graph(s): {graph_held}; "
+                  f"train_step x{ZOO_STEPS} on B={TRAIN_BATCH} x {SECONDS} s (the first eagerly, then its graph): loss "
+                  f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad norms finite, median {step_med:.2f} ms a step (min "
+                  f"{min(step_ms[2:]):.2f}, max {max(step_ms[2:]):.2f}), device {step_dev:.2f} ms, busy {step_busy:.2f} ms "
+                  f"({timed_by}), "
                   f"{step_kernels} kernels a step, idle {1 - step_busy / step_med:.2f}, peak {peak / 2**30:.2f} GiB, launches "
-                  f"{ {k: v // ZOO_STEPS for k, v in per_step.items()} } a step{pool_line}; embed_step B={B} x "
+                  f"{ {k: v // ZOO_STEPS for k, v in per_step.items()} } a step{pool_line}{turn_line}; embed_step B={B} x "
                   f"{SECONDS} s median {emb_med:.2f} ms, device {emb_dev:.2f} ms, busy {emb_busy:.2f} ms, {emb_kernels} kernels, idle "
                   f"{1 - emb_busy / emb_med:.2f}, log-mel bf16 err {embed_k['max_abs_err']:.2e}"
                   f"{', pool ' + format(embed_k['pool_max_abs_err'], '.2e') if conformer else ''}; SpeakerEmbedder "
@@ -2159,7 +2224,9 @@ def ddp_steps(work: str, mesh=None, dtype: str = "bfloat16", lr=None, dropout=No
         if i == 1:
             reset_collective_stats()
         t0 = time.perf_counter()
-        state, m = ts.train_step(state, wav, lengths, speakers, frontend=frontend, mesh=mesh)
+        # eager in the one process too: the ranks' step (P > 1) runs eagerly,
+        # and the first step's hooks keep its kernels' operands
+        state, m = ts.train_step(state, wav, lengths, speakers, frontend=frontend, mesh=mesh, capture=False)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(m["loss"].item())
@@ -2457,70 +2524,83 @@ def host_launches(fn, iters: int = 3) -> dict:
     return {k: v / iters for k, v in sorted(counts.items())}
 
 
-class graph_operands:
-    """While a step is captured, keeps references (no copies: a copy would
-    be captured too) to what each fused log-mel and pool-forward call of
-    the step was given and gave, at the names the path looks the kernels up
-    by (``frontend._log_mel_fused``, ``pooling.attentive_pool_fused``).
-    These are tensors of the graph, which every replay rewrites:
-    :meth:`snapshot` after a replay clones them into the records that
-    :func:`replay_mel` and :func:`pool_fwd_vs_plain` hold against the plain
-    versions."""
+class _KeepCall:
+    """A kernel wrapper that keeps each call made while the current stream
+    captures: its arguments by reference (a parameter cloned, inside the
+    capture: a train step updates it after the kernel read it) and its
+    output. ``launches`` reads and writes the wrapped function's counter,
+    which the wrapper's own body increments through the module's name."""
 
-    def __enter__(self):
+    def __init__(self, fn, kept: list):
+        self.fn, self.kept = fn, kept
+
+    launches = property(lambda self: self.fn.launches, lambda self, v: setattr(self.fn, "launches", v))
+
+    def __call__(self, *args):
         import torch
 
-        from titanet_torch.ops import frontend, pooling
+        out = self.fn(*args)
+        if torch.cuda.is_current_stream_capturing():
+            self.kept.append((tuple(a.detach().clone() if isinstance(a, torch.nn.Parameter) else a for a in args),
+                              out))
+        return out
 
-        self.mel, self.pool, self._saved = [], [], []
-        for mod, name, keep in ((frontend, "_log_mel_fused", self.mel), (pooling, "attentive_pool_fused", self.pool)):
+
+class graph_operands:
+    """While steps are captured, keeps what each launch of rows 1-4 in them
+    was given and gave, at the names the path looks the kernels up by
+    (``frontend._log_mel_fused``; ``attentive_pool_fwd``,
+    ``attentive_pool_bwd`` and ``dw_bwd`` in their modules, where the
+    autograd functions find them), by reference: a copy would be captured
+    too. These are tensors of the graphs, which every replay rewrites:
+    :meth:`snapshot` after a replay clones them into the records that
+    :func:`hold_graph_kernels` and :func:`hold_train_graph_kernels` replay."""
+
+    def __enter__(self):
+        from titanet_torch.ops import frontend
+        from titanet_torch.ops.kernels import dwconv
+        from titanet_torch.ops.kernels import pool as pk
+
+        self.kept = {"mel": [], "pool_fwd": [], "pool_bwd": [], "dw": []}
+        self._saved = []
+        for mod, name, key in ((frontend, "_log_mel_fused", "mel"), (pk, "attentive_pool_fwd", "pool_fwd"),
+                               (pk, "attentive_pool_bwd", "pool_bwd"), (dwconv, "dw_bwd", "dw")):
             fn = getattr(mod, name)
             self._saved.append((mod, name, fn))
-
-            def call(*args, _fn=fn, _keep=keep):
-                out = _fn(*args)
-                if torch.cuda.is_current_stream_capturing():
-                    _keep.append((args, out))
-                return out
-
-            setattr(mod, name, call)
+            setattr(mod, name, _KeepCall(fn, self.kept[key]))
         return self
 
     def __exit__(self, *exc):
-        for mod, name, fn in self._saved:
+        for mod, name, fn in reversed(self._saved):
             setattr(mod, name, fn)
         return False
 
-    def snapshot(self):
-        """``(log-mel records, pool-forward records)`` of the last replay."""
+    def snapshot(self) -> dict:
+        """Each kernel's calls as the last replays left them: ``mel`` as
+        records of :func:`replay_mel`, the others ``(args, out)``."""
         import torch
 
         clone = lambda t: t.clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
-        mel = [dict(waveform=a[0].clone(), cfg=a[1], lengths=clone(a[2]), out=o.clone()) for a, o in self.mel]
-        pool = []
-        for (h, a, c, wa, ba, wb, bb, eps, fold), out in self.pool:
-            dt = h.dtype  # the operands as the pool's autograd function hands them to the kernel
-            args = (h.contiguous(), a.float().contiguous(), c.float().contiguous(), wa.to(dt).contiguous(),
-                    ba.float().contiguous(), wb.to(dt).contiguous(), bb.float().contiguous())
-            pool.append(dict(args=tuple(t.clone() for t in args), eps=eps, fold=fold, out=out.clone()))
-        return mel, pool
+        out = {k: [(tuple(map(clone, a)), tuple(map(clone, o)) if isinstance(o, tuple) else clone(o))
+                   for a, o in v] for k, v in self.kept.items()}
+        out["mel"] = [dict(waveform=a[0], cfg=a[1], lengths=a[2], out=o) for a, o in out["mel"]]
+        return out
 
 
-def hold_graph_kernels(ops: "graph_operands", what: str, mel_dtype, n_pool: int) -> str:
-    """Every kernel launch of the graph whose capture ``ops`` watched,
-    replayed on that graph's operands as its last replay left them: the
-    log-mel (``mel_dtype``; phase 2's tolerances) and ``n_pool`` pool
-    forwards (phase 3's). Each replay must give the graph's output bit for
-    bit. Raises on a miss; returns the summary."""
-    mel, pool = ops.snapshot()
-    if len(mel) != 1 or len(pool) != n_pool:
-        raise AssertionError(f"{what}: the graph holds {len(mel)} log-mel and {len(pool)} pool-forward calls, "
-                             f"expected 1 and {n_pool}")
-    err, _, widths = replay_mel(mel, what, mel_dtype)
+def hold_graph_kernels(snap: dict, what: str, mel_dtype, n_pool: int, n_mel: int = 1) -> str:
+    """Every log-mel and pool-forward launch of the graphs in ``snap``
+    (:meth:`graph_operands.snapshot`), replayed on those graphs' operands:
+    ``n_mel`` log-mel (``mel_dtype``; phase 2's tolerances) and ``n_pool``
+    pool forwards (phase 3's). Each replay must give the graph's output bit
+    for bit. Raises on a miss; returns the summary."""
+    if len(snap["mel"]) != n_mel or len(snap["pool_fwd"]) != n_pool:
+        raise AssertionError(f"{what}: the graphs hold {len(snap['mel'])} log-mel and {len(snap['pool_fwd'])} "
+                             f"pool-forward calls, expected {n_mel} and {n_pool}")
+    err, _, widths = replay_mel(snap["mel"], what, mel_dtype)
     line = f"log-mel on the graph's operands {sorted(widths)} max abs err {err:.3e}"
-    for rec in pool:
-        perr = pool_fwd_vs_plain(rec["args"], rec["eps"], rec["fold"], rec["out"], f"{what}: pool forward")
-        line += f", pool forward {tuple(rec['args'][0].shape)} max abs err {perr:.3e}"
+    for args, out in snap["pool_fwd"]:
+        perr = pool_fwd_vs_plain(args[:7], args[7], args[8], out, f"{what}: pool forward")
+        line += f", pool forward {tuple(args[0].shape)} max abs err {perr:.3e}"
     return line + ", each the graph's output bit for bit"
 
 
@@ -2616,7 +2696,7 @@ def capture_phase(root: str, n_speakers: int, tag: str) -> dict:
             if counts != {"logmel": 1, "pool_fwd": n_pool, "logmel on its tensor-core route": 1}:
                 raise AssertionError(f"capture {label}: launches a replay {counts}")
             graph_launches["logmel"][label], graph_launches["pool_fwd"][label] = 1, n_pool
-            held = hold_graph_kernels(ops, f"capture {label}", mel_dt, n_pool)
+            held = hold_graph_kernels(ops.snapshot(), f"capture {label}", mel_dt, n_pool)
             times = {"graph": [], "eager": []}
             for i in range(CAPTURE_CALLS):
                 for route in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
@@ -2708,8 +2788,9 @@ def capture_phase(root: str, n_speakers: int, tag: str) -> dict:
                 if any(not torch.equal(out[k], ref[k]) for k in ("loss", "preds", "embeddings")):
                     raise AssertionError(f"capture eval_step on a validation batch {tuple(wav.shape)}: graph vs "
                                          "eager bits differ")
-            if ops.mel:
-                held.append(hold_graph_kernels(ops, f"capture eval_step {tuple(wav.shape)}", torch.float32, 1))
+            if ops.kept["mel"]:
+                held.append(hold_graph_kernels(ops.snapshot(), f"capture eval_step {tuple(wav.shape)}",
+                                               torch.float32, 1))
             shapes.add(tuple(wav.shape))
         if graphs.captures != len(shapes):
             raise AssertionError(f"capture eval_step: {graphs.captures} graphs for shapes {sorted(shapes)}")
@@ -2757,6 +2838,325 @@ def capture_phase(root: str, n_speakers: int, tag: str) -> dict:
           f"{ {k: round(v, 4) for k, v in second['load_s'].items()} } s {tag}")
     print(f"capture phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
     return graph_launches
+
+
+# Train-step capture phase (19): the JAX package's jitted, donated train
+# step as one CUDA graph a step shape (titanet_torch/train/state.py), and
+# the mega-blocks' rematerialization, on TitaNet-S at full width (17
+# mega-blocks, hidden 256, epilog 1536, embedding 192), bf16, dropout 0.5,
+# CE over TRAIN_CLASSES classes, Adam 1e-3 with clipping at 1.0, a linear
+# warm-up over 2 steps and a cosine after it, a weight EMA, at B=128 x 3 s.
+TRAIN_CLASSES = 251
+TRAIN_GRAPH_STEPS = 5  # steps of each route in (a), from one initial state
+TRAIN_TURNS = 20  # timed steps of each route in (b), graph and eager in turns
+
+
+def train_capture_state(dev, *, head: str = "ce", accumulate: int = 1, batch: int = B, remat: bool = False,
+                        remat_policy=None):
+    """Phase 19's train state, from seeds: weights 0, head 1, generators 0."""
+    import torch
+
+    from titanet_torch.losses.heads import build_head
+    from titanet_torch.models import common
+    from titanet_torch.models.titanet import TitaNet
+    from titanet_torch.train import state as ts
+
+    model = common.finish(TitaNet(n_mega_blocks=17, dropout=0.5, dtype=torch.bfloat16, remat=remat,
+                                  remat_policy=remat_policy), dev, torch.Generator().manual_seed(0))
+    hd = build_head(head, 192, TRAIN_CLASSES, device=dev, generator=torch.Generator().manual_seed(1))
+    opt = ts.make_optimizer(start_lr=1e-3, scheduler=True, end_lr=1e-5, total_epochs=4, steps_per_epoch=2,
+                            warmup_epochs=1, grad_clip_norm=1.0, accumulate_steps=accumulate)
+    return ts.create_train_state(model, hd, opt, seed=0, ema=True)
+
+
+def state_record(st) -> dict:
+    """Every tensor a train step advances (parameters, running statistics,
+    Adam's moments, the accumulator, the weight EMA), cloned, and the
+    counters and each generator's state."""
+    opt = st.opt_state
+    rec = {f"model.{k}": v.detach().clone() for k, v in st.model.state_dict().items()}
+    rec.update({f"head.{k}": v.detach().clone() for k, v in st.head.state_dict().items()})
+    for name in ("mu", "nu", "acc"):
+        rec.update({f"opt.{name}.{i}": t.clone() for i, t in enumerate(getattr(opt, name) or [])})
+    rec.update({f"ema.{i}": t.clone() for i, t in enumerate(st.ema or [])})
+    rec["counters"] = (st.step, opt.count, opt.mini_step)
+    rec.update({f"generator.{k}": g.get_state() for k, g in st.generators().items()})
+    return rec
+
+
+def record_diff(got: dict, ref: dict) -> tuple:
+    """``(tensors that differ, largest difference relative to the
+    reference tensor's largest entry)`` over two records of :func:`state_record`
+    and step metrics; generator states and counters must be equal."""
+    import torch
+
+    n, worst = 0, 0.0
+    for k, r in ref.items():
+        g = got[k]
+        if k == "counters":
+            if g != r:
+                raise AssertionError(f"counters (step, count, mini_step) {g} != {r}")
+        elif k.startswith("generator."):
+            if not torch.equal(g, r):
+                raise AssertionError(f"{k}: the generator's state differs")
+        elif not torch.equal(g, r):
+            n += 1
+            worst = max(worst, ((g.float() - r.float()).abs().max() / r.float().abs().max().clamp(min=1e-30)).item())
+    return n, worst
+
+
+def train_graph_run(make_state, capture, steps: int, inputs: dict, step_kw: dict, graphs=None) -> tuple:
+    """``steps`` train steps from ``make_state()``: (:func:`state_record`
+    after them with every step's loss and grad norm, the graph cache's
+    captures). ``graphs``: the cache the captured route uses."""
+    import torch
+
+    from titanet_torch.train import capture as cap
+    from titanet_torch.train import state as ts
+
+    st = make_state()
+    metrics = {}
+    ts.GRAPHS = graphs if graphs is not None else cap.StepGraphs()
+    try:
+        for i in range(steps):
+            st, m = ts.train_step(st, **inputs, **step_kw, capture=capture)
+            metrics[f"loss.{i}"], metrics[f"grad_norm.{i}"] = m["loss"].clone(), m["grad_norm"].clone()
+        torch.cuda.synchronize()
+        captures = ts.GRAPHS.captures
+    finally:
+        ts.GRAPHS = cap.GRAPHS
+    rec = state_record(st)
+    rec.update(metrics)
+    del st
+    return rec, captures
+
+
+def hold_train_graph_kernels(ops: "graph_operands", what: str, n_graphs: int = 1, n_pool: int = 1,
+                             n_dw: int = 51) -> str:
+    """Every launch of rows 1-4 in ``n_graphs`` train steps' graphs (each
+    one f32 log-mel, ``n_pool`` pool forwards and backwards and ``n_dw``
+    ``dw_bwd`` calls), replayed on the operands their last replays left,
+    against the graph's output (bit for bit) and its plain version: the
+    log-mel and the pool forward as :func:`hold_graph_kernels` holds them,
+    the pool backward at phase 6's limit (2e-2 of each gradient's largest
+    entry), each ``dw_bwd`` at phase 7's (3e-2). Raises on a miss; returns
+    the summary."""
+    import torch
+
+    from titanet_torch.ops.kernels import dwconv
+    from titanet_torch.ops.kernels import pool as pk
+
+    snap = ops.snapshot()
+    if len(snap["pool_bwd"]) != n_graphs * n_pool or len(snap["dw"]) != n_graphs * n_dw:
+        raise AssertionError(f"{what}: the graphs hold {len(snap['pool_bwd'])} pool-backward and "
+                             f"{len(snap['dw'])} dw_bwd calls, expected {n_graphs * n_pool} and {n_graphs * n_dw}")
+    line = hold_graph_kernels(snap, what, torch.float32, n_graphs * n_pool, n_graphs)
+    errs = {}
+    for args, out in snap["pool_bwd"]:
+        got = pk.attentive_pool_bwd(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, out)):
+            raise AssertionError(f"{what}: the pool backward's replay differs from the graph's output")
+        for k, v in pool_bwd_errors(got, pk.attentive_pool_bwd_plain(*args), args[-1], 2e-2,
+                                    f"{what}: pool backward").items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    if errs:
+        line += f"; pool backward error / max {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (2e-2)"
+    worst = {"dx": 0.0, "dk": 0.0, "db": 0.0}
+    for (x, w, dy), out in snap["dw"]:
+        got, ref = dwconv.dw_bwd(x, w, dy), dwconv.dw_bwd_plain(x, w, dy)
+        if not all(torch.equal(a, b) for a, b in zip(got, out)):
+            raise AssertionError(f"{what}: a dw_bwd replay {tuple(x.shape)} differs from the graph's output")
+        for gname, a, r in zip(worst, got, ref):
+            e = (a.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+            if not torch.isfinite(a).all() or e > 3e-2:
+                raise AssertionError(f"{what}: dw_bwd {tuple(x.shape)} {gname} error / max {e} > 3e-2")
+            worst[gname] = max(worst[gname], e)
+    if snap["dw"]:
+        line += (f"; all {len(snap['dw'])} dw_bwd launches {tuple(snap['dw'][0][0][0].shape)}: worst error / max "
+                 f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})} (3e-2)")
+    return line
+
+
+def train_capture_phase(tag: str) -> dict:
+    """Phase 19: (a) each case's ``TRAIN_GRAPH_STEPS`` captured train steps
+    against as many ``capture=False`` steps from the same initial state,
+    after two eager runs against each other: losses, grad norms, every
+    parameter, running statistic, Adam moment, weight EMA, the counters
+    and each generator's state; (b) graph and eager in turns: wall, device
+    time, idle share, host launch calls a step, capture seconds and the
+    graph pool's MiB; (c) every launch of rows 1-4 in the pallas-route
+    graph replayed on the graph's operands against its plain version; (d)
+    remat (``remat=True``, ``remat_policy="dots_saveable"``) against the
+    plain model at B=128 and B=512: peak memory, step ms, and the state
+    after two captured steps equal to the plain model's. Returns the
+    launches of rows 1-4 a replay of the pallas graph counted."""
+    import numpy as np
+    import torch
+
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.augment import AugmentConfig
+    from titanet_torch.ops.kernels import dwconv
+    from titanet_torch.ops.kernels.melspec import log_mel_fused
+    from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
+    from titanet_torch.train import capture as cap
+    from titanet_torch.train import state as ts
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    n = SECONDS * SR
+    tt = np.arange(n) / SR
+
+    def batch(b, seed):
+        r = np.random.default_rng(seed)
+        wav = (r.uniform(0.05, 0.5, (b, 1)) * np.sin(2 * np.pi * r.uniform(100.0, 2000.0, (b, 1)) * tt)
+               + 0.05 * r.standard_normal((b, n))).astype(np.float32)
+        return torch.from_numpy(wav).to(dev), torch.from_numpy(r.integers(0, TRAIN_CLASSES, b)).to(dev)
+
+    wav, spk = batch(B, 19)
+    ragged = torch.from_numpy(rng.integers(SR, n + 1, B).astype(np.int32)).to(dev)
+    frontend = tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    aug = AugmentConfig(noise_prob=0.5)
+    counters = {"logmel": log_mel_fused, "pool_fwd": attentive_pool_fwd, "pool_bwd": attentive_pool_bwd,
+                "dw_bwd": dwconv.dw_bwd}
+    try:
+        # (a) equal bits, case by case
+        cases = (
+            ("xla, no augmentation, uniform", "xla", {}, None, {}),
+            ("pallas, no augmentation, uniform", "pallas", {}, None, {}),
+            ("xla, SpecAugment + noise, ragged", "xla", dict(augment=aug), ragged, {}),
+            ("pallas, SpecAugment + noise, ragged", "pallas", dict(augment=aug), ragged, {}),
+            ("pallas, accumulate_steps=2", "pallas", {}, None, dict(accumulate=2)),
+            ("pallas, ArcFace margin warm-up over 4 steps + renorm", "pallas",
+             dict(margin_warmup_steps=4, renorm_head=True), ragged, dict(head="arc")),
+        )
+        spreads = {}
+        for label, route, kw, lens, make_kw in cases:
+            os.environ["TITANET_DW_BWD"] = route
+            make = lambda: train_capture_state(dev, **make_kw)  # noqa: E731
+            inputs = dict(waveform=wav, lengths=lens, speakers=spk)
+            step_kw = dict(frontend=frontend, ema_decay=0.99, **kw)
+            e1, _ = train_graph_run(make, False, TRAIN_GRAPH_STEPS, inputs, step_kw)
+            e2, _ = train_graph_run(make, False, TRAIN_GRAPH_STEPS, inputs, step_kw)
+            g, captures = train_graph_run(make, None, TRAIN_GRAPH_STEPS, inputs, step_kw)
+            spread_n, spread = record_diff(e2, e1)
+            diff_n, diff = record_diff(g, e1)
+            want_graphs = 2 if make_kw.get("accumulate") else 1
+            clipped = sum(e1[f"grad_norm.{i}"].item() >= 1.0 for i in range(TRAIN_GRAPH_STEPS))
+            if captures != want_graphs or diff > spread:
+                raise AssertionError(f"train capture {label}: {captures} graphs (expected {want_graphs}); graph vs "
+                                     f"eager {diff_n} tensors differ, worst {diff:.3e} / max, eager vs eager "
+                                     f"{spread_n} tensors, worst {spread:.3e}")
+            spreads[label] = spread
+            losses = [round(e1[f"loss.{i}"].item(), 4) for i in range(TRAIN_GRAPH_STEPS)]
+            print(f"train capture (a) {label}: {TRAIN_GRAPH_STEPS} captured steps vs {TRAIN_GRAPH_STEPS} eager from "
+                  f"one state: {'equal to the bit' if diff_n == 0 else f'{diff_n} tensors differ, worst {diff:.3e} / max'}"
+                  f" ({len(e1) - 4} tensors and metrics, counters {e1['counters']}, the 3 generators' states equal); "
+                  f"eager vs eager {'equal to the bit' if spread_n == 0 else f'{spread_n} tensors differ, worst {spread:.3e} / max'}"
+                  f"; {captures} graph(s); losses {losses}, {clipped} of {TRAIN_GRAPH_STEPS} steps clipped {tag}")
+        limit = max(spreads.values())
+
+        # (c) the kernels inside the graph (a graph of its own: it clones the
+        # parameters the kernels read, which the step then updates), and (b)
+        # graph and eager in turns
+        os.environ["TITANET_DW_BWD"] = "pallas"
+        step_kw = dict(frontend=frontend, ema_decay=0.99)
+        graphs = cap.StepGraphs()
+        ts.GRAPHS = graphs
+        try:
+            st = train_capture_state(dev)
+            with graph_operands() as ops:
+                ts.train_step(st, wav, None, spk, **step_kw)
+            for c in counters.values():
+                c.launches = 0
+            ts.train_step(st, wav, None, spk, **step_kw)
+            torch.cuda.synchronize()
+            replay = {k: c.launches for k, c in counters.items()}
+            if replay != {"logmel": 1, "pool_fwd": 1, "pool_bwd": 1, "dw_bwd": 51} or graphs.captures != 1:
+                raise AssertionError(f"train capture: launches a replay {replay}, {graphs.captures} captures")
+            held = hold_train_graph_kernels(ops, "train capture (c)")
+            print(f"train capture (c) kernels inside the train graph (pallas, B={B} x {SECONDS} s): launches a "
+                  f"replay {replay}; {held} {tag}")
+            del ops, st
+        finally:
+            ts.GRAPHS = cap.GRAPHS
+        graphs = cap.StepGraphs()
+        ts.GRAPHS = graphs
+        try:
+            st = train_capture_state(dev)
+            run = lambda c: ts.train_step(st, wav, None, spk, **step_kw, capture=c)  # noqa: E731
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(None)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            entry, pool_b = graphs.graphs()[0], graphs.pool_bytes()
+            times = {"graph": [], "eager": []}
+            for i in range(TRAIN_TURNS):
+                for route in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(None if route == "graph" else False)
+                    torch.cuda.synchronize()
+                    times[route].append((time.perf_counter() - t0) * 1e3)
+            parts = []
+            for route, c in (("graph", None), ("eager", False)):
+                dms, busy, n_k, timed_by = device_profile(lambda: run(c), iters=3, warmup=1)
+                api = host_launches(lambda: run(c), iters=2)
+                med = statistics.median(times[route])
+                parts.append(f"{route}: median {med:.3f} ms (min {min(times[route]):.3f}, max "
+                             f"{max(times[route]):.3f}), {B / med * 1e3:.1f} utt/s, device {dms:.3f} ms ({timed_by}), "
+                             f"idle share {1 - busy / med:.3f}, {n_k} kernels a step, host launch calls a step {api}")
+            print(f"train capture (b) TitaNet-S 17 blocks bf16, B={B} x {SECONDS} s, pallas, Adam + clip + cosine + "
+                  f"EMA: first call {first_s:.3f} s (warm-up step and capture), capture {entry.capture_s:.3f} s, graph "
+                  f"pool {pool_b / 2**20:.1f} MiB; {TRAIN_TURNS} steps each, in turns: {' | '.join(parts)} {tag}")
+            del st, entry, run
+        finally:
+            ts.GRAPHS = cap.GRAPHS
+        del graphs
+        torch.cuda.empty_cache()
+
+        # (d) remat against the plain model at B=128 and B=512
+        for b in (B, 4 * B):
+            wav_b, spk_b = batch(b, 20 + b)
+            inputs = dict(waveform=wav_b, lengths=None, speakers=spk_b)
+            ref, parts = None, []
+            for label, mk in (("plain", {}), ("remat", dict(remat=True)),
+                              ("remat dots_saveable", dict(remat=True, remat_policy="dots_saveable"))):
+                torch.cuda.empty_cache()
+                ts.GRAPHS = cap.StepGraphs()
+                try:
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    st = train_capture_state(dev, batch=b, **mk)
+                    for _ in range(2):
+                        ts.train_step(st, **inputs, **step_kw)
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() - base
+                    rec = state_record(st)
+                    ms = median_ms(lambda: ts.train_step(st, **inputs, **step_kw), runs=5, warmup=1)[0]
+                finally:
+                    ts.GRAPHS = cap.GRAPHS
+                del st
+                if ref is None:
+                    ref, diff_line = rec, ""
+                else:
+                    diff_n, diff = record_diff(rec, ref)
+                    if diff > limit:
+                        raise AssertionError(f"remat {label} B={b}: {diff_n} tensors differ from the plain model's, "
+                                             f"worst {diff:.3e} / max > {limit:.3e}")
+                    diff_line = (", state after 2 steps " + ("equal to plain to the bit" if diff_n == 0 else
+                                 f"{diff_n} tensors differ, worst {diff:.3e} / max (eager spread {limit:.3e})"))
+                parts.append(f"{label}: peak {peak / 2**30:.2f} GiB, {ms:.2f} ms a step{diff_line}")
+                del rec
+            del ref
+            print(f"train capture (d) remat, TitaNet-S bf16 B={b} x {SECONDS} s, captured step (peak: warm-up, "
+                  f"capture and replays, above what was allocated before): {' | '.join(parts)} {tag}")
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("TITANET_DW_BWD", None)
+    print(f"train capture phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
+    return {k: 1 if k != "dw_bwd" else 51 for k in counters}
 
 
 def main() -> int:
@@ -3096,7 +3496,9 @@ def main() -> int:
         for fn in counters.values():
             fn.launches = 0
         log_mel_fused.dmma_launches = 0
-        st, met = ts.train_step(st, wav_t, lengths, spk, frontend=cfg_train)
+        torch.cuda.reset_peak_memory_stats()
+        st, met = ts.train_step(st, wav_t, lengths, spk, frontend=cfg_train)  # the warm-up step and the capture
+        peak = torch.cuda.max_memory_allocated()
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in counters.items()}
         counts["logmel_dmma"] = log_mel_fused.dmma_launches
@@ -3111,7 +3513,6 @@ def main() -> int:
         if bad:
             raise AssertionError(f"train_step {route}: parameters without a finite gradient: {bad[:5]}")
         del grads
-        torch.cuda.reset_peak_memory_stats()
         losses, times = [], []
         for _ in range(20):
             torch.cuda.synchronize()
@@ -3119,7 +3520,6 @@ def main() -> int:
             st, met = ts.train_step(st, wav_t, lengths, spk, frontend=cfg_train)
             losses.append(met["loss"].item())
             times.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated()
         if not all(np.isfinite(losses)) or not np.mean(losses[-5:]) < losses[0]:
             raise AssertionError(f"train_step {route}: loss did not fall over 20 steps: {losses}")
         med = statistics.median(times[3:])
@@ -3130,10 +3530,12 @@ def main() -> int:
 
         dev_ms, timed_by = device_ms(step, iters=3, warmup=1)
         dw_ms, _ = device_ms(step, names=DW_KERNELS, iters=3, warmup=0) if route == "pallas" else (0.0, None)
-        print(f"train_step {route}: launches per step {counts}; every parameter has a finite gradient; loss "
+        print(f"train_step {route} (its CUDA graph, the default on the card): launches per step {counts}; every "
+              f"parameter has a finite gradient; loss "
               f"{losses[0]:.4f} -> {losses[-1]:.4f} over 20 steps; median {med:.3f} ms per step "
               f"(min {min(times[3:]):.3f}, max {max(times[3:]):.3f}, steps 4-20), {B / med * 1e3:.1f} utt/s, "
-              f"peak memory {peak / 2**30:.2f} GiB; device time {dev_ms:.3f} ms a step ({timed_by}, 3 steps)"
+              f"peak memory {peak / 2**30:.2f} GiB (the first call: its warm-up step and the capture; the "
+              f"replays allocate nothing); device time {dev_ms:.3f} ms a step ({timed_by}, 3 steps)"
               f"{f', of it dw_bwd {dw_ms:.3f} ms for 51 launches' if route == 'pallas' else ''} {tag}")
         del st, met
 
@@ -3452,6 +3854,9 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # 19. the train step as one CUDA graph, and remat
+    train_graph_launches = train_capture_phase(tag)
+
     # the f32 log-mel routes' launches on their paths: the train step's
     # (its frontend is "highest"), the f32 fused serving call's
     f32_launches = {"logmel": train_launches["pallas"]["logmel_dmma"],
@@ -3496,6 +3901,7 @@ def main() -> int:
             "device_corpus_trainer_launches": dc_launches[zoo_key] if zoo_key else None,
             "ddp_trainer_launches": ddp_launches[zoo_key] if zoo_key else None,
             "graph_launches": graph_launches.get(zoo_key, {}),
+            "train_graph_launches": train_graph_launches.get(zoo_key),
             **extra,
         })
     print(json.dumps({"kernels": kernels}))

@@ -987,3 +987,137 @@ def test_a_step_that_cannot_be_captured_raises(cuda_device):
     assert len(graphs) == 0 and graphs.captures == 0
     torch.cuda.synchronize()
     assert torch.equal(x * 2, torch.full_like(x, 2.0))  # the device works on
+
+
+def _train_state(device, dtype=torch.bfloat16, seed=0, remat=False, **opt_kw):
+    from titanet_torch.losses import build_head
+    from titanet_torch.models import common
+    from titanet_torch.models.titanet import TitaNet
+    from titanet_torch.train import state as ts
+
+    model = common.finish(TitaNet(n_mega_blocks=2, dropout=0.5, dtype=dtype, remat=remat), device,
+                          torch.Generator().manual_seed(seed))
+    head = build_head("ce", 192, 7, device=device, generator=torch.Generator().manual_seed(1))
+    return ts.create_train_state(model, head, ts.make_optimizer(grad_clip_norm=1.0, **opt_kw), seed=seed, ema=True)
+
+
+def _train_record(st):
+    opt = st.opt_state
+    return ([*st.model.state_dict().values(), *st.head.state_dict().values(), *opt.mu, *opt.nu,
+             *(opt.acc or []), *st.ema, *(g.get_state() for g in st.generators().values())],
+            (st.step, opt.count, opt.mini_step))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["xla", "pallas"])
+@pytest.mark.parametrize("augment", [False, True])
+def test_captured_train_step_equals_eager_to_the_bit(cuda_device, monkeypatch, route, augment):
+    """Four train steps through the step's graph (a warm-up step that
+    captures, then replays) against four ``capture=False`` steps from the
+    same state: every parameter, running statistic, Adam moment, weight
+    EMA, generator state, counter and metric to the bit; one graph a shape
+    (uniform and ragged apart), accumulate and update apart."""
+    from titanet_torch.ops.augment import AugmentConfig
+    from titanet_torch.train import state as ts
+    from titanet_torch.train.capture import GRAPHS
+
+    monkeypatch.setenv("TITANET_DW_BWD", route)
+    fe = tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    wav, lengths = _capture_batch(cuda_device, b=4, t=24000)
+    lengths[-1] = 12000
+    spk = torch.tensor([0, 3, 6, 1], device=cuda_device)
+    kw = dict(frontend=fe, ema_decay=0.9, augment=AugmentConfig(noise_prob=0.5) if augment else None)
+    out, captures = [], GRAPHS.captures
+    for capture in (None, False):
+        st = _train_state(cuda_device, accumulate_steps=2)
+        mets = []
+        for i in range(4):
+            st, m = ts.train_step(st, wav, None if i % 2 else lengths, spk, capture=capture, **kw)
+            mets += [m["loss"], m["grad_norm"], m["embeddings"]]
+        out.append((_train_record(st), mets))
+    (a, ca), ma = out[0]
+    (b, cb), mb = out[1]
+    assert ca == cb == (4, 2, 0)
+    assert all(torch.equal(x, y) for x, y in zip(a + ma, b + mb))
+    # (ragged, accumulate) and (uniform, update), each replayed once
+    assert GRAPHS.captures == captures + 2
+
+
+@pytest.mark.cuda
+def test_a_capture_drawing_from_an_unregistered_generator_raises(cuda_device):
+    """A step registers each generator it draws from (an owner); one that
+    is not registered fails its capture, never replays frozen draws."""
+    from titanet_torch.train.capture import StepGraphs
+
+    gen, other = (torch.Generator(device=cuda_device).manual_seed(s) for s in (0, 1))
+    step = lambda x: x + torch.rand(x.shape, generator=other, device=x.device)  # noqa: E731
+    graphs = StepGraphs()
+    with pytest.raises(RuntimeError, match="not in capture mode"):
+        graphs.run("draws", None, (gen,), step, (torch.zeros(8, device=cuda_device),))
+    assert len(graphs) == 0
+    state = gen.get_state()
+    ok = lambda x: x + torch.rand(x.shape, generator=gen, device=x.device)  # noqa: E731
+    x = torch.zeros(8, device=cuda_device)
+    outs = [graphs.run("draws", None, (gen,), ok, (x,)) for _ in range(3)]
+    ref = torch.Generator(device=cuda_device)
+    ref.set_state(state)
+    for o in outs:
+        assert torch.equal(o, torch.rand(8, generator=ref, device=cuda_device))
+    assert torch.equal(gen.get_state(), ref.get_state())
+
+
+@pytest.mark.cuda
+def test_device_scalar_optimizer_equals_the_host_scalar_update_on_the_card(cuda_device):
+    """The ``_foreach`` ops with the step's scalars as a device tensor give
+    the bits the Python scalars gave (the replaced update), on the card."""
+    import importlib.util
+    import os
+
+    from titanet_torch.train import state as ts
+
+    # the CPU test file's cases and replaced update, loaded by path (it
+    # imports neither JAX nor the JAX package)
+    spec = importlib.util.spec_from_file_location(
+        "train_capture_cases", os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_torch_train_capture.py"))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    OPT_CASES, ScalarOptimizer = cases.OPT_CASES, cases.ScalarOptimizer
+
+    for case, (kw, scale) in sorted(OPT_CASES.items()):
+        rng = np.random.default_rng(3)
+        shapes = [(64, 33), (257,), ()]
+        p0 = [torch.from_numpy(np.asarray(rng.standard_normal(s), np.float32)).to(cuda_device) for s in shapes]
+        new, old = ts.make_optimizer(**kw), ScalarOptimizer(**vars(ts.make_optimizer(**kw)))
+        params = {k: [p.clone() for p in p0] for k in ("new", "old")}
+        states = {"new": new.init(params["new"]), "old": old.init(params["old"])}
+        for i in range(12):
+            s = (3.0 if i % 2 else 0.05) if scale == "mixed" else scale
+            g = [torch.from_numpy(np.asarray(rng.standard_normal(sh) * s, np.float32)).to(cuda_device) for sh in shapes]
+            for name, opt in (("new", new), ("old", old)):
+                upd = opt.update([x.clone() for x in g], states[name], params[name])
+                if upd is not None:
+                    torch._foreach_add_(params[name], upd)
+            for a, b in zip(params["new"], params["old"]):
+                assert torch.equal(a, b), (case, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "dots_saveable"])
+def test_captured_remat_train_step_equals_the_plain_one(cuda_device, policy):
+    """Two captured train steps of ``TitaNet(remat=True)`` equal the plain
+    model's to the bit: the recompute runs inside the graph, the dropout
+    masks are drawn once."""
+    from titanet_torch.train import state as ts
+
+    fe = tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    wav, _ = _capture_batch(cuda_device, b=4, t=24000)
+    spk = torch.tensor([0, 3, 6, 1], device=cuda_device)
+    recs = []
+    for remat in (False, True):
+        st = _train_state(cuda_device, remat=remat)
+        st.model.encoder.remat_policy = policy
+        for _ in range(2):
+            ts.train_step(st, wav, None, spk, frontend=fe)
+        recs.append(_train_record(st))
+    assert recs[0][1] == recs[1][1]
+    assert all(torch.equal(x, y) for x, y in zip(recs[0][0], recs[1][0]))

@@ -148,6 +148,24 @@ def task_steps(inp, mesh):
     return out
 
 
+def task_remat(inp, mesh):
+    """Two train steps of the plain model and of the rematerialized one
+    under each policy: the states, the losses, the dropout generator and
+    the collectives each route issued."""
+    fe = FrontendConfig.from_ms()
+    out = {}
+    for policy, remat in [(None, False)] + [(p, True) for p in inp["policies"]]:
+        st = toy_state(n_mega_blocks=2, remat=remat, remat_policy=policy)
+        reset_collective_stats()
+        losses = []
+        for wav, spk in inp["batches"]:
+            st, m = ts.train_step(st, rows(wav, mesh), None, rows(spk, mesh), frontend=fe, mesh=mesh)
+            losses.append(m["loss"])
+        out[policy, remat] = {"stats": collective_stats(), "losses": losses, "generator": st.generator.get_state(),
+                              "state": [t.clone() for t in st.model.state_dict().values()]}
+    return out
+
+
 def main():
     task, rank, world, port, inp_path, out_path = sys.argv[1:]
     torch.set_num_threads(1)
@@ -157,7 +175,7 @@ def main():
         mesh = make_mesh(int(world), device="cpu")
         with open(inp_path, "rb") as f:
             inp = pickle.load(f)
-        out = {"norm": task_norm, "steps": task_steps}[task](inp, mesh)
+        out = {"norm": task_norm, "steps": task_steps, "remat": task_remat}[task](inp, mesh)
         torch.save(out, out_path)
     finally:
         dist.destroy_process_group()

@@ -64,8 +64,10 @@ class AngularMarginHead(nn.Module):
     the stored weight as the reference does. ``stable`` clamps cosines to
     ``1 - 1e-7`` (a finite arccos gradient); ``sub_centers`` K > 1 takes the
     per-class max over K prototype columns; ``margin_scale`` (a scalar in
-    [0, 1]) scales every margin toward its identity value; None keeps the
-    plain margins.
+    [0, 1]: a float, or a 0-dim f32 tensor on the embeddings' device, as
+    the captured train step passes it, which is used without a copy)
+    scales every margin toward its identity value; None keeps the plain
+    margins.
     """
 
     def __init__(

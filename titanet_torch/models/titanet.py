@@ -30,25 +30,44 @@ mesh gives global-batch statistics.
 When the model is bf16 and there is no mask, the epilog's BatchNorm apply
 and relu are folded into the fused pooling kernel, in both modes (in
 training from the batch statistics).
+
+``remat=True`` rematerializes each mega-block in a training forward that
+records gradients (the JAX package's ``nn.remat(MegaBlock)``): the block
+runs under ``torch.utils.checkpoint`` and the backward recomputes what it
+did not keep, by ``remat_policy`` (:data:`REMAT_POLICIES`, the
+``jax.checkpoint_policies`` names): None or ``nothing_saveable`` keeps the
+block's input only, ``dots_saveable`` (``checkpoint_dots``) also the
+outputs of its matrix products (the pointwise convolutions and the SE
+layers); ``everything_saveable`` keeps every output, so nothing is
+recomputed and the block runs as without remat. The loss, the gradients,
+the published batch moments and the dropout generator's state are those
+of the plain model: the block's four dropout masks are drawn before the
+checkpointed call and passed in, and the recompute neither publishes
+batch moments nor issues a collective again
+(:class:`~titanet_torch.ops.norm.RematPass`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from collections.abc import Mapping
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from titanet_torch._device import resolve_device
 from titanet_torch.models import common
 from titanet_torch.ops.conv import DepthwiseSeparableConv1d, SamePadConv1d
 from titanet_torch.ops.dense import Dense
 from titanet_torch.ops.kernels.pool import kernel_supports
-from titanet_torch.ops.norm import BatchNorm, FastDropout
+from titanet_torch.ops.norm import BatchNorm, FastDropout, RematPass
 from titanet_torch.ops.pooling import AttentiveStatsPooling, SimplePooling
 from titanet_torch.ops.se import SqueezeExcitation
+from titanet_torch.parallel.mesh import active_mesh
 
 TARGET_PARAMS = {"s": 6.4, "m": 13.4, "l": 25.3}
 
@@ -72,17 +91,18 @@ class ConvBlock1d(nn.Module):
         self.norm = BatchNorm(features, dtype=dtype, axis_name=axis_name)
         self.dropout = FastDropout(dropout)
 
-    def forward(self, x: torch.Tensor, mask=None, defer_apply: bool = False, generator=None):
+    def forward(self, x: torch.Tensor, mask=None, defer_apply: bool = False, generator=None, keep=None):
         """``mask`` reaches the BatchNorm statistics in training only. With
         ``defer_apply`` return ``(conv(x), a, c)``: the BatchNorm apply and
-        the relu are left to the consumer as ``relu(a*h + c)``."""
+        the relu are left to the consumer as ``relu(a*h + c)``. ``keep``:
+        the dropout mask, drawn ahead (:meth:`FastDropout.keep_mask`)."""
         x = self.conv(x)
         if defer_apply:
             if self.dropout.rate:
                 raise ValueError("defer_apply needs a block without dropout")
             a, c = self.norm(x, mask=mask, return_scale_shift=True)
             return x, a, c
-        return self.dropout(torch.relu(self.norm(x, mask=mask)), generator)
+        return self.dropout(torch.relu(self.norm(x, mask=mask)), generator, keep)
 
 
 class MegaBlock(nn.Module):
@@ -112,13 +132,72 @@ class MegaBlock(nn.Module):
         self.skip_norm = BatchNorm(features, dtype=dtype, axis_name=axis_name)
         self.dropout = FastDropout(dropout)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, generator=None) -> torch.Tensor:
+    def dropouts(self) -> list:
+        """The block's dropout sites in the order they draw: each
+        sub-block's, then the block's own."""
+        return [getattr(self, f"sub_block_{i}").dropout for i in range(self.n_sub_blocks)] + [self.dropout]
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, generator=None,
+                keeps=None) -> torch.Tensor:
+        """``keeps``: the masks of :meth:`dropouts`, drawn ahead (a
+        rematerialized block); None draws them here from ``generator``."""
+        keeps = keeps or (None,) * (self.n_sub_blocks + 1)
         y = x
         for i in range(self.n_sub_blocks):
-            y = getattr(self, f"sub_block_{i}")(y, mask=mask, generator=generator)
+            y = getattr(self, f"sub_block_{i}")(y, mask=mask, generator=generator, keep=keeps[i])
         y = self.se(y, mask=mask)
         skip = self.skip_norm(self.skip_conv(x), mask=mask)
-        return self.dropout(torch.relu(skip + y), generator)
+        return self.dropout(torch.relu(skip + y), generator, keeps[-1])
+
+
+# remat_policy names (jax.checkpoint_policies); None is nothing_saveable
+REMAT_POLICIES = ("nothing_saveable", "dots_saveable", "checkpoint_dots", "everything_saveable")
+# the products a "dots" policy keeps (jax's dot_general): the pointwise
+# convolutions and the SE layers run as F.linear, which dispatches these
+_DOTS = frozenset((torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm, torch.ops.aten.baddbmm))
+
+
+def check_remat_policy(policy: Optional[str]) -> None:
+    if policy is not None and policy not in REMAT_POLICIES:
+        raise ValueError(f"unsupported remat_policy {policy!r}: one of None, {', '.join(REMAT_POLICIES)}")
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    # only products the forward records for autograd: the recompute skips
+    # what the forward computes without grad (the published moments)
+    if torch.is_grad_enabled() and op.overloadpacket in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematerialized(block: MegaBlock, x: torch.Tensor, mask, generator, policy: Optional[str]) -> torch.Tensor:
+    """``block(x, mask=mask, generator=generator)`` under
+    ``torch.utils.checkpoint`` with ``policy`` (module docstring). The
+    dropout masks are drawn here, in the block's order, so the generator
+    advances once, as the plain block advances it. The recompute runs
+    under the mesh the forward ran under (the backward runs outside the
+    step's ``mesh.active()``), with every BatchNorm of the block told it
+    is the recompute."""
+    keeps = tuple(d.keep_mask(x, generator) for d in block.dropouts())
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    passes = RematPass()
+    mesh, global_batch = active_mesh()
+
+    def run(x, mask, keeps):
+        with mesh.active(global_batch) if passes.replay and mesh is not None else contextlib.nullcontext():
+            for bn in norms:
+                bn.remat = passes
+            try:
+                return block(x, mask=mask, keeps=keeps)
+            finally:
+                for bn in norms:
+                    bn.remat = None
+                passes.replay = True
+
+    kw = {}
+    if policy in ("dots_saveable", "checkpoint_dots"):
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _keep_dots)
+    return checkpoint(run, x, mask, keeps, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 class Encoder(nn.Module):
@@ -138,9 +217,13 @@ class Encoder(nn.Module):
         dropout: float = 0.5,
         dtype: Optional[torch.dtype] = None,
         axis_name: Optional[str] = None,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
     ):
         super().__init__()
+        check_remat_policy(remat_policy)
         self.n_mega_blocks = n_mega_blocks
+        self.remat, self.remat_policy = remat, remat_policy
         self.prolog = ConvBlock1d(n_mels, hidden_size, prolog_kernel_size, dtype=dtype, axis_name=axis_name)
         for i in range(n_mega_blocks):
             self.add_module(
@@ -153,8 +236,15 @@ class Encoder(nn.Module):
 
     def forward(self, x, mask=None, defer_epilog: bool = False, generator=None):
         x = self.prolog(x, mask=mask)
+        # everything_saveable keeps every output: nothing to recompute
+        remat = (self.remat and self.remat_policy != "everything_saveable" and self.training
+                 and torch.is_grad_enabled())
         for i in range(self.n_mega_blocks):
-            x = getattr(self, f"mega_block_{i}")(x, mask=mask, generator=generator)
+            block = getattr(self, f"mega_block_{i}")
+            if remat:
+                x = rematerialized(block, x, mask, generator, self.remat_policy)
+            else:
+                x = block(x, mask=mask, generator=generator)
         return self.epilog(x, mask=mask, defer_apply=defer_epilog)
 
 
@@ -194,7 +284,9 @@ class Decoder(nn.Module):
 
 class TitaNet(nn.Module):
     """Full TitaNet: ``[B, T, n_mels] -> [B, E]`` raw embeddings. Use
-    :func:`titanet_torch.models.l2_normalize` for unit-norm embeddings."""
+    :func:`titanet_torch.models.l2_normalize` for unit-norm embeddings.
+    ``remat`` / ``remat_policy``: the mega-blocks' rematerialization
+    (module docstring); an unknown policy raises ``ValueError``."""
 
     def __init__(
         self,
@@ -211,6 +303,8 @@ class TitaNet(nn.Module):
         se_reduction: int = 16,
         simple_pool: bool = False,
         dropout: float = 0.5,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
         dtype: Optional[torch.dtype] = None,
         axis_name: Optional[str] = None,
     ):
@@ -226,7 +320,7 @@ class TitaNet(nn.Module):
         self.encoder = Encoder(
             n_mels, n_mega_blocks, n_sub_blocks, encoder_hidden_size, encoder_output_size,
             mega_block_kernel_size, prolog_kernel_size, epilog_kernel_size, se_reduction,
-            dropout, dtype, axis_name,
+            dropout, dtype, axis_name, remat, remat_policy,
         )
         self.decoder = Decoder(
             encoder_output_size, embedding_size, attention_hidden_size, simple_pool, dtype, axis_name

@@ -39,6 +39,12 @@ the training statistics are synchronized, by one of two rules:
 The collective's backward carries every rank's gradient of the statistics
 to the rows they came from. At P = 1 no collective is issued and the
 local code runs unchanged.
+
+Inside a rematerialized block (:class:`RematPass`) the backward runs the
+block's forward a second time: there a BatchNorm neither publishes its
+moments again nor issues its collective again (it takes the first pass's
+result), and dropout takes the masks drawn before the block
+(:meth:`FastDropout.keep_mask`).
 """
 
 from __future__ import annotations
@@ -72,6 +78,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         # (batch mean, unbiased batch variance) of the last training forward
         self.batch_moments = None
+        # the pass of a rematerialized block this module runs in, or None
+        self.remat: Optional[RematPass] = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
@@ -96,10 +104,26 @@ class BatchNorm(nn.Module):
             mean, var, count = self._global_stats(xf, m, axes, mesh)
         else:
             mean, var, count = _local_stats(xf, m, axes)
-        with torch.no_grad():
-            denom = torch.clamp(torch.as_tensor(count, dtype=torch.float32) - 1.0, min=1.0)
-            self.batch_moments = (mean.detach(), var.detach() * count / denom)
+        if self.remat is None or not self.remat.replay:
+            with torch.no_grad():
+                denom = torch.clamp(torch.as_tensor(count, dtype=torch.float32) - 1.0, min=1.0)
+                self.batch_moments = (mean.detach(), var.detach() * count / denom)
         return mean, var
+
+    def _collective(self, fn):
+        """``fn()``, this site's collective. In the recompute of a
+        rematerialized block: the first pass's result, as a new leaf that
+        requires grad as the result did (the recompute only refills the
+        tensors the backward saved: the ops after the collective save the
+        same ones)."""
+        if self.remat is None:
+            return fn()
+        if self.remat.replay:
+            out, grad = self.remat.results[id(self)]
+            return out.detach().requires_grad_(grad)
+        out = fn()
+        self.remat.results[id(self)] = (out.detach(), out.requires_grad)
+        return out
 
     def _pmean_stats(self, xf, m, axes, mesh):
         """The ``shard_map`` rule of the JAX module, ``axis_name`` set."""
@@ -108,12 +132,12 @@ class BatchNorm(nn.Module):
                              f"axis {mesh.axis_name!r}")
         mean, var, count = _local_stats(xf, m, axes)
         c = mean.shape[0]
-        both = pd.all_reduce(torch.cat([mean, var + mean * mean]), mesh.group, "batchnorm") / mesh.size
+        both = self._collective(
+            lambda: pd.all_reduce(torch.cat([mean, var + mean * mean]), mesh.group, "batchnorm")) / mesh.size
         mean = both[:c]
         return mean, both[c:] - mean * mean, count * mesh.size
 
-    @staticmethod
-    def _global_stats(xf, m, axes, mesh):
+    def _global_stats(self, xf, m, axes, mesh):
         """The global-batch rule: Chan's combination of every rank's
         ``(count, mean, M2)``, gathered in one collective."""
         if m is not None:
@@ -126,7 +150,8 @@ class BatchNorm(nn.Module):
             m2 = ((xf - mean) ** 2).sum(dim=axes)
         c = mean.shape[0]
         packed = torch.cat([n.reshape(1), mean, m2])[None]
-        g = pd.all_gather_rows(packed, mesh.rank, mesh.size, mesh.group, "batchnorm")  # [P, 1 + 2C]
+        g = self._collective(  # [P, 1 + 2C]
+            lambda: pd.all_gather_rows(packed, mesh.rank, mesh.size, mesh.group, "batchnorm"))
         ns, means, m2s = g[:, :1], g[:, 1:1 + c], g[:, 1 + c:]
         count = torch.clamp(ns.sum(), min=1.0)
         mean = (ns * means).sum(dim=0) / count
@@ -155,6 +180,17 @@ class BatchNorm(nn.Module):
             b = bias - mean * a
             return x * a.to(dtype) + b.to(dtype)
         return ((x.float() - mean) * inv * scale + bias).to(dtype)
+
+
+class RematPass:
+    """The passes of one rematerialized block (``torch.utils.checkpoint``):
+    the forward, then the recompute that the backward runs (``replay``).
+    Each BatchNorm of the block holds it in ``remat`` while a pass runs;
+    ``results`` keeps each site's collective result from the forward."""
+
+    def __init__(self):
+        self.replay = False
+        self.results: dict = {}
 
 
 def _local_stats(xf: torch.Tensor, m: Optional[torch.Tensor], axes):
@@ -208,19 +244,36 @@ class FastDropout(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
-        if self.rate >= 1.0:
-            return torch.zeros_like(x)
+    def keep_mask(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
+        """The draw of :meth:`forward` on an input of ``x``'s shape: the
+        bool mask of kept elements, or None where the forward draws
+        nothing (eval mode, rate 0, rate >= 1)."""
+        if not self.training or self.rate == 0.0 or self.rate >= 1.0:
+            return None
         keep_p = 1.0 - self.rate
         if keep_p * 256 == int(keep_p * 256):
             bits = draw_rows(lambda s: torch.randint(
                 0, 256, s, generator=generator, device=x.device, dtype=torch.uint8
             ), x.shape)
-            keep = bits < int(keep_p * 256)
-        else:
-            keep = draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device), x.shape) < keep_p
+            return bits < int(keep_p * 256)
+        return draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device), x.shape) < keep_p
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        keep: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """``keep``: a mask :meth:`keep_mask` drew ahead (a rematerialized
+        block draws its sites' masks before the checkpointed call); None
+        draws it here."""
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if keep is None:
+            keep = self.keep_mask(x, generator)
+        keep_p = 1.0 - self.rate
         return torch.where(keep, x * (1.0 / keep_p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -1,7 +1,7 @@
 """Step capture: one CUDA graph a step and shape, the port's counterpart
 of the executables ``jax.jit`` compiles (``_jitted_embed_step``,
-``embed_step_quantized`` and ``eval_step`` in the JAX package's
-``train/state.py``).
+``embed_step_quantized``, ``eval_step`` and the donated
+``_jitted_train_step`` in the JAX package's ``train/state.py``).
 
 A graph holds the step's kernels in their order and replays them with one
 host launch. :class:`StepGraphs` keeps one for each key: the step's name
@@ -15,6 +15,15 @@ and the address and dtype of every parameter and buffer. So
 - a parameter replaced (``model.to(...)``) changes the key, and the step
   is captured again;
 - the graphs of an owner are dropped once the owner is collected.
+
+An owner may also be a CUDA ``torch.Generator`` the step draws from (the
+train step's dropout, SpecAugment and noise generators): it is registered
+with the graph before capture, so every replay reads the generator's seed
+and offset and advances the offset by what the step draws, as an eager
+step does (``CUDAGraph.register_generator_state``). A capture that draws
+from a generator that is not registered raises. A CUDA generator cannot be
+referenced weakly: its graphs hold it, so that its id stays its own while
+they live, and go with the other owners.
 
 The first call of a key runs the step eagerly on a side stream (the
 warm-up, which also fixes cuBLAS workspaces and cuDNN algorithm choices
@@ -35,8 +44,12 @@ still counts launches.
 There is no fallback: a capture or replay that fails raises. A capture of
 host work (a read of a device value, a host-to-device copy of pageable
 memory) fails, so the steps keep such work outside ``fn``. Python side
-effects of ``fn`` (hooks, prints) run at the warm-up and the capture only,
-as the body of a jitted function runs only while it is traced.
+effects of ``fn`` (hooks, prints, counters) run at the warm-up and the
+capture only, as the body of a jitted function runs only while it is
+traced: the train step advances its step counts and computes its scalars
+outside ``fn``, once a call. The warm-up of a step that updates state in
+place (the train step) is that call's update; the capture updates
+nothing.
 """
 
 from __future__ import annotations
@@ -108,6 +121,7 @@ class StepGraph:
     deltas: tuple
     capture_s: float
     owners: tuple
+    generators: tuple = ()
 
 
 class StepGraphs:
@@ -135,8 +149,8 @@ class StepGraphs:
         ``inputs``: CUDA tensors or None, all on one device; ``static``:
         hashable arguments ``fn`` closes over that change what it
         computes; ``owners``: the modules or trees whose tensors ``fn``
-        reads. Returns ``fn``'s output (a tree of tensors and None), new
-        tensors the caller owns."""
+        reads, and the generators it draws from. Returns ``fn``'s output
+        (a tree of tensors and None), new tensors the caller owns."""
         inputs = tuple(inputs)
         key = self.key(name, static, owners, inputs)
         dev = key[2]
@@ -177,6 +191,8 @@ class StepGraphs:
         """Drop an owner's graphs once it is collected: the finalizer only
         notes its id (it may run inside a capture), the next call drops."""
         for owner in owners:
+            if isinstance(owner, torch.Generator):
+                continue  # held by its graphs (module docstring)
             if id(owner) not in self._watched:
                 self._watched.add(id(owner))
                 weakref.finalize(owner, self._dead.append, id(owner))
@@ -202,6 +218,11 @@ class StepGraphs:
         counters = _counters()
         before = [getattr(obj, attr) for obj, attr in counters]
         graph = torch.cuda.CUDAGraph()
+        gens = tuple(o for o in owners if isinstance(o, torch.Generator))
+        for gen in gens:
+            if gen.device.type != "cuda":
+                raise ValueError(f"a captured step draws from a CUDA generator, got one on {gen.device}")
+            graph.register_generator_state(gen)
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph, pool=self._pools[dev], stream=stream):
@@ -213,7 +234,7 @@ class StepGraphs:
         outputs, spec = pytree.tree_flatten(static_out)
         self._watch(owners)
         self._graphs[key] = StepGraph(graph, static_in, outputs, spec, deltas, time.perf_counter() - t0,
-                                      tuple(id(o) for o in owners))
+                                      tuple(id(o) for o in owners), gens)
         self.captures += 1
         return out
 

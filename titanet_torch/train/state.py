@@ -13,7 +13,12 @@
   from a frozen teacher, as in the JAX step. ``augment`` (an
   :class:`~titanet_torch.ops.augment.AugmentConfig`) adds noise to the
   waveform and runs the SpecAugment frontend in the step, each from a
-  generator of its own.
+  generator of its own. On the card the whole step is one CUDA graph a
+  shape (the JAX step is jitted with the state donated): the host keeps
+  the counters and hands the step its scalars (learning rate, Adam's bias
+  corrections, the accumulation divisor, the margin scale) as one f32
+  tensor, and the graph advances the three generators as an eager step
+  does.
 - :func:`eval_step`, :class:`MetricsAcc` / :func:`accumulate_metrics`.
 - :func:`make_optimizer`: Adam or SGD with optax's semantics (see
   :class:`Optimizer`).
@@ -48,6 +53,7 @@ from titanet_torch._device import resolve_device
 from titanet_torch.losses.heads import renormalize_params
 from titanet_torch.models import l2_normalize
 from titanet_torch.ops.augment import AugmentConfig, add_noise, log_mel_specaugment
+from titanet_torch.ops.conv import dw_bwd_mode
 from titanet_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from titanet_torch.ops.norm import ema_update_batch_stats
 from titanet_torch.parallel import distributed as pd
@@ -167,6 +173,19 @@ class OptState:
     acc: Optional[List[torch.Tensor]] = None
 
 
+ADAM_B1, ADAM_B2 = 0.9, 0.999
+
+
+def device_scalars(values: List[float], device) -> torch.Tensor:
+    """Host floats (f64) -> one f32 tensor on ``device``: on the card
+    through pinned memory without a wait for the device (an f32 cast of a
+    double rounds as a ``_foreach`` op's scalar argument is rounded)."""
+    host = torch.tensor(values, dtype=torch.float32)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 class Optimizer:
     """optax's ``chain(clip_by_global_norm?, add_decayed_weights?,
     adam | sgd)``, optionally inside ``MultiSteps``, on lists of tensors:
@@ -182,6 +201,13 @@ class Optimizer:
     - ``accumulate_steps`` k > 1: gradients are averaged over k
       micro-batches (running mean) and the update and the schedule advance
       on every k-th call only.
+
+    An update has a host side and a device side, so that a captured step
+    holds the device side and reads no host value: :meth:`applies` and
+    :meth:`scalars` (the step's learning rate, bias corrections and
+    accumulation divisor, in f64) before the step, :meth:`apply` on the
+    device with those scalars as a tensor, :meth:`advance` of the counters
+    after. :meth:`update` runs the three.
     """
 
     def __init__(
@@ -210,45 +236,87 @@ class Optimizer:
             state.acc = zeros()
         return state
 
+    def applies(self, state: OptState) -> bool:
+        """Whether the next call updates: every call, or under accumulation
+        the one that completes k micro-batches."""
+        return self.accumulate_steps <= 1 or (state.mini_step + 1) % self.accumulate_steps == 0
+
+    def scalars(self, state: OptState, device) -> List[float]:
+        """The next call's host values (f64) for a step on ``device``:
+        ``-lr`` at the count, Adam's bias corrections ``1 - b1**t``, ``1 -
+        b2**t`` at ``t = count + 1`` and the running mean's divisor
+        ``mini_step + 1``. On the card the three divisors go as their
+        reciprocals, which :meth:`apply` multiplies by: torch's CUDA
+        ``_foreach_div`` by a Python scalar multiplies by its f64
+        reciprocal, its CPU one divides, and the update keeps the bits it
+        had with Python scalars on either device."""
+        t = state.count + 1
+        divisors = [1.0 - ADAM_B1 ** t, 1.0 - ADAM_B2 ** t, float(state.mini_step + 1)]
+        if torch.device(device).type == "cuda":
+            divisors = [1.0 / d for d in divisors]
+        return [-self.lr(state.count), *divisors]
+
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor], state: OptState, params: List[torch.Tensor]):
-        """The updates to add to ``params`` (new tensors), or None on a
-        micro-batch that only accumulates. Advances ``state`` in place."""
+    def apply(self, grads: List[torch.Tensor], state: OptState, params: List[torch.Tensor],
+              scalars: torch.Tensor, applies: bool):
+        """The device side of an update: the updates to add to ``params``
+        (new tensors), or None where ``applies`` is False and the call only
+        accumulates. ``scalars``: :meth:`scalars` as a tensor on its
+        device. Reads no host value and rebinds no state tensor (the
+        accumulator is zeroed in place), so a CUDA graph can hold it."""
+        neg_lr, bias1, bias2, acc_div = scalars[0], scalars[1], scalars[2], scalars[3]
+        # a division by a step scalar: by its reciprocal on the card (:meth:`scalars`)
+        div, div_ = ((torch._foreach_mul, torch._foreach_mul_) if scalars.is_cuda
+                     else (torch._foreach_div, torch._foreach_div_))
         if self.accumulate_steps > 1:
-            n = state.mini_step
             # optax MultiSteps' running mean: acc + (g - acc) / (n + 1)
             delta = torch._foreach_sub(grads, state.acc)
-            torch._foreach_div_(delta, float(n + 1))
+            div_(delta, acc_div)
             torch._foreach_add_(state.acc, delta)
-            state.mini_step = (n + 1) % self.accumulate_steps
-            if state.mini_step != 0:
+            if not applies:
                 return None
-            grads, state.acc = state.acc, [torch.zeros_like(a) for a in state.acc]
+            grads = state.acc
         updates = list(grads)
         if self.grad_clip_norm:
+            # a select on the device: without a clip, u / 1 * 1 is u to the bit
             norm = global_norm(updates)
-            if bool(norm >= self.grad_clip_norm):
-                updates = torch._foreach_div(updates, norm)
-                torch._foreach_mul_(updates, self.grad_clip_norm)
+            over = norm >= self.grad_clip_norm
+            updates = torch._foreach_div(updates, torch.where(over, norm, 1.0))
+            torch._foreach_mul_(updates, torch.where(over, self.grad_clip_norm, 1.0))
         if self.weight_decay:
             updates = torch._foreach_add(updates, params, alpha=self.weight_decay)
-        lr = self.lr(state.count)
         if self.name == "adam":
-            b1, b2 = 0.9, 0.999
-            torch._foreach_mul_(state.mu, b1)
-            torch._foreach_add_(state.mu, updates, alpha=1.0 - b1)
-            torch._foreach_mul_(state.nu, b2)
-            torch._foreach_addcmul_(state.nu, updates, updates, value=1.0 - b2)
-            t = state.count + 1
-            mu_hat = torch._foreach_div(state.mu, 1.0 - b1 ** t)
-            nu_hat = torch._foreach_div(state.nu, 1.0 - b2 ** t)
+            torch._foreach_mul_(state.mu, ADAM_B1)
+            torch._foreach_add_(state.mu, updates, alpha=1.0 - ADAM_B1)
+            torch._foreach_mul_(state.nu, ADAM_B2)
+            torch._foreach_addcmul_(state.nu, updates, updates, value=1.0 - ADAM_B2)
+            mu_hat = div(state.mu, bias1)
+            nu_hat = div(state.nu, bias2)
             denom = torch._foreach_sqrt(nu_hat)
             torch._foreach_add_(denom, 1e-8)
             updates = torch._foreach_div(mu_hat, denom)
         else:
             updates = [u.clone() for u in updates]
-        torch._foreach_mul_(updates, -lr)
-        state.count += 1
+        torch._foreach_mul_(updates, neg_lr)
+        if self.accumulate_steps > 1:
+            torch._foreach_zero_(state.acc)
+        return updates
+
+    def advance(self, state: OptState, applies: bool) -> None:
+        """The host counters after a call: ``mini_step`` under
+        accumulation, ``count`` where the call updated."""
+        if self.accumulate_steps > 1:
+            state.mini_step = (state.mini_step + 1) % self.accumulate_steps
+        if applies:
+            state.count += 1
+
+    def update(self, grads: List[torch.Tensor], state: OptState, params: List[torch.Tensor]):
+        """The updates to add to ``params`` (new tensors), or None on a
+        micro-batch that only accumulates. Advances ``state`` in place."""
+        applies = self.applies(state)
+        dev = grads[0].device
+        updates = self.apply(grads, state, params, device_scalars(self.scalars(state, dev), dev), applies)
+        self.advance(state, applies)
         return updates
 
 
@@ -398,10 +466,19 @@ def mean_over_ranks(tensors: List[torch.Tensor], mesh, kind: str = "gradients") 
 
 
 def _as_device_tensors(state: TrainState, waveform, lengths, speakers):
+    """The step's inputs on the model's device (a step dequantizes int16
+    PCM itself, inside its graph)."""
     dev = next(state.model.parameters()).device
-    wav = _dequantize_waveform(torch.as_tensor(waveform, device=dev))
+    wav = torch.as_tensor(waveform, device=dev)
     lens = None if lengths is None else torch.as_tensor(lengths, device=dev)
     return wav, lens, torch.as_tensor(speakers, device=dev).long()
+
+
+def margin_scale(step: int, margin_warmup_steps: Optional[int]) -> Optional[float]:
+    """The angular margins' warm-up factor at ``step`` (None: no warm-up)."""
+    if margin_warmup_steps is None or margin_warmup_steps <= 0:
+        return None
+    return min(max(step / float(margin_warmup_steps), 0.0), 1.0)
 
 
 def loss_and_grads(
@@ -413,7 +490,7 @@ def loss_and_grads(
     frontend: FrontendConfig,
     augment=None,
     masked: bool = False,
-    margin_warmup_steps: Optional[int] = None,
+    margin=None,
     teacher_model: Optional[nn.Module] = None,
     distill_alpha: float = 0.5,
     mesh=None,
@@ -424,12 +501,13 @@ def loss_and_grads(
     BatchNorm sites publish their batch moments. Under a ``mesh`` of P > 1
     ranks: the global batch's loss and gradient mean (zeros, not None,
     where the loss does not reach a parameter), this rank's embeddings and
-    predictions."""
+    predictions. ``margin``: the angular head's margin scale (a float, or
+    a 0-dim tensor on the device as the captured step passes it; None: the
+    plain margins)."""
     with _mesh_active(mesh):
         loss, emb, preds = _forward(
             state, waveform, lengths, speakers, frontend=frontend, augment=augment, masked=masked,
-            margin_warmup_steps=margin_warmup_steps, teacher_model=teacher_model,
-            distill_alpha=distill_alpha, mesh=mesh,
+            margin=margin, teacher_model=teacher_model, distill_alpha=distill_alpha, mesh=mesh,
         )
     grads = list(torch.autograd.grad(loss, state.params(), allow_unused=True))
     loss = loss.detach()
@@ -440,13 +518,15 @@ def loss_and_grads(
     return loss, grads, emb, preds
 
 
-def _forward(state, waveform, lengths, speakers, *, frontend, augment, masked, margin_warmup_steps,
-             teacher_model, distill_alpha, mesh):
+def _forward(state, waveform, lengths, speakers, *, frontend, augment, masked, margin, teacher_model,
+             distill_alpha, mesh):
     """Frontend, backbone and head of one training step: ``(loss of this
     rank's rows, its unit-norm embeddings (detached), its predictions)``.
     A head whose loss couples the rows (GE2E) sees the gathered global
-    batch, and every rank then holds the global loss."""
+    batch, and every rank then holds the global loss. ``margin``: the
+    angular head's margin scale (None: the plain margins)."""
     wav, lens, spk = _as_device_tensors(state, waveform, lengths, speakers)
+    wav = _dequantize_waveform(wav)
     aug = _as_augment_config(augment)
     with torch.no_grad():
         if aug is not None and aug.noise_prob > 0.0:
@@ -464,9 +544,7 @@ def _forward(state, waveform, lengths, speakers, *, frontend, augment, masked, m
     state.model.train()
     state.head.train()
     emb = state.model(mel, mask=model_mask, generator=state.generator)
-    head_kw = {}
-    if margin_warmup_steps is not None and margin_warmup_steps > 0:
-        head_kw["margin_scale"] = min(max(state.step / float(margin_warmup_steps), 0.0), 1.0)
+    head_kw = {} if margin is None else {"margin_scale": margin}
     rows = slice(None)
     if _sharded(mesh) and getattr(state.head, "couples_rows", False):
         rows = slice(mesh.rank * emb.shape[0], (mesh.rank + 1) * emb.shape[0])
@@ -501,6 +579,7 @@ def train_step(
     teacher_model: Optional[nn.Module] = None,
     distill_alpha: float = 0.5,
     mesh=None,
+    capture: Optional[bool] = None,
 ):
     """One wav -> gradients -> update step. ``waveform [B, T]`` (float or
     int16 PCM), ``lengths [B]`` or None (all rows full length), ``speakers
@@ -513,28 +592,61 @@ def train_step(
     ``state.noise_generator``, then computes the mel with SpecAugment from
     ``state.aug_generator``. ``mesh``: the data-parallel step (module
     docstring); ``loss`` and ``grad_norm`` are then the global batch's,
-    the same on every rank."""
-    loss, grads, emb, preds = loss_and_grads(
-        state, waveform, lengths, speakers, frontend=frontend, augment=augment, masked=masked,
-        margin_warmup_steps=margin_warmup_steps, teacher_model=teacher_model,
-        distill_alpha=distill_alpha, mesh=mesh,
-    )
-    ema_update_batch_stats(state.model)
-    params = state.params()
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    grad_norm = global_norm(grads)
-    updates = state.optimizer.update(grads, state.opt_state, params)
-    with torch.no_grad():
-        if updates is not None:
-            torch._foreach_add_(params, updates)
-        if renorm_head:
-            renormalize_params(state.head)
-        if ema_decay is not None and state.ema is not None:
-            # weight EMA after the update and the renorm: e <- d*e + (1-d)*p
-            torch._foreach_mul_(state.ema, ema_decay)
-            torch._foreach_add_(state.ema, params, alpha=1.0 - ema_decay)
+    the same on every rank.
+
+    ``capture`` (:func:`titanet_torch.train.capture.wanted`): None runs the
+    step as one CUDA graph on the card and eagerly on the CPU; False runs
+    it eagerly, the yardstick; True on the CPU raises. The graph holds the
+    dequantize, noise and the frontend, the forward, the backward, the
+    BatchNorm statistics' update, the optimizer update, the renorm and the
+    weight EMA, and is keyed by the state (model, head, optimizer state,
+    EMA), the optimizer, the teacher, the three generators (each advanced
+    by every replay as an eager step advances it), the static arguments,
+    whether this call updates or only accumulates, the depthwise-backward
+    route and the inputs' shapes: one graph a bucket width, uniform or
+    ragged. Under a ``mesh`` of P > 1 ranks the step runs eagerly (None)
+    or raises (True)."""
+    wav, lens, spk = _as_device_tensors(state, waveform, lengths, speakers)
+    opt, opt_state = state.optimizer, state.opt_state
+    applies = opt.applies(opt_state)
+    margin = margin_scale(state.step, margin_warmup_steps)
+    scalars = device_scalars(opt.scalars(opt_state, wav.device) + [margin or 0.0], wav.device)
+    kw = dict(frontend=frontend, augment=_as_augment_config(augment), masked=masked,
+              teacher_model=teacher_model, distill_alpha=distill_alpha, mesh=mesh)
+
+    def step(wav, lens, spk, scalars):
+        loss, grads, emb, preds = loss_and_grads(
+            state, wav, lens, spk, margin=None if margin is None else scalars[4], **kw)
+        ema_update_batch_stats(state.model)
+        params = state.params()
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grad_norm = global_norm(grads)
+        updates = opt.apply(grads, opt_state, params, scalars, applies)
+        with torch.no_grad():
+            if updates is not None:
+                torch._foreach_add_(params, updates)
+            if renorm_head:
+                renormalize_params(state.head)
+            if ema_decay is not None and state.ema is not None:
+                # weight EMA after the update and the renorm: e <- d*e + (1-d)*p
+                torch._foreach_mul_(state.ema, ema_decay)
+                torch._foreach_add_(state.ema, params, alpha=1.0 - ema_decay)
+        return {"loss": loss, "grad_norm": grad_norm, "preds": preds, "embeddings": emb}
+
+    graph = wanted(capture, wav.device)
+    if graph and _sharded(mesh):
+        if capture:
+            raise ValueError("train_step under a mesh of P > 1 ranks runs eagerly: capture=True is refused")
+        graph = False
+    if graph:
+        static = (kw["augment"], frontend, renorm_head, masked, ema_decay, margin is not None,
+                  None if teacher_model is None else distill_alpha, applies, dw_bwd_mode())
+        owners = [state, opt] + ([] if teacher_model is None else [teacher_model]) + list(state.generators().values())
+        metrics = GRAPHS.run("train_step", static, owners, step, (wav, lens, spk, scalars))
+    else:
+        metrics = step(wav, lens, spk, scalars)
+    opt.advance(opt_state, applies)
     state.step += 1
-    metrics = {"loss": loss, "grad_norm": grad_norm, "preds": preds, "embeddings": emb}
     return state, metrics
 
 
@@ -561,7 +673,7 @@ def eval_step(
     state.head.eval()
 
     def step(wav, lens, spk):
-        mel, mask = log_mel_spectrogram(wav, frontend, lengths=lens)
+        mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
         emb = state.model(mel, mask=mask if masked else None)
         norm_emb, preds, loss = state.head(emb, spk)
         return {"loss": loss, "preds": preds, "embeddings": norm_emb}
