@@ -47,7 +47,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 OWN_KERNELS = (
     "logmel_kernel", "logmel_tc_kernel", "logmel_dmma_kernel", "attn_u_kernel", "attn_stats_kernel", "attn_de_kernel", "gemm_kernel",
-    "tc_u_kernel", "tc_stats_kernel", "tc_de_kernel", "tc_dh_kernel", "tc_atb_kernel",
+    "pool_onepass_kernel", "pool_merge_kernel", "tc_de_kernel", "tc_dh_kernel", "tc_atb_kernel",
     "sum_parts_kernel", "dw_bwd_kernel", "dw_reduce_kernel", "megablock_kernel",
     "megablock_tc_kernel", "mel_frames_tc_kernel", "mel_frames_dmma_kernel", "mel_frames_kernel",
 )

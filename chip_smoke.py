@@ -18,7 +18,11 @@ Phases (any failure exits non-zero and prints no result):
      (cuBLAS f32 products, TF32 off, then the power, mel product, log and
      norm) and the replaced FP32-core design's time;
   3. attentive-pool kernel vs its plain version at B=128, T=301, C=1536,
-     H=128, with and without the fold, bf16 (rtol 2e-2) and f32 (rtol 1e-4);
+     H=128, with and without the fold, bf16 (rtol 2e-2) and f32 (rtol 1e-4):
+     one launch a call, two calls equal to the bit; bf16 (the one-pass
+     ``pool_onepass_kernel``) also against its decomposition in plain torch
+     (``attentive_pool_fwd_split``, the same tolerance), beside the replaced
+     two-pass design's time and the bytes the design moves through L2;
   4. ``embed_step`` on TitaNet-S (17 mega-blocks, random weights from seed
      0) at B=128 x 3 s, serving bf16 and parity f32 (TF32 off): launch
      counts (bf16 through the tensor-core log-mel kernel), unit-norm finite
@@ -294,12 +298,14 @@ FUSED_VS_EMBED_STEP_BF16 = 0.9999
 # shapes (NVIDIA H100 80GB HBM3, 700 W), quoted in the phases' lines beside
 # this run's times and nowhere else. The FP32-core designs of the bf16
 # routes before their tensor-core kernels: the mega-block kernel at
-# (C, k) = (256, 3), (512, 7), (1024, 11); the pool backward, fold on / off; the
-# pool forward, fold on.
+# (C, k) = (256, 3), (512, 7), (1024, 11); the pool backward, fold on / off.
 PREV_MS = {
     ("megablock", 256): 0.727, ("megablock", 512): 2.911, ("megablock", 1024): 26.947,
     ("pool_bwd", True): 7.994, ("pool_bwd", False): 7.578,
-    ("pool", True): 2.948,
+    # the bf16 pool forward's two-pass tensor-core design (tc_u_kernel +
+    # tc_stats_kernel, h read twice), before the one-pass kernel, fold on /
+    # off (same card and shape, profiler device time)
+    ("pool", True): 0.2826, ("pool", False): 0.2653,
     # the depthwise backward at C=256, K = 3, 7, 11 and the frames log-mel
     # "default" before their redesign (same card and shapes, CUDA events)
     ("dw_bwd", 3): 0.160, ("dw_bwd", 7): 0.183, ("dw_bwd", 11): 0.204,
@@ -321,7 +327,7 @@ PREV_MS = {
 }
 DW_KERNELS = ("dw_bwd_kernel", "dw_reduce_kernel")
 # the kernels of csrc/attn_pool.cu, both routes, forward and backward
-POOL_KERNELS = ("tc_u_kernel", "tc_stats_kernel", "tc_de_kernel", "tc_dh_kernel", "tc_atb_kernel",
+POOL_KERNELS = ("pool_onepass_kernel", "pool_merge_kernel", "tc_de_kernel", "tc_dh_kernel", "tc_atb_kernel",
                 "sum_parts_kernel", "attn_u_kernel", "attn_stats_kernel", "attn_de_kernel", "gemm_kernel")
 
 
@@ -1787,6 +1793,7 @@ def utilities_phase(root: str, n_speakers: int, tag: str) -> dict:
     from titanet_torch.data import device_corpus as tdc
     from titanet_torch.data import loader as tld
     from titanet_torch.ops.kernels import dwconv
+    from titanet_torch.ops.kernels import pool as pool_kernels_mod
     from titanet_torch.ops.kernels.melspec import log_mel_fused
     from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
     from titanet_torch.train import state as ts
@@ -2037,13 +2044,17 @@ def utilities_phase(root: str, n_speakers: int, tag: str) -> dict:
     ref = embed_step(model16, wav8, len8, frontend=fe, device=dev)
     cos = torch.nn.functional.cosine_similarity(out.float(), ref.float(), dim=-1)
     drift = (1.0 - cos).max().item()
-    pool_kernels = [n for n in names if "tc_u_kernel" in n or "tc_stats_kernel" in n]
+    # the one-pass kernel, and its merge where T is split over several blocks
+    kinds = ("pool_merge_kernel", "pool_onepass_kernel")
+    pool_kernels = [n for n in names if any(k in n for k in kinds)]
+    got_pool = sorted(k for n in pool_kernels for k in kinds if k in n)
+    want_pool = sorted(["pool_onepass_kernel"] + ["pool_merge_kernel"] * (pool_kernels_mod.onepass_splits(EXPORT_B) > 1))
     mel_kernels = [n for n in names if "logmel" in n]
     if out.shape != (EXPORT_B, 192) or out.dtype != torch.bfloat16 or not torch.isfinite(out).all() \
             or drift >= 1e-5:
         raise AssertionError(f"export bf16: {out.dtype} {tuple(out.shape)}, cosine drift vs embed_step {drift}")
-    if per_call != {"logmel": 1, "pool_fwd": 1} or len(mel_kernels) != 1 or len(pool_kernels) != 2 \
-            or len(op_nodes) != 2:
+    if per_call != {"logmel": 1, "pool_fwd": 1} or len(mel_kernels) != 1 or len(op_nodes) != 2 \
+            or got_pool != want_pool:
         raise AssertionError(f"export bf16: launches a call {per_call}, traced {mel_kernels + pool_kernels}, "
                              f"operator nodes {op_nodes}")
     med, lo, hi = median_ms(lambda: served(wav8, len8))
@@ -3159,6 +3170,72 @@ def train_capture_phase(tag: str) -> dict:
     return {k: 1 if k != "dw_bwd" else 51 for k in counters}
 
 
+def pool_phase(rng, t_frames: int, dev, report: dict, tag: str):
+    """Phase 3: the attentive-pool forward kernel vs its plain version at
+    B=128, T=``t_frames``, C=1536, H=128 (see the module docstring). Draws
+    its inputs from ``rng`` and returns the f32 fold vectors and weights
+    ``(a, c, wa32, ba, wb32, bb)`` that phase 6 reuses. To run it alone on
+    the card: build the kernels (``titanet_torch.ops.kernels._build.build()``)
+    and call ``pool_phase(np.random.default_rng(0), 301, torch.device("cuda"),
+    {}, "")``."""
+    import numpy as np
+    import torch
+
+    from titanet_torch.ops.kernels import pool as pool_kernels
+    from titanet_torch.ops.kernels.pool import attentive_pool_fwd, attentive_pool_fwd_plain
+
+    ch, hid = 1536, 128
+    h32 = torch.from_numpy(rng.standard_normal((B, t_frames, ch)).astype(np.float32)).to(dev)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, ch).astype(np.float32)).to(dev)
+    c = torch.from_numpy((rng.standard_normal(ch) * 0.2).astype(np.float32)).to(dev)
+    def uniform(shape, fan_in):
+        x = rng.uniform(-1, 1, shape) / np.sqrt(fan_in)
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    wa32, ba = uniform((ch, hid), ch), uniform(hid, ch)
+    wb32, bb = uniform((hid, ch), hid), uniform(ch, hid)
+    for dt, rtol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        h, wa, wb = h32.to(dt), wa32.to(dt).contiguous(), wb32.to(dt).contiguous()
+        for fold in (True, False):
+            args = (h, a, c, wa, ba, wb, bb, 1e-6, fold)
+            before = attentive_pool_fwd.launches
+            out, again, ref = attentive_pool_fwd(*args), attentive_pool_fwd(*args), attentive_pool_fwd_plain(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=rtol)
+            if attentive_pool_fwd.launches - before != 2 or not torch.equal(out, again):
+                raise AssertionError(f"attn_pool {dt} fold={fold}: two calls count "
+                                     f"{attentive_pool_fwd.launches - before} launches or differ")
+            ms, timed_by = device_ms(lambda: attentive_pool_fwd(*args), names=POOL_KERNELS, iters=20)
+            pms = cuda_ms(lambda: attentive_pool_fwd_plain(*args), iters=5)
+            ops = 4 * B * t_frames * ch * hid
+            nbytes = (h.numel() + wa.numel() + wb.numel()) * h.element_size() + 4 * (3 * ch + hid) \
+                + out.numel() * out.element_size()
+            bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
+            report[("pool", dt, fold)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                              timed_by=timed_by)
+            design = ""
+            if dt == torch.bfloat16:
+                # the one-pass kernel: its distance to its decomposition in
+                # plain torch, and the bytes it moves through L2 (weights once
+                # a 128-frame tile, h twice, the running states)
+                split = pool_kernels.attentive_pool_fwd_split(*args)
+                split_err = (out.float() - split.float()).abs().max().item()
+                torch.testing.assert_close(out.float(), split.float(), rtol=rtol, atol=rtol)
+                tiles = -(-t_frames // pool_kernels.ONEPASS_ROWS)
+                halves = [i * 128 + 64 * f < t_frames for i in range(tiles) for f in (0, 1)]
+                l2 = B * tiles * 2 * ch * hid * 2 + 2 * h.numel() * 2 + B * (2 * sum(halves) - sum(halves[:2])) * ch * 16
+                report[("pool", dt, fold)].update(split_err=split_err, l2_bytes=l2)
+                design = (f"; vs the split plain version {split_err:.3e}; replaced two-pass design: "
+                          f"{PREV_MS['pool', fold]} ms; one pass: {pool_kernels.ONEPASS_ROWS}-frame tiles, "
+                          f"{pool_kernels.onepass_splits(B)} block(s) an utterance, no cluster, "
+                          f"{l2 / 1e6:.1f} MB through L2 a call")
+            print(f"attn_pool {dt} fold={fold}: max_abs_err {err:.3e} (rtol {rtol}); kernel {ms:.4f} ms "
+                  f"(device time, {timed_by}), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB){design} {tag}")
+    return a, c, wa32, ba, wb32, bb
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3264,38 +3341,9 @@ def main() -> int:
               f"{pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) {tag}")
 
     # 3. attentive-pool kernel vs plain
+    a, c, wa32, ba, wb32, bb = pool_phase(rng, n_frames, dev, report, tag)
     t_frames, ch, hid = n_frames, 1536, 128
-    h32 = torch.from_numpy(rng.standard_normal((B, t_frames, ch)).astype(np.float32)).to(dev)
-    a = torch.from_numpy(rng.uniform(0.5, 1.5, ch).astype(np.float32)).to(dev)
-    c = torch.from_numpy((rng.standard_normal(ch) * 0.2).astype(np.float32)).to(dev)
-    def uniform(shape, fan_in):
-        x = rng.uniform(-1, 1, shape) / np.sqrt(fan_in)
-        return torch.from_numpy(x.astype(np.float32)).to(dev)
-
-    wa32, ba = uniform((ch, hid), ch), uniform(hid, ch)
-    wb32, bb = uniform((hid, ch), hid), uniform(ch, hid)
-    for dt, rtol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        h, wa, wb = h32.to(dt), wa32.to(dt).contiguous(), wb32.to(dt).contiguous()
-        for fold in (True, False):
-            args = (h, a, c, wa, ba, wb, bb, 1e-6, fold)
-            out, ref = attentive_pool_fwd(*args), attentive_pool_fwd_plain(*args)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=rtol)
-            ms, timed_by = device_ms(lambda: attentive_pool_fwd(*args), names=POOL_KERNELS, iters=20)
-            pms = cuda_ms(lambda: attentive_pool_fwd_plain(*args), iters=5)
-            ops = 4 * B * t_frames * ch * hid
-            nbytes = (h.numel() + wa.numel() + wb.numel()) * h.element_size() + 4 * (3 * ch + hid) \
-                + out.numel() * out.element_size()
-            bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
-            report[("pool", dt, fold)] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                              timed_by=timed_by)
-            was = PREV_MS.get(("pool", fold)) if dt == torch.bfloat16 else None
-            print(f"attn_pool {dt} fold={fold}: max_abs_err {err:.3e} (rtol {rtol}); kernel {ms:.4f} ms "
-                  f"(device time, {timed_by}){f' (fp32-core design: {was} ms by events)' if was else ''}, "
-                  f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB) {tag}")
-    del h32, h, buf32
+    del buf32
 
     # 4. embed_step, TitaNet-S, 17 mega-blocks, B=128 x 3 s
     m16 = get_titanet(n_mega_blocks=17, dtype=torch.bfloat16, device=dev,

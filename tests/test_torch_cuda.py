@@ -72,6 +72,73 @@ def test_pool_kernel_matches_plain(cuda_device, dtype, fold, t):
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
 
+ONEPASS_SHAPES = [(128, 301, 1536), (64, 151, 1536), (1, 1, 1536), (3, 63, 1536), (3, 65, 1536),
+                  (2, 4096, 1536), (3, 77, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("b,t,c", ONEPASS_SHAPES)
+def test_pool_onepass_forward_matches_plain(cuda_device, b, t, c, fold):
+    """The bf16 forward (pool_onepass_kernel, and pool_merge_kernel where T
+    is split over blocks) within phase 3's 2e-2 of the plain version and of
+    its decomposition in plain torch (attentive_pool_fwd_split): TitaNet-S
+    and the Conformer at 3 s, one frame, one tile less and more than 64
+    frames, T = 4096 over 32 tiles, and C = 256. One launch a call; two calls
+    give the same bits."""
+    from titanet_torch.ops.kernels.pool import attentive_pool_fwd_split
+
+    args = _pool_args(cuda_device, torch.bfloat16, b=b, t=t, c=c, seed=t)
+    before = attentive_pool_fwd.launches
+    out = attentive_pool_fwd(*args, 1e-6, fold)
+    again = attentive_pool_fwd(*args, 1e-6, fold)
+    torch.cuda.synchronize()
+    assert attentive_pool_fwd.launches == before + 2
+    assert torch.equal(out, again)
+    ref = attentive_pool_fwd_plain(*args, 1e-6, fold).float()
+    split = attentive_pool_fwd_split(*args, 1e-6, fold).float()
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), split, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(128, 301), (4, 151)])
+def test_pool_onepass_forward_replays_in_a_cuda_graph(cuda_device, b, t):
+    """Captured in a CUDA graph (the scratch of running states and the
+    tensor maps taken at capture), a replay gives the eager call's bits:
+    one block an utterance (B = 128) and T split over blocks with the merge
+    launch (B = 4)."""
+    args = _pool_args(cuda_device, torch.bfloat16, b=b, t=t, c=1536, seed=b)
+    eager = attentive_pool_fwd(*args, 1e-6, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        attentive_pool_fwd(*args, 1e-6, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = attentive_pool_fwd(*args, 1e-6, True)
+    before = attentive_pool_fwd.launches
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert attentive_pool_fwd.launches == before  # a replay runs no wrapper
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [128, 4, 1])
+def test_pool_forward_scratch_holds_the_running_states(cuda_device, b):
+    """The bf16 forward's scratch is the one-pass kernel's running states,
+    2 S x 4 x B x C floats (S = onepass_splits(B)); the f32 route keeps u."""
+    from titanet_torch.ops.kernels import pool
+
+    lib = pool._lib()
+    assert lib.titanet_attn_pool_fwd_scratch_bytes(b, 301, 1536, 128, 2) == \
+        2 * pool.onepass_splits(b) * 4 * b * 1536 * 4
+    assert lib.titanet_attn_pool_fwd_scratch_bytes(b, 301, 1536, 128, 4) == b * 301 * 128 * 4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("geometry", [(512, 400, 160), (512, 400, 80), (256, 200, 159)])
@@ -384,6 +451,30 @@ def test_pool_kernels_at_the_conformer_shape(cuda_device, fold, t):
     ref = attentive_pool_fwd_plain(*args, 1e-6, fold).float()
     torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
     g = torch.from_numpy(np.random.default_rng(t).standard_normal((4, 3072)).astype(np.float32))
+    g = g.to(cuda_device).to(torch.bfloat16)
+    got = attentive_pool_bwd(*args, g, 1e-6, fold)
+    torch.cuda.synchronize()
+    want = attentive_pool_bwd_plain(*args, g, 1e-6, fold)
+    for name, a, r in zip(("dh", "da", "dc", "dwa", "dba", "dwb", "dbb"), got, want):
+        assert a.shape == r.shape and a.dtype == r.dtype and torch.isfinite(a).all(), name
+        if name in ("da", "dc") and not fold:
+            assert not a.any() and not r.any(), name
+        elif name == "dbb":
+            scale = want[5].abs().max().item()
+            assert a.abs().max().item() <= 2e-2 * scale and r.abs().max().item() <= 2e-2 * scale
+        else:
+            assert _rel_err(a, r) <= 2e-2, (name, _rel_err(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", [False, True])
+def test_pool_backward_at_the_titanet_s_training_shape(cuda_device, fold):
+    """TitaNet-S's training batch (B = 128, T = 301, C = 1536, H = 128,
+    bf16), the backward's first stage on the one-pass kernel: each gradient
+    within phase 6's 2e-2 of its largest entry (dbb, zero in exact
+    arithmetic, below 2e-2 of max |dWb|)."""
+    args = _pool_args(cuda_device, torch.bfloat16, b=128, t=301, c=1536, h=128, seed=11)
+    g = torch.from_numpy(np.random.default_rng(11).standard_normal((128, 3072)).astype(np.float32))
     g = g.to(cuda_device).to(torch.bfloat16)
     got = attentive_pool_bwd(*args, g, 1e-6, fold)
     torch.cuda.synchronize()

@@ -16,11 +16,9 @@
 // ~118 MB of bf16 (~35 us at 3.35 TB/s) against ~30 GFLOP (~31 us at the
 // bf16 tensor-core rate).
 //
-// Two designs. bf16 at H == 128 (every TitaNet) runs tc_u_kernel and
-// tc_stats_kernel (the tensor-core passes, below the FP32-core backward):
-// the same two passes as here with both products on mma.sync tiles, u kept
-// in bf16, and the softmax state merged over 16 row slots in a fixed order.
-// f32, the parity surface, runs the FP32-core passes:
+// Two designs. bf16 at H == 128 (every TitaNet) runs pool_onepass_kernel
+// (below the FP32-core backward: one pass over h, u and the energies kept on
+// the chip). f32, the parity surface, runs two FP32-core passes:
 //  1. attn_u_kernel: one block per 64 rows of the flattened [B*T] and 128
 //     hidden units. y is recomputed from h and the fold while it is staged
 //     through shared memory in 32-channel chunks with the matching rows of
@@ -38,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <cuda.h>  // CUtensorMap; the encoder comes from the driver at run time
 
 #include "mma_bf16.cuh"
 
@@ -306,23 +306,26 @@ int launch(const void* h, const void* a, const void* c, const void* wa, const vo
 // kernels further down). What bounds it: six products of B*T x C x H and a
 // softmax epilogue of ~30 operations on every element of [B*T, C]. What the
 // design does: every product is an mma.sync tile fed by cp.async
-// (mma_bf16.cuh); the operand roundings of the TPU kernel (y, u, de, dz to
-// bf16) happen as the tiles are staged; and no f32 [B*T, C] array exists:
-//  1. tc_u_kernel: u in f32 (for 1 - u^2) and bf16 (the operand);
-//  2. tc_stats_kernel: the softmax max, sum, mean and E[y^2] per (b, c);
-//  3. tc_de_kernel, a block (16 warps: the softmax epilogue is what it
+// (mma_bf16.cuh), but the first stage's; the operand roundings of the TPU
+// kernel (y, u, de, dz to bf16) happen as the tiles are staged; and no f32
+// [B*T, C] array exists:
+//  1. pool_onepass_kernel (the forward's one pass): u in f32 (for 1 - u^2)
+//     and bf16 (the operand), and the softmax max, sum, mean and E[y^2] per
+//     (b, c);
+//  2. tc_de_kernel, a block (16 warps: the softmax epilogue is what it
 //     spends its time on) per 64 frames of an utterance, looping over the
 //     channels in tiles of 128: e recomputed (K = 128) -> alpha -> de, bf16
 //     to device memory (once written, read once by dWb); du = de @ Wb^T
 //     accumulates in registers over the loop; then dz, bf16;
-//  4. tc_dh_kernel, same blocks: e recomputed again -> alpha; the first
+//  3. tc_dh_kernel, same blocks: e recomputed again -> alpha; the first
 //     term of dy is formed in registers and added to dz @ Wa^T from the
 //     accumulators; fold backward; dh;
-//  5-6. tc_atb_kernel: dWb = u^T de and dWa = y^T dz, split over 32 row
+//  4-5. tc_atb_kernel: dWb = u^T de and dWa = y^T dz, split over 32 row
 //     ranges (y recomputed from h as its tile is staged);
-//  7. sum_parts_kernel over every partial.
-// The workspace holds u (f32, bf16), de and dz (bf16) and the partials:
-// 259.8 MB at B=128, T=301, C=1536 against 574.9 MB for the design below.
+//  6. sum_parts_kernel over every partial.
+// The workspace holds u (f32, bf16), de and dz (bf16), the partials and
+// the first stage's running states: 266.1 MB at B=128, T=301, C=1536
+// against 574.9 MB for the design below.
 //
 // f32 (and bf16 at other H): the FP32-core design. Passes, each one launch:
 //  1. attn_u_kernel (the forward's): u [B*T, H] f32;
@@ -666,8 +669,6 @@ constexpr int kTcRows = 64;               // rows of [B*T] (or of one utterance)
 constexpr int kTcLd = 128 + tc::kPad;     // row stride of a 128-wide tile
 constexpr int kTcTile64 = kTcRows * kTcLd;   // elements of a [64][128] tile
 constexpr int kTcTile128 = 128 * kTcLd;      // elements of a [128][128] tile
-constexpr int kKC = 64;                   // channels a step of tc_u_kernel
-constexpr int kKCLd = kKC + tc::kPad;
 constexpr int kKR = 32;                   // rows a step of tc_atb_kernel
 
 // rows x 128 bf16 from global (row stride ld) into a [rows][kTcLd] tile;
@@ -699,222 +700,496 @@ __device__ __forceinline__ uint4 fold_chunk(uint4 raw, const float* a, const flo
   return raw;
 }
 
-// Pass 1: u = tanh(y @ Wa + ba) for 64 rows of [B*T]; K = C in steps of kKC.
-// Writes u in f32 (for 1 - u^2; may be null) and rounded to bf16 (the
-// operand of every later product).
-__global__ void __launch_bounds__(kTcThreads) tc_u_kernel(
-    const bf16* __restrict__ h, const float* __restrict__ a, const float* __restrict__ c,
-    const bf16* __restrict__ wa, const float* __restrict__ ba, float* __restrict__ u32,
-    bf16* __restrict__ ub, int rows, int C, int fold) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [2][64][kKCLd]
-  bf16* Bs = As + 2 * kTcRows * kKCLd;           // [2][kKC][kTcLd]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int r0 = blockIdx.x * kTcRows;
-  uint4 hreg[512 / kTcThreads];
-  auto fetch = [&](int c0) {
-#pragma unroll
-    for (int n = 0; n < 512 / kTcThreads; ++n) {
-      const int i = tid + n * kTcThreads, r = i >> 3, v = i & 7;
-      hreg[n] = r0 + r < rows
-                    ? *reinterpret_cast<const uint4*>(h + (long long)(r0 + r) * C + c0 + v * 8)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto stash = [&](int buf, int c0) {
-#pragma unroll
-    for (int n = 0; n < 512 / kTcThreads; ++n) {
-      const int i = tid + n * kTcThreads, r = i >> 3, v = i & 7;
-      *reinterpret_cast<uint4*>(As + (buf * kTcRows + r) * kKCLd + v * 8) =
-          fold_chunk(hreg[n], a + c0 + v * 8, c + c0 + v * 8, fold);
-    }
-  };
-  auto fetch_b = [&](int buf, int c0) {
-    tile_async(Bs + buf * kKC * kTcLd, wa + (long long)c0 * 128, 128, kKC, kKC, tid);
-    tc::cp_async_commit();
-  };
-  float acc[kMT][4][4];
-  tc::zero_acc(acc);
-  fetch(0);
-  fetch_b(0, 0);
-  stash(0, 0);
-  const int steps = C / kKC;
-  for (int kc = 0; kc < steps; ++kc) {
-    const int buf = kc & 1;
-    tc::cp_async_wait<0>();
-    __syncthreads();  // step kc is staged; step kc-1 is consumed
-    if (kc + 1 < steps) {
-      fetch_b(buf ^ 1, (kc + 1) * kKC);
-      fetch((kc + 1) * kKC);
-    }
-    tc::warp_mma<kMT, 4, kKC, false, true>(acc, As + (buf * kTcRows + wm * kWR) * kKCLd, kKCLd,
-                                         Bs + buf * kKC * kTcLd + wn * 32, kTcLd, lane);
-    if (kc + 1 < steps) stash(buf ^ 1, (kc + 1) * kKC);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = wn * 32 + j * 8 + tc::frag_col(lane);
-    const float2 bav = *reinterpret_cast<const float2*>(ba + col);
-#pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + wm * kWR + i * 16 + half * 8 + tc::frag_row(lane);
-        if (row < rows) {
-          const float u0 = tanhf(acc[i][j][half * 2] + bav.x);
-          const float u1 = tanhf(acc[i][j][half * 2 + 1] + bav.y);
-          if (u32) *reinterpret_cast<float2*>(u32 + (long long)row * 128 + col) = make_float2(u0, u1);
-          *reinterpret_cast<__nv_bfloat162*>(ub + (long long)row * 128 + col) =
-              __floats2bfloat162_rn(u0, u1);
-        }
-      }
-    }
-  }
+// ------------------------------------------------ bf16: the one-pass forward
+//
+// pool_onepass_kernel replaces titanet_tpu/ops/pallas/pool.py::_fwd_impl
+// (_fwd_kernel, _row_forward) in bf16 at H == 128, and is the backward's
+// first stage. What bounds it: one read of h (118 MB at B=128, T=301,
+// C=1536: 0.0358 ms at 3.35 TB/s) against 30.3 GFLOP (0.0306 ms on the bf16
+// tensor cores): nearly balanced; and every element of [T, C] also takes a
+// softmax update (~10 operations, one exp). What the design does: h is read
+// once from device memory, and u, e and alpha never leave the chip.
+//
+// A block owns whole rows: tiles of kOpRows = 128 frames of one utterance
+// across all C channels, 64 frames a warpgroup (frame half f); it walks the
+// tiles s, s + S, ... of utterance b (grid (S, B), S = onepass_splits(B):
+// one block an SM of an H100 at B >= 132 / 2). Its four warpgroups are two
+// pairs, each pair (one warpgroup a frame half) taking every other
+// 64-channel chunk (pair p: chunks p, p + 2, ...), so that one pair's
+// softmax runs while the other's products do. For a tile:
+//  U. u = y @ Wa: K = C in 64-channel stages, a pair's half of K; the A
+//     operand y = dt(relu(a*h + c)) made in registers from the staged h
+//     (ldmatrix, fold, round: wgmma.m64n128k16 with A from registers), B
+//     the stage's 64 rows of Wa. Pair 1 hands its sums to pair 0 through
+//     shared memory (added in that order), pair 0 takes tanh(. + ba) and
+//     rounds u to bf16 into the frame half's [64][128] tile (step E's B
+//     operand) and, for the backward, writes u in f32 and bf16.
+//  E. per 64-channel stage: e^T = Wb[:, chunk]^T @ u^T (wgmma.m64n64k16:
+//     channels on M and frames on N, so that each channel's 64 frames sit
+//     in one quad of lanes: a thread sums 16 of them, two shuffles finish),
+//     then the online softmax: the tile's max per channel, p = exp(e - m),
+//     sum p, sum p*yf and sum p*yf^2 with yf recomputed in f32 from the
+//     stage's h (ldmatrix.trans gives h^T in the accumulator's layout),
+//     merged into the frame half's running state of the channel, rescaled
+//     by exp(m_old - m_new). A warpgroup with no frame in the tile (T's
+//     last tile) skips its products and softmax.
+// Loads: TMA (cp.async.bulk.tensor, 128-byte swizzled by the tensor maps),
+// one thread a pair requesting a stage, an mbarrier a slot; a stage is 16
+// KB of weights (Wa rows or Wb columns) and the tile's 128 frames x 64
+// channels of h (rows past the utterance zero), 3 slots a pair, 2 stages in
+// flight. Step E reads its h stage a second time, one tile after step U read
+// it, through L2 (step U's loads evict-last, step E's evict-first). The
+// weights stream through L2 once a tile and are not shared across blocks:
+// no cluster. At B=128, T=301 a call moves through L2 ~302 MB of weights
+// (384 tiles x 768 KB), 2 x 118 MB of h and ~25 MB of running states
+// (564 MB). Taking the weight loads out saves 0.006 ms of the kernel's
+// 0.169, and the h re-reads too 0.009 (ops/kernels/pool_sweep.py; H100
+// 80GB HBM3, 700 W), so a 2-block cluster multicasting the weights (half
+// their L2 bytes) would not pay for its barriers: the kernel is bound by
+// issue (the softmax and the fold, ~10 operations an element; each pair's
+// barrier and product wait a stage), not by L2.
+// Running states live in the scratch `part` ([2S][4][B][C]: max, sum, sum
+// p*yf, sum p*yf^2 of (split, frame half)); at the end the 2S states of
+// each (b, c) are merged in slot order (in the block when S == 1, else by
+// pool_merge_kernel): no float atomics, the same bits every call.
+constexpr int kOpRows = 128;         // frames of one utterance a tile, 64 a warpgroup
+constexpr int kOpThreads = 512;      // two pairs of warpgroups
+constexpr int kOpChunk = 64;         // channels a stage
+constexpr int kOpSlots = 3;          // ring slots a pair
+constexpr int kOpWBytes = 16384;     // Wa [64][128] or Wb [128][64], bf16
+constexpr int kOpHBytes = kOpRows * kOpChunk * 2;  // h [128][64], bf16
+constexpr int kOpStageBytes = kOpWBytes + kOpHBytes;
+constexpr int kOpUElems = 64 * 128;  // a frame half's u tile, bf16
+constexpr size_t kOpSmem = (size_t)2 * kOpSlots * kOpStageBytes + 2 * kOpUElems * sizeof(bf16) +
+                           2 * kOpSlots * sizeof(uint64_t);  // slots, u tiles, a full-barrier a slot
+// splits of T: one block an SM of an H100 (132) at most, every utterance at
+// least one block; ops/kernels/pool.py::onepass_splits mirrors it
+constexpr int kOpBlockTarget = 132;
+constexpr int kOpMaxSplits = 64;
+inline int onepass_splits(int B) {
+  const int s = kOpBlockTarget / B;
+  return s < 1 ? 1 : (s > kOpMaxSplits ? kOpMaxSplits : s);
 }
-constexpr size_t kTcUSmem = (size_t)(2 * kTcRows * kKCLd + 2 * kKC * kTcLd) * sizeof(bf16);
+// bytes of the running states: [2 S][4][B][C] f32
+inline size_t onepass_part_bytes(int B, int C) {
+  return (size_t)2 * onepass_splits(B) * 4 * B * C * sizeof(float);
+}
 
-// Pass 2: per (utterance, 128 channels), e = ub @ Wb + bb in chunks of 64
-// frames, an online softmax over T and the weighted moments of y; the
-// threads' states are merged in a fixed order. Writes the pooled output
-// (forward) or the softmax max, sum, mean and E[y^2] (backward).
-__global__ void __launch_bounds__(kTcThreads) tc_stats_kernel(
-    const bf16* __restrict__ h, const float* __restrict__ a, const float* __restrict__ c,
-    const bf16* __restrict__ ub, const bf16* __restrict__ wb, const float* __restrict__ bb,
-    bf16* __restrict__ out, int n_t, int C, float eps, int fold, float* __restrict__ stats) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* wbs = reinterpret_cast<bf16*>(smem_raw);  // [128 (H)][kTcLd]: Wb[:, c0 : c0 + 128]
-  bf16* stage = wbs + kTcTile128;                 // [2]{ub [64][kTcLd], h [64][kTcLd]}
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int b = blockIdx.y, c0 = blockIdx.x * 128;
-  const bf16* hb = h + (long long)b * n_t * C + c0;
-  const bf16* ubb = ub + (long long)b * n_t * 128;
-  auto prefetch = [&](int buf, int t0) {
-    const int valid = min(kTcRows, n_t - t0);
-    bf16* s = stage + buf * 2 * kTcTile64;
-    tile_async(s, ubb + (long long)t0 * 128, 128, kTcRows, valid, tid);
-    tile_async(s + kTcTile64, hb + (long long)t0 * C, C, kTcRows, valid, tid);
-    tc::cp_async_commit();
-  };
-  tile_async(wbs, wb + c0, C, 128, 128, tid);
-  prefetch(0, 0);
-  // this thread's 8 columns: (j, q) -> c0 + wn*32 + j*8 + frag_col + q
-  float bbv[4][2], av[4][2], cv[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int ch = c0 + wn * 32 + j * 8 + tc::frag_col(lane) + q;
-      bbv[j][q] = bb[ch];
-      av[j][q] = fold ? a[ch] : 1.f;
-      cv[j][q] = fold ? c[ch] : 0.f;
-    }
-  float m[4][2], s[4][2], sy[4][2], syy[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) m[j][q] = -INFINITY, s[j][q] = sy[j][q] = syy[j][q] = 0.f;
+// element (r, c) of a [rows][64] bf16 tile, 128-byte swizzled
+__device__ __forceinline__ int sw64(int r, int c) { return r * 64 + ((((c >> 3) ^ (r & 7))) << 3) + (c & 7); }
 
-  const int chunks = (n_t + kTcRows - 1) / kTcRows;
-  for (int ck = 0; ck < chunks; ++ck) {
-    const int buf = ck & 1, t0 = ck * kTcRows;
-    const int valid = min(kTcRows, n_t - t0);
-    tc::cp_async_wait<0>();
-    __syncthreads();
-    if (ck + 1 < chunks) prefetch(buf ^ 1, t0 + kTcRows);
-    const bf16* us = stage + buf * 2 * kTcTile64;
-    const bf16* hs = us + kTcTile64;
-    float acc[kMT][4][4];
-    tc::zero_acc(acc);
-    tc::warp_mma<kMT, 4, 128, false, true>(acc, us + wm * kWR * kTcLd, kTcLd, wbs + wn * 32, kTcLd,
-                                         lane);
-    // per column: rescale the state to the chunk's max once, then one exp a frame
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = wn * 32 + j * 8 + tc::frag_col(lane);
-      float et[2][kMT * 2], y[2][kMT * 2];
-      float cm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = wm * kWR + i * 16 + half * 8 + tc::frag_row(lane);
-          const float2 hv =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hs + r * kTcLd + col));
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const float hq = q ? hv.y : hv.x;
-            y[q][i * 2 + half] = fold ? fold_relu(hq, av[j][q], cv[j][q]) : hq;
-            et[q][i * 2 + half] = r < valid ? acc[i][j][half * 2 + q] + bbv[j][q] : -INFINITY;
-            cm[q] = fmaxf(cm[q], et[q][i * 2 + half]);
-          }
-        }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (cm[q] > m[j][q]) {
-          const float r_ = expf(m[j][q] - cm[q]);
-          s[j][q] *= r_;
-          sy[j][q] *= r_;
-          syy[j][q] *= r_;
-          m[j][q] = cm[q];
-        }
-        if (cm[q] == -INFINITY) continue;  // no frame of this chunk in this thread's rows
-#pragma unroll
-        for (int t = 0; t < kMT * 2; ++t) {
-          const float w = expf(et[q][t] - m[j][q]);  // 0 for a row past the end
-          s[j][q] += w;
-          sy[j][q] = fmaf(w, y[q][t], sy[j][q]);
-          syy[j][q] = fmaf(w * y[q][t], y[q][t], syy[j][q]);
-        }
-      }
-    }
-  }
-  // merge the kSlots row slots of each column (a slot that saw no frame has s == 0)
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(stage);  // [4][kSlots][128] floats
-  constexpr int kSlots = kWM * 8;
-  const int slot = wm * 8 + tc::frag_row(lane);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int col = wn * 32 + j * 8 + tc::frag_col(lane) + q;
-      red[(0 * kSlots + slot) * 128 + col] = m[j][q];
-      red[(1 * kSlots + slot) * 128 + col] = s[j][q];
-      red[(2 * kSlots + slot) * 128 + col] = sy[j][q];
-      red[(3 * kSlots + slot) * 128 + col] = syy[j][q];
-    }
-  __syncthreads();
-  if (tid >= 128) return;
-  float mx = red[tid];
-  for (int k = 1; k < kSlots; ++k) mx = fmaxf(mx, red[k * 128 + tid]);
+// the merged statistics of (b, ch) from the nslots running states
+__device__ __forceinline__ void merge_slots(const float* __restrict__ part, int nslots, long long n,
+                                            long long bc, int C, int b, int ch, bf16* __restrict__ out,
+                                            float* __restrict__ stats, float eps) {
+  float mx = -INFINITY;
+  for (int k = 0; k < nslots; ++k) mx = fmaxf(mx, part[4 * k * n + bc]);
   float S = 0.f, SY = 0.f, SYY = 0.f;
-  for (int k = 0; k < kSlots; ++k) {
-    const float gs = red[(kSlots + k) * 128 + tid];
-    if (gs == 0.f) continue;
-    const float r = expf(red[k * 128 + tid] - mx);
+  for (int k = 0; k < nslots; ++k) {
+    const float gs = part[(4 * k + 1) * n + bc];
+    if (gs == 0.f) continue;  // a state that saw no frame
+    const float r = __expf(part[4 * k * n + bc] - mx);
     S = fmaf(gs, r, S);
-    SY = fmaf(red[(2 * kSlots + k) * 128 + tid], r, SY);
-    SYY = fmaf(red[(3 * kSlots + k) * 128 + tid], r, SYY);
+    SY = fmaf(part[(4 * k + 2) * n + bc], r, SY);
+    SYY = fmaf(part[(4 * k + 3) * n + bc], r, SYY);
   }
-  const float mean = SY / S;
-  const float q = SYY / S;
-  const int ch = c0 + tid;
+  const float mean = SY / S, q = SYY / S;
   if (out) {
-    const float sd = sqrtf(fmaxf(q - mean * mean, eps));
     out[(long long)b * 2 * C + ch] = __float2bfloat16(mean);
-    out[(long long)b * 2 * C + C + ch] = __float2bfloat16(sd);
+    out[(long long)b * 2 * C + C + ch] = __float2bfloat16(sqrtf(fmaxf(q - mean * mean, eps)));
   }
   if (stats) {
-    const long long bc = (long long)b * C + ch, n = (long long)gridDim.y * C;
     stats[bc] = mx;
     stats[n + bc] = S;
     stats[2 * n + bc] = mean;
     stats[3 * n + bc] = q;
   }
 }
-constexpr size_t kTcStatsSmem = (size_t)(kTcTile128 + 4 * kTcTile64) * sizeof(bf16);
+
+// Step E's softmax update of one 64-channel stage for this thread's two
+// channels q (lo = 16 wq + lane/4, hi = lo + 8) over its 16 frames of the
+// warpgroup's 64 (frame half f); the quad of lanes sharing lane/4 holds the
+// channel's 64. st: running max, sum p, sum p*yf, sum p*yf^2 of each
+// channel, updated; then bb, a and c of the two channels.
+template <bool kFold, bool kMasked>
+__device__ __forceinline__ void onepass_softmax(const float (&acc)[32], float (&st)[14], const bf16* hs, int f,
+                                                int wq, int lane, int fvalid) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int qc = 2 * (lane & 3);
+  float mt[2], base[2], av[2], cv[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    av[q] = kFold ? st[10 + q] : 1.f;
+    cv[q] = kFold ? st[12 + q] : 0.f;
+    float m4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // four chains (max is exact in any order)
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (!kMasked || 8 * jn + qc + e < fvalid)
+          m4[(2 * jn + e) & 3] = fmaxf(m4[(2 * jn + e) & 3], acc[4 * jn + 2 * q + e]);
+    float m = fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    mt[q] = m + st[8 + q];  // the tile's max of e (-inf: no frame of this warpgroup in the tile)
+    const float mn = mt[q] > -INFINITY ? fmaxf(st[4 * q], mt[q]) : 0.f;
+    base[q] = (st[8 + q] - mn) * kLog2e;  // p = 2^(acc log2e + base) = exp(acc + bb - mn)
+    mt[q] = mt[q] > -INFINITY ? mn : -INFINITY;
+  }
+  // partial sums by frame parity e (two dependency chains a quantity)
+  float ps[2][2] = {}, py[2][2] = {}, pyy[2][2] = {};
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    // h^T of frames 16 jj ..: (2jj, lo), (2jj, hi), (2jj+1, lo), (2jj+1, hi)
+    uint32_t hf[4];
+    const int fr = 64 * f + 16 * jj + ((lane >> 4) << 3) + (lane & 7);
+    const int chunk = 2 * wq + ((lane >> 3) & 1);
+    tc::ldmatrix_x4_trans(hf, hs + fr * 64 + ((chunk ^ (fr & 7)) << 3));
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int jn = 2 * jj + x;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hf[2 * x + q]));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float hq = e ? hv.y : hv.x;
+          const float yv = kFold ? fold_relu(hq, av[q], cv[q]) : hq;
+          float p;
+          asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(fmaf(acc[4 * jn + 2 * q + e], kLog2e, base[q])));
+          if (kMasked && 8 * jn + qc + e >= fvalid) p = 0.f;  // a frame past the end
+          const float pyv = p * yv;
+          ps[q][e] += p;
+          py[q][e] += pyv;
+          pyy[q][e] = fmaf(pyv, yv, pyy[q][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    float s1 = ps[q][0] + ps[q][1], s2 = py[q][0] + py[q][1], s3 = pyy[q][0] + pyy[q][1];
+#pragma unroll
+    for (int m = 1; m <= 2; m <<= 1) {  // the quad's 64 frames, in a fixed order
+      s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, m);
+      s3 += __shfl_xor_sync(0xffffffffu, s3, m);
+    }
+    if (mt[q] > -INFINITY) {
+      const float r = __expf(st[4 * q] - mt[q]);  // 0 while the state is empty
+      st[4 * q] = mt[q];
+      st[4 * q + 1] = fmaf(st[4 * q + 1], r, s1);
+      st[4 * q + 2] = fmaf(st[4 * q + 2], r, s2);
+      st[4 * q + 3] = fmaf(st[4 * q + 3], r, s3);
+    }
+  }
+}
+
+// mbarriers and TMA (cp.async.bulk.tensor): one thread requests a stage's
+// tiles, the hardware writes them (128-byte swizzled by the tensor map) and
+// counts their bytes on the slot's barrier, which the consumers wait on
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(tc::smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(tc::smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(tc::smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// L2 policies of the loads: evict-last (read again soon), evict-first
+__device__ __forceinline__ uint64_t l2_policy(bool keep) {
+  uint64_t pol;
+  if (keep)
+    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(pol));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int x, int y, uint64_t* bar,
+                                       uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(tc::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(tc::smem_addr(bar)), "l"(pol)
+      : "memory");
+}
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int x, int y, int z, uint64_t* bar,
+                                       uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(tc::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(tc::smem_addr(bar)), "l"(pol)
+      : "memory");
+}
+
+__device__ __forceinline__ void pair_sync(int pair) {  // the 256 threads of warpgroup pair `pair`
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + pair) : "memory");
+}
+
+// Writes the pooled output `out` [B, 2C] and/or the backward's `stats`
+// [4][B][C] (softmax max, sum, mean, E[y^2]); u32 / ub ([B*T, 128]) when
+// not null.
+template <bool kFold>
+__global__ void __launch_bounds__(kOpThreads, 1) pool_onepass_kernel(
+    const bf16* __restrict__ h, const float* __restrict__ a, const float* __restrict__ c,
+    const bf16* __restrict__ wa, const float* __restrict__ ba, const bf16* __restrict__ wb,
+    const float* __restrict__ bb, float* __restrict__ part, bf16* __restrict__ out,
+    float* __restrict__ stats, float* __restrict__ u32, bf16* __restrict__ ub, int n_t, int C,
+    float eps, const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_wa,
+    const __grid_constant__ CUtensorMap tm_wb) {
+  extern __shared__ __align__(1024) unsigned char op_smem[];  // wgmma tiles: 1 KB aligned
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pair = warp >> 3, f = (warp >> 2) & 1, wq = warp & 3;  // pair, frame half, warp of the warpgroup
+  const int ptid = tid & 255;  // thread of the pair
+  const int s = blockIdx.x, S = gridDim.x, b = blockIdx.y, B = gridDim.y;
+  const int tiles = (n_t + kOpRows - 1) / kOpRows;
+  const int my_tiles = s < tiles ? (tiles - s + S - 1) / S : 0;
+  const int NC = C / kOpChunk, NH = NC / 2;  // a pair's stages a step: channel chunks pair, pair + 2, ...
+  const int total = my_tiles * NC;           // this pair's stages (NH of step U, then NH of step E, a tile)
+  const long long n = (long long)B * C;
+  float* state = part + (long long)(2 * s + f) * 4 * n + (long long)b * C;  // + q * n + ch
+  bf16* u_all = reinterpret_cast<bf16*>(op_smem + 2 * kOpSlots * kOpStageBytes);
+  bf16* us = u_all + f * kOpUElems;  // this frame half's u tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(u_all + 2 * kOpUElems);  // a barrier a slot
+
+  if (my_tiles == 0) {  // a split past the last tile: empty states
+    for (int i = tid; i < 2 * C; i += kOpThreads) {
+      float* st = part + (long long)(2 * s + i / C) * 4 * n + (long long)b * C + i % C;
+      st[0] = -INFINITY;
+      st[n] = st[2 * n] = st[3 * n] = 0.f;
+    }
+    return;
+  }
+
+  // this pair's stage j: step U's chunk 2 r + pair (r < NH) or step E's
+  // chunk 2 (r - NH) + pair of tile j / NC, r = j % NC, in slot pair + 2 (j
+  // % 3). Thread 0 of the pair requests the stages in order (running
+  // counters): the weight slab and the tile's 128 frames x 64 channels of h,
+  // rows past the utterance zero (the tensor map's bounds)
+  int ld_j = 0, ld_r = 0, ld_slot = 0, ld_t0 = s * kOpRows;
+  auto load_stage = [&]() {
+    if (ptid == 0 && ld_j < total) {
+      const int ch0 = (2 * (ld_r < NH ? ld_r : ld_r - NH) + pair) * kOpChunk;
+      const int sl = pair + 2 * ld_slot;
+      bf16* w = reinterpret_cast<bf16*>(op_smem + sl * kOpStageBytes);
+      mbar_expect_tx(full + sl, kOpStageBytes);
+      // the weights (every block reads them) and step U's h (step E reads
+      // it again) are kept in L2; step E's h is read for the last time
+      const uint64_t keep = l2_policy(true);
+      if (ld_r < NH) {  // Wa rows ch0.. as B [k = 64 channels][n = 128], MN-major: two 64-column boxes
+        tma_2d(w, &tm_wa, 0, ch0, full + sl, keep);
+        tma_2d(w + 4096, &tm_wa, 64, ch0, full + sl, keep);
+      } else {  // Wb columns ch0.. as A^T [k = 128][m = 64 channels], MN-major
+        tma_2d(w, &tm_wb, ch0, 0, full + sl, keep);
+      }
+      tma_3d(w + kOpWBytes / 2, &tm_h, ch0, ld_t0, b, full + sl, ld_r < NH ? keep : l2_policy(false));
+    }
+    if (ld_j < total) {
+      ++ld_j;
+      ld_slot = ld_slot == kOpSlots - 1 ? 0 : ld_slot + 1;
+      if (++ld_r == NC) {
+        ld_r = 0;
+        ld_t0 += S * kOpRows;
+      }
+    }
+  };
+  // stage j + 2 requested into the slot of stage j - 1, which the pair has
+  // finished; then stage j waited for
+  int slot_j = 0, phases = 0;  // slot of stage j (j % 3); the parity of each slot's next use
+  auto begin_stage = [&]() {
+    pair_sync(pair);
+    load_stage();
+    mbar_wait(full + pair + 2 * slot_j, (phases >> slot_j) & 1);
+  };
+  auto end_stage = [&]() {
+    phases ^= 1 << slot_j;
+    slot_j = slot_j == kOpSlots - 1 ? 0 : slot_j + 1;
+  };
+  auto slot = [&]() { return reinterpret_cast<const bf16*>(op_smem + (pair + 2 * slot_j) * kOpStageBytes); };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 * kOpSlots; ++i) mbar_init(full + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  load_stage();
+  load_stage();
+
+  const int qc = 2 * (lane & 3);  // this thread's first accumulator column of an 8-column tile
+  for (int i = 0; i < my_tiles; ++i) {
+    const int t0 = (s + i * S) * kOpRows;
+    const int fvalid = n_t - t0 - 64 * f;  // frames of this warpgroup's 64 that exist
+
+    // ---- U: this pair's half of K of u = y @ Wa, 64 frames x 128 a warpgroup
+    float acc_u[64];
+    // the products start their sums with scale-d = 0; this definition ends
+    // the previous tile's accumulator here (an asm operand "+f" would keep
+    // it live across step E)
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc_u[x] = 0.f;
+    for (int r = 0; r < NH; ++r, end_stage()) {
+      begin_stage();
+      const bf16* w = slot();
+      const bf16* hs = w + kOpWBytes / 2;
+      if (fvalid <= 0) continue;  // a warpgroup with no frame in the tile (T's last tile)
+      const int row = 64 * f + 16 * wq + (lane & 15);
+      const int ch0 = (2 * r + pair) * kOpChunk;
+      uint32_t af[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int chunk = 2 * k + (lane >> 4);
+        tc::ldmatrix_x4(af[k], hs + row * 64 + ((chunk ^ (row & 7)) << 3));
+        if (kFold) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int ch = ch0 + 16 * k + (q >> 1) * 8 + qc;
+            const float2 av = __ldg(reinterpret_cast<const float2*>(a + ch));
+            const float2 cv = __ldg(reinterpret_cast<const float2*>(c + ch));
+            const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&af[k][q]));
+            __nv_bfloat162 y = __floats2bfloat162_rn(fold_relu(v.x, av.x, cv.x), fold_relu(v.y, av.y, cv.y));
+            af[k][q] = *reinterpret_cast<uint32_t*>(&y);
+          }
+        }
+      }
+      tc::fence_operand(acc_u);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        tc::wgmma_m64n128k16_rs(acc_u, af[k], tc::wgmma_desc_b(w + k * 1024, 8), r > 0 || k > 0);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_operand(acc_u);
+    }
+    // u = tanh(pair 0's sum + pair 1's sum + ba): pair 1 hands its sums over
+    // through the u tiles' memory, 64 columns at a time
+    float* xs = reinterpret_cast<float*>(u_all) + f * 64 * 64;  // [64 rows][64 columns] f32, this frame half
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      __syncthreads();  // both pairs are past step U (and the previous tile's step E), or pair 0 has read
+      if (pair == 1) {
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = 16 * wq + (lane >> 2) + 8 * hr, col = 8 * jn + qc;
+            *reinterpret_cast<float2*>(xs + r * 64 + (col ^ ((r & 7) << 3))) =
+                make_float2(acc_u[32 * half + 4 * jn + 2 * hr], acc_u[32 * half + 4 * jn + 2 * hr + 1]);
+          }
+      }
+      __syncthreads();
+      if (pair == 0) {
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = 16 * wq + (lane >> 2) + 8 * hr, col = 8 * jn + qc;
+            const float2 o = *reinterpret_cast<const float2*>(xs + r * 64 + (col ^ ((r & 7) << 3)));
+            acc_u[32 * half + 4 * jn + 2 * hr] += o.x;
+            acc_u[32 * half + 4 * jn + 2 * hr + 1] += o.y;
+          }
+      }
+    }
+    __syncthreads();  // pair 0 has read the last sums
+    if (pair == 0) {
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const int col = 8 * jn + qc;
+        const float2 bav = __ldg(reinterpret_cast<const float2*>(ba + col));
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = 16 * wq + (lane >> 2) + 8 * hr;
+          const float u0 = tanhf(acc_u[4 * jn + 2 * hr] + bav.x);
+          const float u1 = tanhf(acc_u[4 * jn + 2 * hr + 1] + bav.y);
+          const __nv_bfloat162 u2 = __floats2bfloat162_rn(u0, u1);
+          *reinterpret_cast<__nv_bfloat162*>(us + (col >> 6) * 4096 + sw64(r, col & 63)) = u2;
+          if (u32 && r < fvalid) {
+            const long long o = ((long long)b * n_t + t0 + 64 * f + r) * 128 + col;
+            *reinterpret_cast<float2*>(u32 + o) = make_float2(u0, u1);
+            *reinterpret_cast<__nv_bfloat162*>(ub + o) = u2;
+          }
+        }
+      }
+    }
+    tc::fence_proxy_async();  // the u tiles (over pair 1's sums), for step E's products
+    __syncthreads();
+
+    // ---- E: e^T = Wb[:, chunk]^T @ u^T per 64 channels (this pair's
+    // chunks) and the online softmax. st: this thread's two channels'
+    // running states (max, sum p, sum p*yf, sum p*yf^2), then their bb, a, c
+    for (int r = 0; r < NH; ++r, end_stage()) {
+      const int kk = 2 * r + pair;
+      begin_stage();
+      const bf16* w = slot();
+      if (fvalid > 0) {  // a warpgroup with no frame in the tile (T's last tile) has nothing to add
+        float acc[32];
+#pragma unroll
+        for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+        tc::fence_operand(acc);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          tc::wgmma_m64n64k16_tn(acc, tc::wgmma_desc(w + k * 1024, 16384, 1024),
+                                 tc::wgmma_desc_a(us + (k >> 2) * 4096 + (k & 3) * 16), k > 0);
+        tc::wgmma_commit();
+        float st[14];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int ch = kk * kOpChunk + 16 * wq + (lane >> 2) + 8 * q;
+#pragma unroll
+          for (int v = 0; v < 4; ++v) st[4 * q + v] = i == 0 ? (v ? 0.f : -INFINITY) : state[v * n + ch];
+          st[8 + q] = __ldg(bb + ch);
+          st[10 + q] = kFold ? __ldg(a + ch) : 1.f;
+          st[12 + q] = kFold ? __ldg(c + ch) : 0.f;
+        }
+        tc::wgmma_wait<0>();
+        tc::fence_operand(acc);
+        const bf16* hs = w + kOpWBytes / 2;
+        if (fvalid >= 64)
+          onepass_softmax<kFold, false>(acc, st, hs, f, wq, lane, fvalid);
+        else
+          onepass_softmax<kFold, true>(acc, st, hs, f, wq, lane, fvalid);
+        if ((lane & 3) == 0) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int ch = kk * kOpChunk + 16 * wq + (lane >> 2) + 8 * q;
+#pragma unroll
+            for (int v = 0; v < 4; ++v) state[v * n + ch] = st[4 * q + v];
+          }
+        }
+      } else if (i == 0 && (lane & 3) == 0) {  // its states stay empty
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int ch = kk * kOpChunk + 16 * wq + (lane >> 2) + 8 * q;
+          state[ch] = -INFINITY;
+          state[n + ch] = state[2 * n + ch] = state[3 * n + ch] = 0.f;
+        }
+      }
+    }
+  }
+  if (S == 1) {  // this block holds both states of every channel of utterance b
+    __syncthreads();
+    for (int ch = tid; ch < C; ch += kOpThreads)
+      merge_slots(part, 2, n, (long long)b * C + ch, C, b, ch, out, stats, eps);
+  }
+}
+
+// the 2S states of each (b, c) -> out and/or stats, slots in order
+__global__ void __launch_bounds__(256) pool_merge_kernel(const float* __restrict__ part, int nslots,
+                                                         int B, int C, bf16* __restrict__ out,
+                                                         float* __restrict__ stats, float eps) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)B * C) return;
+  merge_slots(part, nslots, (long long)B * C, i, C, (int)(i / C), (int)(i % C), out, stats, eps);
+}
 
 // Per-column constants of the backward for 128 channels, written by threads
 // 0..127 into cst[8][128]: bb, softmax max, 1 / softmax sum, dmt, dresid,
@@ -1248,7 +1523,7 @@ constexpr size_t kTcAtbSmem = (size_t)(4 * kKR * kTcLd) * sizeof(bf16);
 
 struct BwdWorkspace {  // byte offsets of the backward's scratch buffers
   // ops/kernels/pool.py::bwd_workspace_bytes mirrors this
-  size_t u, ub, stats, de, dy0, dz, dba, dbb, da, dc, dwb, dwa, total;
+  size_t u, ub, stats, de, dy0, dz, dba, dbb, da, dc, dwb, dwa, part, total;
   BwdWorkspace(int B, int n_t, int C, int H, int elem) {
     const size_t rows = (size_t)B * n_t;
     size_t off = 0;
@@ -1283,6 +1558,8 @@ struct BwdWorkspace {  // byte offsets of the backward's scratch buffers
     }
     dwb = take((size_t)kSplits * H * C * 4);
     dwa = take((size_t)kSplits * C * H * 4);
+    // the running softmax states of the first stage (pool_onepass_kernel)
+    part = use_tc(H, elem) ? take(onepass_part_bytes(B, C)) : 0;
     total = off;
   }
 };
@@ -1372,30 +1649,82 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// passes 1-2 of the bf16 tensor-core route; u32 and stats may be null
-// (forward), out may be null (backward)
-int launch_tc_stats(const bf16* h, const float* a, const float* c, const bf16* wa, const float* ba,
-                    const bf16* wb, const float* bb, float* u32, bf16* ub, bf16* out, float* stats,
-                    int B, int n_t, int C, float eps, int fold, cudaStream_t st) {
+// the bf16 forward at H == 128: pool_onepass_kernel, and pool_merge_kernel
+// when T is split over several blocks; out or stats may be null (the
+// backward's first stage gives stats, u32 and ub; the forward out only)
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links no libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a bf16 tensor map of `rank` dims (innermost first), 128-byte swizzled
+// boxes, zeros outside the bounds
+bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
+  const EncodeTiled enc = encode_tiled();
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return enc && enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box, ones,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_onepass(const bf16* h, const float* a, const float* c, const bf16* wa, const float* ba,
+                   const bf16* wb, const float* bb, float* part, bf16* out, float* stats, float* u32,
+                   bf16* ub, int B, int n_t, int C, float eps, int fold, cudaStream_t st) {
+  if (B < 1 || B > 65535 || n_t < 1 || C % 128) return (int)cudaErrorInvalidValue;
+  // h [B][T][C]: boxes of 64 channels x 128 frames of one utterance; Wa
+  // [C][128]: 64 x 64; Wb [128][C]: 64 channels x 128
+  CUtensorMap tm_h, tm_wa, tm_wb;
+  const cuuint64_t h_dims[3] = {(cuuint64_t)C, (cuuint64_t)n_t, (cuuint64_t)B};
+  const cuuint64_t h_strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)n_t * C * 2};
+  const cuuint32_t h_box[3] = {kOpChunk, kOpRows, 1};
+  const cuuint64_t wa_dims[2] = {128, (cuuint64_t)C}, wa_strides[1] = {256};
+  const cuuint32_t wa_box[2] = {64, 64};
+  const cuuint64_t wb_dims[2] = {(cuuint64_t)C, 128}, wb_strides[1] = {(cuuint64_t)C * 2};
+  const cuuint32_t wb_box[2] = {kOpChunk, 128};
+  if (!bf16_map(&tm_h, h, 3, h_dims, h_strides, h_box) || !bf16_map(&tm_wa, wa, 2, wa_dims, wa_strides, wa_box) ||
+      !bf16_map(&tm_wb, wb, 2, wb_dims, wb_strides, wb_box))
+    return (int)cudaErrorNotSupported;
   cudaError_t err;
-  if ((err = allow_smem(tc_u_kernel, kTcUSmem)) != cudaSuccess) return (int)err;
-  if ((err = allow_smem(tc_stats_kernel, kTcStatsSmem)) != cudaSuccess) return (int)err;
-  const int rows = B * n_t;
-  tc_u_kernel<<<(rows + kTcRows - 1) / kTcRows, kTcThreads, kTcUSmem, st>>>(h, a, c, wa, ba, u32,
-                                                                          ub, rows, C, fold);
+  const auto kernel = fold ? pool_onepass_kernel<true> : pool_onepass_kernel<false>;
+  if ((err = allow_smem(kernel, kOpSmem)) != cudaSuccess) return (int)err;
+  const int S = onepass_splits(B);
+  kernel<<<dim3(S, B), kOpThreads, kOpSmem, st>>>(h, a, c, wa, ba, wb, bb, part, out, stats, u32, ub, n_t,
+                                                  C, eps, tm_h, tm_wa, tm_wb);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  tc_stats_kernel<<<dim3(C / 128, B), kTcThreads, kTcStatsSmem, st>>>(h, a, c, ub, wb, bb, out,
-                                                                      n_t, C, eps, fold, stats);
+  if (S == 1) return 0;
+  const long long bc = (long long)B * C;
+  pool_merge_kernel<<<(unsigned)((bc + 255) / 256), 256, 0, st>>>(part, 2 * S, B, C, out, stats, eps);
   return (int)cudaGetLastError();
 }
 
 int launch_tc_fwd(const void* h, const void* a, const void* c, const void* wa, const void* ba,
-                  const void* wb, const void* bb, void* u_scratch, void* out, int B, int n_t, int C,
+                  const void* wb, const void* bb, void* scratch, void* out, int B, int n_t, int C,
                   float eps, int fold, cudaStream_t st) {
-  // the f32 [B*T, H] scratch of the wrapper holds the bf16 u
-  return launch_tc_stats((const bf16*)h, (const float*)a, (const float*)c, (const bf16*)wa,
-                         (const float*)ba, (const bf16*)wb, (const float*)bb, nullptr,
-                         (bf16*)u_scratch, (bf16*)out, nullptr, B, n_t, C, eps, fold, st);
+  // the wrapper's scratch (fwd_scratch_bytes) holds the running states
+  return launch_onepass((const bf16*)h, (const float*)a, (const float*)c, (const bf16*)wa,
+                        (const float*)ba, (const bf16*)wb, (const float*)bb, (float*)scratch,
+                        (bf16*)out, nullptr, nullptr, nullptr, B, n_t, C, eps, fold, st);
+}
+
+size_t fwd_scratch_bytes(int B, int n_t, int C, int H, int elem) {
+  return use_tc(H, elem) ? onepass_part_bytes(B, C) : (size_t)B * n_t * H * sizeof(float);
 }
 
 // The bf16 backward at H == 128: six launches of tensor-core kernels, then
@@ -1426,6 +1755,7 @@ int launch_bwd_tc(const void* h_, const void* a_, const void* c_, const void* wa
   float* dc_part = (float*)(base + ws.dc);
   float* dwb_part = (float*)(base + ws.dwb);
   float* dwa_part = (float*)(base + ws.dwa);
+  float* part = (float*)(base + ws.part);
   const int rows = B * n_t;
   const int tiles = (n_t + kTcRows - 1) / kTcRows;
   const int pb = B * tiles * kEWM;
@@ -1433,8 +1763,8 @@ int launch_bwd_tc(const void* h_, const void* a_, const void* c_, const void* wa
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   int code;
-  if ((code = launch_tc_stats(h, a, c, wa, (const float*)ba_, wb, bb, u32, ub, nullptr, stats, B,
-                              n_t, C, eps, fold, st)))
+  if ((code = launch_onepass(h, a, c, wa, (const float*)ba_, wb, bb, part, nullptr, stats, u32, ub, B,
+                             n_t, C, eps, fold, st)))
     return code;
   if ((err = allow_smem(tc_de_kernel, kTcDeSmem)) != cudaSuccess) return (int)err;
   if ((err = allow_smem(tc_dh_kernel, kTcDhSmem)) != cudaSuccess) return (int)err;
@@ -1512,6 +1842,10 @@ long long titanet_attn_pool_bwd_workspace_bytes(int B, int n_t, int C, int H, in
 }
 
 long long titanet_attn_pool_smem_bytes(int H) { return (long long)stats_smem_bytes(H); }
+
+long long titanet_attn_pool_fwd_scratch_bytes(int B, int n_t, int C, int H, int elem_size) {
+  return (long long)fwd_scratch_bytes(B, n_t, C, H, elem_size);
+}
 
 const char* titanet_attn_pool_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -156,18 +156,21 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
 
 // ------------------------------------------------------------------ wgmma
 //
-// Warpgroup products (4 warps, 64 rows): both operands come from shared
-// memory through 64-bit descriptors, in the 128-byte swizzled layouts below;
+// Warpgroup products (4 warps, 64 rows): the operands come from shared
+// memory through 64-bit descriptors, in the 128-byte swizzled layouts below
+// (A may instead come from registers, in mma.sync's A-fragment layout);
 // the f32 accumulator fragment of warp w covers rows 16w .. 16w+15 and is
 // laid out like NT = N/8 mma.sync tiles side by side (d[4j + q] is element q
 // of the 16 x 8 tile at columns 8j ..).
 //
-// A, "K-major" (a row-major [64][K] activation tile): panels of 64 columns;
+// A or B, "K-major" (a row-major [64][K] activation tile; a B stored [n][k]
+// the same way): panels of 64 columns;
 // a panel is [ROWS][128 bytes], and the 16-byte chunk c of row r sits at
 // chunk c ^ (r % 8). Panels are ROWS * 128 bytes apart; a 16-column step
 // inside a panel is 32 bytes further (the hardware applies the XOR to the
 // address), a 64-row step 8 KB.
-// B, "MN-major" (a row-major [K][N] weight slab): atoms of 8 k-rows x 64
+// B or A, "MN-major" (a row-major [K][N] weight slab; an A stored [k][m]
+// the same way): atoms of 8 k-rows x 64
 // columns = 1 KB, row kr of an atom holds chunk c at chunk c ^ kr. The atom
 // of (k / 8 = kg, n / 64 = nb) is atom nb * KG + kg, so consecutive k groups
 // are SBO = 1 KB apart and consecutive 64-column blocks LBO = KG KB apart.
@@ -208,6 +211,15 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins the compiler's accesses of an accumulator (or register-A operand) to
+// this point, between the asynchronous product's issue and its wait: without
+// it, reads of a finished accumulator can be scheduled above the wait, and
+// ptxas then serializes the products (C7514)
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 128, f32) += A (64 x 16, K-major tile) * B (16 x 128, stored [k][n])
@@ -314,6 +326,58 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
       "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
       "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 128, f32) = A (64 x 16 bf16, registers) * B (16 x 128, stored [k][n])
+// + (accumulate ? d : 0). A is each warp's 16 x 16 slice of the warpgroup's
+// 64 rows (warp w: rows 16w ..) in the mma.sync A-fragment layout (an
+// ldmatrix.x4 of a row-major tile, as load_a<false>). The registers of a
+// are read asynchronously: they stay untouched until the product's group is
+// waited for.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"  // scale-d, scale-a, scale-b, B MN-major
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+      "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = A (64 x 16, stored [k][m]: MN-major, the layout of an
+// MN-major B) * B (16 x 64, stored [n][k]: K-major, the layout of a K-major
+// A) + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_m64n64k16_tn(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 0;\n}\n"  // scale-d, scale-a, scale-b, A MN-major, B K-major
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -11,12 +11,16 @@ backward recomputes ``y``, ``u``, ``e`` and ``alpha`` from ``h`` and gives
 ``Wb`` and ``bb`` summed over the batch.
 
 Two designs share the source. In bf16 with ``H == 128`` (every TitaNet)
-all products run on the tensor cores (``mma.sync`` tiles from
-``csrc/mma_bf16.cuh``), and the backward keeps only ``u`` (f32 and bf16),
-``de`` and ``dz`` (bf16) in device memory: it recomputes the energies
-where it needs ``alpha`` (:func:`bwd_workspace_bytes`). f32, the parity
-surface, runs the FP32-core passes. Both reduce per-block partial sums in
-a fixed order, so repeated calls give the same bits.
+all products run on the tensor cores. The forward is one pass over ``h``
+(``pool_onepass_kernel``: tiles of 128 frames of one utterance across all
+channels, ``u`` and the energies kept on the chip, an online softmax per
+channel; :func:`attentive_pool_fwd_split` is its decomposition in plain
+torch), which is also the backward's first stage; the backward keeps only
+``u`` (f32 and bf16), ``de`` and ``dz`` (bf16) in device memory: it
+recomputes the energies where it needs ``alpha``
+(:func:`bwd_workspace_bytes`). f32, the parity surface, runs the FP32-core
+passes. Both reduce per-block partial sums in a fixed order, so repeated
+calls give the same bits.
 
 :func:`attentive_pool_fused` is the differentiable entry point (a
 ``torch.autograd.Function``). :func:`attentive_pool_fwd_op` registers the
@@ -37,6 +41,12 @@ from titanet_torch.ops.kernels import _build
 
 MAX_SMEM = 232448
 _GRAD_NAMES = ("da", "dc", "dwa", "dba", "dwb", "dbb")
+# the one-pass forward (csrc/attn_pool.cu::pool_onepass_kernel): frames of
+# one utterance a tile, 64 a warpgroup; T split over at most 64 blocks an
+# utterance, aiming at one block an SM of an H100 (132)
+ONEPASS_ROWS = 128
+ONEPASS_BLOCK_TARGET = 132
+ONEPASS_MAX_SPLITS = 64
 
 
 def kernel_supports(n_channels: int, hidden: int, t: int, dtype: torch.dtype) -> bool:
@@ -70,7 +80,17 @@ def bwd_workspace_bytes(b: int, t: int, c: int, hidden: int, elem_size: int) -> 
         sizes += [rows * c * 4, rows * hidden * 4]  # f32 first term of dy, dz
         sizes += [row_blocks * hidden * 4, b * c * 4, row_blocks * c * 4, row_blocks * c * 4]
     sizes += [32 * hidden * c * 4] * 2  # split-K partials of dWb and dWa
+    if elem_size == 2 and hidden == 128:
+        sizes.append(2 * onepass_splits(b) * 4 * b * c * 4)  # the first stage's running states
     return sum(-(-n // 256) * 256 for n in sizes)
+
+
+def onepass_splits(b: int) -> int:
+    """Blocks an utterance of the one-pass forward (each walks every S-th
+    128-frame tile): ``132 // B`` clipped to [1, 64], a mirror of
+    ``csrc/attn_pool.cu::onepass_splits``. A split past the last tile
+    holds empty states."""
+    return max(1, min(ONEPASS_MAX_SPLITS, ONEPASS_BLOCK_TARGET // b))
 
 
 def smem_bytes(hidden: int) -> int:
@@ -90,8 +110,9 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.titanet_attn_pool_bwd_f32, lib.titanet_attn_pool_bwd_bf16):
         fn.argtypes = bwd_args
         fn.restype = ctypes.c_int
-    lib.titanet_attn_pool_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 5
-    lib.titanet_attn_pool_bwd_workspace_bytes.restype = ctypes.c_longlong
+    for fn in (lib.titanet_attn_pool_bwd_workspace_bytes, lib.titanet_attn_pool_fwd_scratch_bytes):
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_longlong
     lib.titanet_attn_pool_error_string.argtypes = [ctypes.c_int]
     lib.titanet_attn_pool_error_string.restype = ctypes.c_char_p
     return lib
@@ -140,6 +161,59 @@ def attentive_pool_fwd_plain(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: b
     return torch.cat([mean, std], dim=-1).to(dt)
 
 
+def attentive_pool_fwd_split(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = False,
+                             rows: int = ONEPASS_ROWS, splits: int | None = None):
+    """Plain torch version of the one-pass kernel's decomposition, for the
+    tests: ``T`` cut into tiles of ``rows`` frames, each tile into two
+    halves (the kernel's two frame halves, 64 frames each); split ``s`` of ``splits``
+    (default :func:`onepass_splits`) walks the tiles ``s, s + splits, ...``
+    and keeps a running softmax state per half (max, sum p, sum p*yf,
+    sum p*yf^2, rescaled by ``exp(m_old - m_new)``); the ``2 * splits``
+    states are merged in the kernel's fixed order (split, then half).
+    Operands and roundings as :func:`attentive_pool_fwd_plain`. Nothing on
+    the main path calls it."""
+    dt = h.dtype
+    b, t, ch = h.shape
+    splits = onepass_splits(b) if splits is None else splits
+    hf = h.float()
+    yf = torch.relu(hf * a + c) if fold else hf
+    y = yf.to(dt).float()
+    u = torch.tanh(y @ wa.float() + ba)
+    e = u.to(dt).float() @ wb.float() + bb
+    half, tiles = rows // 2, -(-t // rows)
+    slots = []
+    for s in range(splits):
+        for w in range(2):
+            m = e.new_full((b, ch), float("-inf"))
+            tot, sy, syy = e.new_zeros(b, ch), e.new_zeros(b, ch), e.new_zeros(b, ch)
+            for tile in range(s, tiles, splits):
+                lo = tile * rows + w * half
+                hi = min(lo + half, t)
+                if lo >= hi:
+                    continue
+                es, ys = e[:, lo:hi], yf[:, lo:hi]
+                mn = torch.maximum(m, es.amax(dim=1))
+                r = torch.exp(m - mn)
+                p = torch.exp(es - mn[:, None])
+                py = p * ys
+                tot = tot * r + p.sum(dim=1)
+                sy = sy * r + py.sum(dim=1)
+                syy = syy * r + (py * ys).sum(dim=1)
+                m = mn
+            slots.append((m, tot, sy, syy))
+    mx = torch.stack([sl[0] for sl in slots]).amax(dim=0)
+    tot_all, sy_all, syy_all = e.new_zeros(b, ch), e.new_zeros(b, ch), e.new_zeros(b, ch)
+    for m, tot, sy, syy in slots:
+        r = torch.exp(m - mx)  # 0 for a state that saw no frame
+        tot_all = tot_all + tot * r
+        sy_all = sy_all + sy * r
+        syy_all = syy_all + syy * r
+    mean = sy_all / tot_all
+    q = syy_all / tot_all
+    std = torch.sqrt(torch.clamp(q - mean * mean, min=eps))
+    return torch.cat([mean, std], dim=-1).to(dt)
+
+
 def attentive_pool_fwd(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = False):
     """``h [B, T, C]`` (f32 or bf16) -> ``[B, 2C]`` in h's dtype.
 
@@ -155,15 +229,17 @@ def attentive_pool_fwd(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = 
     hid = wa.shape[1]
     if ch % 128 or hid % 128 or smem_bytes(hid) > MAX_SMEM:
         raise ValueError(f"kernel takes C % 128 == 0 and H in {{128, 256}}; got C={ch}, H={hid}")
-    u = torch.empty(b * t, hid, device=h.device, dtype=torch.float32)
-    out = torch.empty(b, 2 * ch, device=h.device, dtype=h.dtype)
     lib = _lib()
+    # u [B*T, H] f32 (FP32-core route) or the running states (one-pass route)
+    nbytes = lib.titanet_attn_pool_fwd_scratch_bytes(b, t, ch, hid, h.element_size())
+    scratch = torch.empty(nbytes, device=h.device, dtype=torch.uint8)
+    out = torch.empty(b, 2 * ch, device=h.device, dtype=h.dtype)
     fn = lib.titanet_attn_pool_fwd_f32 if h.dtype == torch.float32 else lib.titanet_attn_pool_fwd_bf16
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         code = fn(
             h.data_ptr(), a.data_ptr(), c.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-            wb.data_ptr(), bb.data_ptr(), u.data_ptr(), out.data_ptr(),
+            wb.data_ptr(), bb.data_ptr(), scratch.data_ptr(), out.data_ptr(),
             b, t, ch, hid, float(eps), int(bool(fold)), stream,
         )
     if code != 0:
