@@ -249,6 +249,33 @@ Phases (any failure exits non-zero and prints no result):
      ``remat=True`` and ``remat_policy="dots_saveable"`` at B=128 and
      B=512: peak memory, ms a step, and the state after 2 captured steps
      equal to the plain model's (within (a)'s spread).
+  20. the data-parallel train step as one CUDA graph on every rank over
+     NCCL (``train_step(..., mesh=)`` and the ``shard_map`` step; runs
+     where two cards or more are visible, else prints ``phase 20 not run:
+     1 card visible, needs 2`` and claims nothing): P = min(4, cards)
+     ranks, one card each (this script with ``--ddp-capture-rank``),
+     phase 19's model and step at 128 rows a rank: (a) under
+     ``NCCL_ALGO=Ring`` 4 captured steps against 4 ``capture=False`` steps
+     from one state on every rank, to the bit (the global-batch step, with
+     SpecAugment + noise on ragged rows, with ``accumulate_steps=2``, and
+     the ``shard_map`` step with SpecAugment), ``collective_stats()``
+     equal, every rank's graphs captured on the same calls over two bucket
+     widths; without the pin, the difference printed; (b) the ranks'
+     captured SGD steps (phase 17's learning rate and 32 rows a rank)
+     against one process on their rows at phase 17's limits; (c) every
+     launch of rows 1-4 inside each rank's graph held on the graph's
+     operands at phase 19 (c)'s limits; (d) graph and eager in turns, 20
+     steps each, at P = 2 and P = cards: each rank's wall, device and
+     NCCL ms, idle share, host launch calls, collectives and bytes a step,
+     capture s and pool MiB; (e) ``python -m titanet_torch train`` with
+     ``mesh.num_devices`` at P = 1, 2 and cards and under the launcher
+     contract at P = cards (2 epochs, 32 rows a rank): whole-loop utt/s,
+     utt/s over the second epoch's steps, its wall; (f) the last of two
+     ranks killed after launching a replay: the other exits non-zero
+     within ``TITANET_DIST_TIMEOUT`` plus a margin. ``python3
+     chip_smoke.py --only ddp-capture`` builds the kernels and runs phase
+     20 alone (for a four-card machine), then the card's name and the
+     last line.
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
@@ -262,7 +289,9 @@ trainer run, ``device_corpus_trainer_launches``: phase 16's
 device-resident ``cli.train``, and ``ddp_trainer_launches``: rank 0's
 three steps in phase 17; rows 1 and 2 add ``graph_launches``: the launches a
 captured call of each path of phase 18 counted; rows 1-4 add
-``train_graph_launches``: a replay of phase 19's train graph), error
+``train_graph_launches``: a replay of phase 19's train graph, and
+``ddp_graph_launches``: rank 0's replay of its graph in phase 20, null on
+one card), error
 vs its plain version, time, plain time, bound and library time, every number
 from this run, and ``timed_by``: ``"profiler"`` (device time of the
 kernel's launches), or ``"events"`` (CUDA events around its wrapper) where
@@ -387,14 +416,19 @@ def device_profile(fn, names=None, iters=10, warmup=3, attempts=3):
         spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                        if e.device_type == DeviceType.CUDA and (names is None or any(n in e.name for n in names)))
         if spans and len(spans) % iters == 0:
-            busy, reach = 0.0, float("-inf")
-            for start, end in spans:
-                busy += max(end, reach) - max(start, reach)
-                reach = max(reach, end)
             total = sum(end - start for start, end in spans)
-            return total / iters / 1e3, busy / iters / 1e3, len(spans) // iters, "profiler"
+            return total / iters / 1e3, union_us(spans) / iters / 1e3, len(spans) // iters, "profiler"
     ms = cuda_ms(fn, iters=iters, warmup=0)
     return ms, ms, None, "events"
+
+
+def union_us(spans) -> float:
+    """The length of the union of sorted ``(start, end)`` spans."""
+    busy, reach = 0.0, float("-inf")
+    for start, end in spans:
+        busy += max(end, reach) - max(start, reach)
+        reach = max(reach, end)
+    return busy
 
 
 def device_ms(fn, names=None, iters=10, warmup=3, attempts=3):
@@ -2279,6 +2313,24 @@ def ddp_steps(work: str, mesh=None, dtype: str = "bfloat16", lr=None, dropout=No
     return out
 
 
+def ddp_readings(a, one) -> dict:
+    """Phase 17's readings of ``a`` vs ``one`` (each with ``losses``,
+    ``grad_norms`` and the parameters ``before``, after the ``first`` step
+    and ``after`` every step): relative loss and grad-norm differences at
+    step 1 and the largest at steps 2..; the update difference over the
+    largest update entry after step 1 and after every step."""
+    rel = lambda k: [abs(x - y) / abs(y) for x, y in zip(a[k], one[k])]  # noqa: E731
+
+    def update(key):
+        diff = max(((x - x0) - (y - x0)).abs().max().item()
+                   for x, y, x0 in zip(a[key], one[key], one["before"]))
+        return diff / max((y - y0).abs().max().item() for y, y0 in zip(one[key], one["before"]))
+
+    loss, norm = rel("losses"), rel("grad_norms")
+    return {"loss_step1": loss[0], "grad_norm_step1": norm[0], "update_step1": update("first"),
+            "loss_later": max(loss[1:]), "grad_norm_later": max(norm[1:]), "update_all": update("after")}
+
+
 def ddp_rank_main(argv) -> int:
     """A rank of phase 17 (a): ``python3 chip_smoke.py --ddp-rank <rank>
     <port> <work dir>``. Joins the group through the launcher contract with
@@ -2293,6 +2345,7 @@ def ddp_rank_main(argv) -> int:
     os.environ.update(TITANET_COORDINATOR=f"127.0.0.1:{port}", TITANET_NUM_PROCESSES=str(DDP_RANKS),
                       TITANET_PROCESS_ID=str(rank), TITANET_DW_BWD="pallas", TITANET_DIST_TIMEOUT="300")
     from titanet_torch.parallel import make_mesh, maybe_initialize_distributed
+    from titanet_torch.parallel.distributed import destroy_process_group
 
     if not maybe_initialize_distributed(verbose=False, backend="gloo"):
         raise RuntimeError("the launcher contract did not start a group")
@@ -2301,7 +2354,7 @@ def ddp_rank_main(argv) -> int:
         torch.save({dt: ddp_steps(work, mesh, dt) for dt in ("bfloat16", "float32")},
                    os.path.join(work, f"rank{rank}.pt"))
     finally:
-        torch.distributed.destroy_process_group()
+        destroy_process_group()
     return 0
 
 
@@ -2316,10 +2369,12 @@ def run_processes(cmds, envs, timeout: float, what: str) -> list:
         for p in procs:
             outs.append(p.communicate(timeout=timeout)[0])
     except subprocess.TimeoutExpired:
+        tails = []
         for p in procs:
             p.kill()
-            p.communicate()
-        raise AssertionError(f"{what}: a process did not finish within {timeout} s")
+            tails.append((p.communicate()[0] or "")[-2000:])
+        raise AssertionError(f"{what}: a process did not finish within {timeout} s; their last output:\n"
+                             + "\n---\n".join(tails))
     for p, out in zip(procs, outs):
         if p.returncode != 0:
             raise AssertionError(f"{what}: exit code {p.returncode}:\n{out[-4000:]}")
@@ -2388,21 +2443,6 @@ def parallel_phase(root: str, tag: str) -> dict:
         if counts != expect:
             raise AssertionError(f"data-parallel {who}: launches {counts}, expected {expect}")
 
-    def readings(a, one) -> dict:
-        """``a`` vs ``one``: relative loss and grad-norm differences at step
-        1 and the largest at steps 2..; the update difference over the
-        largest update entry after step 1 and after every step."""
-        rel = lambda k: [abs(x - y) / abs(y) for x, y in zip(a[k], one[k])]  # noqa: E731
-
-        def update(key):
-            diff = max(((x - x0) - (y - x0)).abs().max().item()
-                       for x, y, x0 in zip(a[key], one[key], one["before"]))
-            return diff / max((y - y0).abs().max().item() for y, y0 in zip(one[key], one["before"]))
-
-        loss, norm = rel("losses"), rel("grad_norms")
-        return {"loss_step1": loss[0], "grad_norm_step1": norm[0], "update_step1": update("first"),
-                "loss_later": max(loss[1:]), "grad_norm_later": max(norm[1:]), "update_all": update("after")}
-
     for dt in ("bfloat16", "float32"):
         a, b = ranks[0][dt], ranks[1][dt]
         if a["checksum"] != b["checksum"] or any(not torch.equal(x, y) for x, y in zip(a["after"], b["after"])):
@@ -2414,7 +2454,8 @@ def parallel_phase(root: str, tag: str) -> dict:
     if again["losses"] != one["losses"] or not all(torch.equal(x, y) for x, y in zip(again["after"], one["after"])):
         raise AssertionError("data-parallel (a): the one process differs from itself under cuDNN's "
                              f"deterministic algorithms ({again['losses']} vs {one['losses']})")
-    f32, idle, spread = readings(ranks[0]["float32"], one), readings(frozen, one), readings(swapped, unswapped)
+    f32, idle, spread = (ddp_readings(ranks[0]["float32"], one), ddp_readings(frozen, one),
+                         ddp_readings(swapped, unswapped))
     b_loss = max(abs(x - y) / abs(y) for x, y in zip(got[0]["losses"], ref["losses"]))
     col = got[0]["collectives"]
     sites = col["by_kind"]["batchnorm"]["count"]
@@ -2863,8 +2904,10 @@ TRAIN_TURNS = 20  # timed steps of each route in (b), graph and eager in turns
 
 
 def train_capture_state(dev, *, head: str = "ce", accumulate: int = 1, batch: int = B, remat: bool = False,
-                        remat_policy=None):
-    """Phase 19's train state, from seeds: weights 0, head 1, generators 0."""
+                        remat_policy=None, axis_name=None, dtype: str = "bfloat16", sgd_lr=None):
+    """Phase 19's train state, from seeds: weights 0, head 1, generators 0
+    (phase 20: ``axis_name`` for the shard_map rule, ``dtype``, and SGD at
+    ``sgd_lr`` in place of Adam when given)."""
     import torch
 
     from titanet_torch.losses.heads import build_head
@@ -2872,11 +2915,15 @@ def train_capture_state(dev, *, head: str = "ce", accumulate: int = 1, batch: in
     from titanet_torch.models.titanet import TitaNet
     from titanet_torch.train import state as ts
 
-    model = common.finish(TitaNet(n_mega_blocks=17, dropout=0.5, dtype=torch.bfloat16, remat=remat,
-                                  remat_policy=remat_policy), dev, torch.Generator().manual_seed(0))
+    model = common.finish(TitaNet(n_mega_blocks=17, dropout=0.5, dtype=getattr(torch, dtype), remat=remat,
+                                  remat_policy=remat_policy, axis_name=axis_name), dev,
+                          torch.Generator().manual_seed(0))
     hd = build_head(head, 192, TRAIN_CLASSES, device=dev, generator=torch.Generator().manual_seed(1))
-    opt = ts.make_optimizer(start_lr=1e-3, scheduler=True, end_lr=1e-5, total_epochs=4, steps_per_epoch=2,
-                            warmup_epochs=1, grad_clip_norm=1.0, accumulate_steps=accumulate)
+    if sgd_lr is not None:
+        opt = ts.make_optimizer(name="sgd", start_lr=sgd_lr, accumulate_steps=accumulate)
+    else:
+        opt = ts.make_optimizer(start_lr=1e-3, scheduler=True, end_lr=1e-5, total_epochs=4, steps_per_epoch=2,
+                                warmup_epochs=1, grad_clip_norm=1.0, accumulate_steps=accumulate)
     return ts.create_train_state(model, hd, opt, seed=0, ema=True)
 
 
@@ -3168,6 +3215,562 @@ def train_capture_phase(tag: str) -> dict:
         os.environ.pop("TITANET_DW_BWD", None)
     print(f"train capture phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
     return {k: 1 if k != "dw_bwd" else 51 for k in counters}
+
+
+# Data-parallel capture phase (20): the data-parallel train step as one CUDA
+# graph on every rank over NCCL (the JAX package's jitted step on an
+# N-device mesh), P = min(4, cards) ranks, one card each, this script
+# re-entered as ``python3 chip_smoke.py --ddp-capture-rank <task> <rank>
+# <world> <port> <dir>``. Phase 19's model and step: TitaNet-S at full width
+# (17 mega-blocks, hidden 256, epilog 1536, embedding 192), bf16, dropout
+# 0.5, CE over TRAIN_CLASSES classes, Adam 1e-3 with clipping at 1.0, a
+# warm-up and a cosine, weight EMA, pallas route, 128 rows a rank x 3 s.
+DDPC_B = B  # rows a rank in (a), (c), (d)
+DDPC_STEPS = 4  # steps of each route in (a)
+DDPC_TURNS = 20  # timed steps of each route in (d)
+# (b) holds the ranks against one process at phase 17's limits, which were
+# set for its SGD steps at 32 rows a rank: the same optimizer, learning
+# rate, dropout and rows a rank here (Adam's first update is the sign of
+# each gradient entry, which rounding flips where an entry is near 0)
+DDPC_CHECK_B = DDP_LOCAL_B
+DDPC_LOST_TIMEOUT = 30  # TITANET_DIST_TIMEOUT of (f), s
+DDPC_LOST_MARGIN = 60  # s past it within which (f)'s surviving ranks must have exited
+# (e): phase 13's trainer config with [chunk], 2 epochs, (d)'s 128 rows a
+# rank (the global batch 128 x P), on 560 speakers x 16 utterances: 6688 to
+# train on, 52 steps an epoch at P = 1 and 13 at P = 4; the second epoch
+# reads every utterance from the ranks' caches
+DDPC_CLI_B, DDPC_CLI_SPEAKERS = DDPC_B, 560
+
+
+def ddpc_batch(size: int, rank: int, dev, seed: int, rows: int, ragged: bool = False):
+    """``rank``'s ``rows`` rows of a global batch of ``size * rows`` rows x
+    3 s (a tone and noise a row, class ids; with ``ragged``, lengths from
+    1 s to 3 s), made from ``seed`` alike on every rank: ``(wav, lengths or
+    None, speakers)`` on ``dev``."""
+    import numpy as np
+    import torch
+
+    n, g = SECONDS * SR, size * rows
+    r = np.random.default_rng(seed)
+    tt = np.arange(n) / SR
+    wav = (r.uniform(0.05, 0.5, (g, 1)) * np.sin(2 * np.pi * r.uniform(100.0, 2000.0, (g, 1)) * tt)
+           + 0.05 * r.standard_normal((g, n))).astype(np.float32)
+    spk, lens = r.integers(0, TRAIN_CLASSES, g), r.integers(SR, n + 1, g).astype(np.int32)
+    part = slice(rank * rows, (rank + 1) * rows)
+    return (torch.from_numpy(wav[part]).to(dev), torch.from_numpy(lens[part]).to(dev) if ragged else None,
+            torch.from_numpy(spk[part]).to(dev))
+
+
+def ddpc_run(mesh, capture, steps: int, inputs, make_kw: dict, step_kw: dict, shard_map: bool = False) -> tuple:
+    """``steps`` steps of ``train_step(..., mesh=mesh)`` (or, with
+    ``shard_map``, of the ``shard_map`` step with SpecAugment) from phase
+    19's state: (:func:`state_record` with each step's loss and grad norm,
+    ``collective_stats()`` of the steps)."""
+    import torch
+
+    from titanet_torch.parallel.distributed import collective_stats, reset_collective_stats
+    from titanet_torch.parallel.shard_map_step import make_shard_map_train_step
+    from titanet_torch.train import state as ts
+
+    st = train_capture_state(mesh.device, axis_name="data" if shard_map else None, **make_kw)
+    wav, lens, spk = inputs
+    if shard_map:
+        step = make_shard_map_train_step(mesh, model=st.model, head=st.head, optimizer=st.optimizer,
+                                         frontend=step_kw["frontend"], augment=(0.35, 1, 0.15, 1, 0.5),
+                                         capture=capture)
+    reset_collective_stats()
+    metrics = {}
+    for i in range(steps):
+        if shard_map:
+            st, m = step(st, wav, lens, spk)
+        else:
+            st, m = ts.train_step(st, wav, lens, spk, mesh=mesh, capture=capture, **step_kw)
+        metrics.update({f"{k}.{i}": m[k].clone() for k in ("loss", "grad_norm") if k in m})
+    torch.cuda.synchronize()
+    rec = state_record(st)
+    rec.update(metrics)
+    return rec, collective_stats()
+
+
+def steps_profile(fn, iters: int = 3) -> dict:
+    """Device ms (all kernels and NCCL's apart), busy ms, wall ms and
+    kernels a call of ``fn`` from one profiler trace of ``iters`` calls
+    after a traced warm-up cycle, without :func:`device_profile`'s retries:
+    every rank makes the same calls. Busy and wall come from the same
+    ``iters`` calls, so ``1 - busy / wall`` is their idle share. NCCL's
+    kernels include the wait for the slowest rank."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    nccl = [e for e in events if "nccl" in e.name.lower()]
+    return {"device_ms": sum(e - s for s, e in spans) / iters / 1e3, "busy_ms": union_us(spans) / iters / 1e3,
+            "wall_ms": wall / iters * 1e3,
+            "nccl_ms": sum(e.time_range.end - e.time_range.start for e in nccl) / iters / 1e3,
+            "kernels": len(spans) / iters, "nccl_kernels": len(nccl) / iters}
+
+
+def ddpc_exact(mesh) -> dict:
+    """Phase 20 (a) under ``NCCL_ALGO=Ring``, the graph rank counts and (c),
+    on this rank: raises on a miss."""
+    import torch
+
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.augment import AugmentConfig
+    from titanet_torch.ops.kernels import dwconv
+    from titanet_torch.ops.kernels.melspec import log_mel_fused
+    from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
+    from titanet_torch.train import capture as cap
+    from titanet_torch.train import state as ts
+
+    dev, frontend = mesh.device, tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    wav, _, spk = ddpc_batch(mesh.size, mesh.rank, dev, 20, DDPC_B)
+    ragged = ddpc_batch(mesh.size, mesh.rank, dev, 20, DDPC_B, ragged=True)[1]
+    out = {"cases": []}
+    for label, kw, lens, make_kw, sm in (
+        ("global-batch step", {}, None, {}, False),
+        ("global-batch step, SpecAugment + noise, ragged", dict(augment=AugmentConfig(noise_prob=0.5)), ragged, {},
+         False),
+        ("global-batch step, accumulate_steps=2", {}, None, dict(accumulate=2), False),
+        ("shard_map step, SpecAugment", {}, None, {}, True),
+    ):
+        step_kw = dict(frontend=frontend, ema_decay=0.99, **kw)
+        ts.GRAPHS = graphs = cap.StepGraphs()
+        try:
+            eager, e_stats = ddpc_run(mesh, False, DDPC_STEPS, (wav, lens, spk), make_kw, step_kw, sm)
+            graph, g_stats = ddpc_run(mesh, None, DDPC_STEPS, (wav, lens, spk), make_kw, step_kw, sm)
+            captures = graphs.captures
+        finally:
+            ts.GRAPHS = cap.GRAPHS
+        n, worst = record_diff(graph, eager)
+        want = 2 if make_kw.get("accumulate") else 1
+        if n or captures != want or g_stats != e_stats:
+            raise AssertionError(f"data-parallel capture (a) {label}, rank {mesh.rank}: {n} tensors differ from "
+                                 f"eager (worst {worst:.3e} / max), {captures} graphs (expected {want}), "
+                                 f"collectives {g_stats} vs eager {e_stats}")
+        out["cases"].append({"label": label, "tensors": len(eager) - 4, "captures": captures, "stats": g_stats,
+                             "counters": eager["counters"],
+                             "losses": [round(eager[f"loss.{i}"].item(), 4) for i in range(DDPC_STEPS)]})
+        del eager, graph
+    # every rank captures on the same calls: two bucket widths in turns
+    ts.GRAPHS = graphs = cap.StepGraphs()
+    try:
+        st = train_capture_state(dev)
+        for i in range(4):
+            ts.train_step(st, wav[:, :(SECONDS * SR, SECONDS * SR * 2 // 3)[i % 2]], None, spk, frontend=frontend,
+                              mesh=mesh)
+        torch.cuda.synchronize()
+        out["width_captures"] = graphs.captures
+        del st
+    finally:
+        ts.GRAPHS = cap.GRAPHS
+    # (c) every launch of rows 1-4 inside this rank's graph, on its operands
+    counters = {"logmel": log_mel_fused, "pool_fwd": attentive_pool_fwd, "pool_bwd": attentive_pool_bwd,
+                "dw_bwd": dwconv.dw_bwd}
+    ts.GRAPHS = graphs = cap.StepGraphs()
+    try:
+        st = train_capture_state(dev)
+        with graph_operands() as ops:
+            ts.train_step(st, wav, None, spk, frontend=frontend, ema_decay=0.99, mesh=mesh)
+        for c in counters.values():
+            c.launches = 0
+        ts.train_step(st, wav, None, spk, frontend=frontend, ema_decay=0.99, mesh=mesh)
+        torch.cuda.synchronize()
+        out["launches"] = {k: c.launches for k, c in counters.items()}
+        if out["launches"] != {"logmel": 1, "pool_fwd": 1, "pool_bwd": 1, "dw_bwd": 51} or graphs.captures != 1:
+            raise AssertionError(f"data-parallel capture (c) rank {mesh.rank}: launches a replay "
+                                 f"{out['launches']}, {graphs.captures} captures")
+        out["held"] = hold_train_graph_kernels(ops, f"data-parallel capture (c) rank {mesh.rank}")
+        del ops, st
+    finally:
+        ts.GRAPHS = cap.GRAPHS
+    return out
+
+
+def ddpc_timing(mesh, check: bool) -> dict:
+    """Phase 20 (a) without the pin (the difference, printed), (d) graph and
+    eager in turns and, with ``check``, (b)'s captured SGD steps, on this
+    rank."""
+    import torch
+
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.parallel.distributed import collective_stats, reset_collective_stats
+    from titanet_torch.train import capture as cap
+    from titanet_torch.train import state as ts
+
+    dev, frontend = mesh.device, tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    wav, _, spk = ddpc_batch(mesh.size, mesh.rank, dev, 20, DDPC_B)
+    step_kw = dict(frontend=frontend, ema_decay=0.99)
+    out = {}
+    ts.GRAPHS = graphs = cap.StepGraphs()
+    try:
+        eager, _ = ddpc_run(mesh, False, DDPC_STEPS, (wav, None, spk), {}, step_kw)
+        graph, _ = ddpc_run(mesh, None, DDPC_STEPS, (wav, None, spk), {}, step_kw)
+        out["unpinned"] = record_diff(graph, eager)
+        del eager, graph
+    finally:
+        ts.GRAPHS = cap.GRAPHS
+    ts.GRAPHS = graphs = cap.StepGraphs()
+    try:
+        st = train_capture_state(dev)
+        run = lambda c: ts.train_step(st, wav, None, spk, mesh=mesh, capture=c, **step_kw)  # noqa: E731
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(None)
+        torch.cuda.synchronize()
+        out["first_s"] = time.perf_counter() - t0
+        out["capture_s"], out["pool_mib"] = graphs.graphs()[0].capture_s, graphs.pool_bytes() / 2**20
+        times = {"graph": [], "eager": []}
+        for i in range(DDPC_TURNS):
+            for route in (("graph", "eager") if i % 2 == 0 else ("eager", "graph")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(None if route == "graph" else False)
+                torch.cuda.synchronize()
+                times[route].append((time.perf_counter() - t0) * 1e3)
+        out["routes"] = {}
+        for route, c in (("graph", None), ("eager", False)):
+            r = {"median": statistics.median(times[route]), "min": min(times[route]), "max": max(times[route])}
+            r.update(steps_profile(lambda: run(c)))
+            r["launch_calls"] = host_launches(lambda: run(c), iters=2)
+            reset_collective_stats()
+            run(c)
+            torch.cuda.synchronize()
+            r["collectives"] = collective_stats()
+            out["routes"][route] = r
+        del st, run
+    finally:
+        ts.GRAPHS = cap.GRAPHS
+    if check:
+        # (b) the captured SGD steps of phase 17's limits, bf16 and f32
+        cw, _, cspk = ddpc_batch(mesh.size, mesh.rank, dev, 21, DDPC_CHECK_B)
+        out["check"] = {dt: ddpc_check_steps(cw, cspk, frontend, dt, mesh) for dt in ("bfloat16", "float32")}
+    return out
+
+
+def ddpc_check_steps(wav, spk, frontend, dtype: str, mesh=None, lr=DDP_LR) -> dict:
+    """(b): DDP_STEPS captured SGD steps (phase 17's learning rate, dropout
+    0.5) from phase 19's weights in ``dtype`` on ``wav``'s rows, under
+    ``mesh`` or in one process: losses, grad norms, the parameters before,
+    after the first step and after every step (CPU), and their checksum."""
+    import torch
+
+    from titanet_torch.train import capture as cap
+    from titanet_torch.train import state as ts
+
+    ts.GRAPHS = cap.StepGraphs()
+    try:
+        st = train_capture_state(wav.device, dtype=dtype, sgd_lr=lr)
+        cpu = lambda: [p.detach().cpu().clone() for p in st.params()]  # noqa: E731
+        out = {"before": cpu(), "losses": [], "grad_norms": []}
+        for i in range(DDP_STEPS):
+            st, m = ts.train_step(st, wav, None, spk, frontend=frontend, mesh=mesh)
+            out["losses"].append(m["loss"].item())
+            out["grad_norms"].append(m["grad_norm"].item())
+            if i == 0:
+                out["first"] = cpu()
+        out["after"] = cpu()
+        out["checksum"] = sum(float(p.double().abs().sum()) for p in out["after"])
+        del st
+    finally:
+        ts.GRAPHS = cap.GRAPHS
+    return out
+
+
+def ddpc_lost(mesh) -> dict:
+    """Phase 20 (f) on this rank: captured steps until the last rank kills
+    itself right after launching its fourth replay; the other ranks must
+    fail (the replay watchdog, or c10d), never finish."""
+    import signal
+
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.train import state as ts
+
+    frontend = tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    wav, _, spk = ddpc_batch(mesh.size, mesh.rank, mesh.device, 22, DDPC_CHECK_B)
+    st = train_capture_state(mesh.device)
+    for i in range(100):
+        st, m = ts.train_step(st, wav, None, spk, frontend=frontend, mesh=mesh)
+        if i == 4 and mesh.rank == mesh.size - 1:
+            print(f"rank {mesh.rank}: killed after launching replay 4", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        m["loss"].item()
+    raise AssertionError(f"rank {mesh.rank} ran 100 steps with a rank lost")
+
+
+def ddp_capture_rank_main(argv) -> int:
+    """A rank of phase 20: ``python3 chip_smoke.py --ddp-capture-rank <task>
+    <rank> <world> <port> <dir>``. Joins the group through the launcher
+    contract (NCCL, one card a rank), runs ``task`` (``exact``,
+    ``timing``, ``timing-check``, ``lost``) and saves its results to
+    ``<dir>/<task>-rank<rank>.pt``."""
+    import torch
+
+    task, rank, world, port, work = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    os.environ.update(TITANET_COORDINATOR=f"127.0.0.1:{port}", TITANET_NUM_PROCESSES=str(world),
+                      TITANET_PROCESS_ID=str(rank), TITANET_DW_BWD="pallas")
+    from titanet_torch.parallel import make_mesh, maybe_initialize_distributed
+    from titanet_torch.parallel.distributed import destroy_process_group
+
+    if not maybe_initialize_distributed(verbose=False):
+        raise RuntimeError("the launcher contract did not start a group")
+    try:
+        mesh = make_mesh(world)
+        fn = {"exact": ddpc_exact, "timing": lambda m: ddpc_timing(m, False),
+              "timing-check": lambda m: ddpc_timing(m, True), "lost": ddpc_lost}[task]
+        torch.save(fn(mesh), os.path.join(work, f"{task}-rank{rank}.pt"))
+    finally:
+        destroy_process_group()
+    return 0
+
+
+def ddpc_ranks(task: str, world: int, work: str, timeout: float, **env) -> list:
+    """Run ``task`` on ``world`` NCCL ranks (``env``: more environment for
+    each); returns each rank's results."""
+    import torch
+
+    from titanet_torch.parallel.distributed import free_port
+
+    port = free_port()
+    run_processes([[sys.executable, os.path.abspath(__file__), "--ddp-capture-rank", task, str(r), str(world),
+                    str(port), work] for r in range(world)], [dict(os.environ, **env)] * world, timeout,
+                  f"data-parallel capture {task} ({world} ranks)")
+    return [torch.load(os.path.join(work, f"{task}-rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def ddpc_cli(root: str, runs: list, tag: str) -> None:
+    """Phase 20 (e): ``cli.train`` as users run it, ``mesh.num_devices: P``
+    for each P of ``runs`` (``("mesh", P)``) or P processes under the
+    launcher contract (``("contract", P)``), 2 epochs each; prints whole-loop
+    utt/s, utt/s over the second epoch's steps and its wall."""
+    import math
+
+    from titanet_torch.parallel.distributed import free_port
+
+    for how, p in runs:
+        d = trainer_config(root, f"cli-{how}-{p}", 2, ("chunk",)).to_dict()
+        d["dataset"]["synthetic_speakers"] = DDPC_CLI_SPEAKERS
+        # mesh.num_devices splits training.batch_size over the ranks; under
+        # the launcher contract each rank reads training.batch_size rows
+        d["training"]["batch_size"] = DDPC_CLI_B * (p if how == "mesh" else 1)
+        d["mesh"] = {"num_devices": p}
+        path = os.path.join(root, f"cli-{how}-{p}.json")
+        with open(path, "w") as f:
+            json.dump(d, f)
+        code = ("import json, sys, time; from titanet_torch import cli; from titanet_torch.train.capture import GRAPHS; "
+                "t0 = time.perf_counter(); cli.main(['train', '-p'] + sys.argv[1:]); "
+                "print('WALL', json.dumps({'wall': time.perf_counter() - t0, 'captures': GRAPHS.captures}))")
+        # a lost rank fails the others within two minutes, not the default ten
+        env = dict(os.environ, TITANET_DW_BWD="pallas", TITANET_DIST_TIMEOUT="120")
+        if how == "contract":
+            port = free_port()
+            envs = [dict(env, TITANET_COORDINATOR=f"127.0.0.1:{port}", TITANET_NUM_PROCESSES=str(p),
+                         TITANET_PROCESS_ID=str(r)) for r in range(p)]
+        else:
+            envs = [env]
+        outs = run_processes([[sys.executable, "-c", code, path]] * len(envs), envs, 300, f"phase 20 (e) {how} {p}")
+        got = json.loads(next(ln for ln in outs[0].splitlines() if ln.startswith("WALL "))[5:])
+        if got["captures"] < 1:
+            raise AssertionError(f"phase 20 (e) {how} {p}: rank 0 captured no graph")
+        rec = read_jsonl(os.path.join(root, d["training"]["run_name"], "metrics.jsonl"))
+        tr = [epoch_record(rec, e, "train/") for e in (1, 2)]
+        steps = round(tr[1]["train/total_model_time"] / tr[1]["train/avg_model_time"])
+        if not all(math.isfinite(r["train/avg_loss"]) for r in tr):
+            raise AssertionError(f"phase 20 (e) {how} {p}: epoch losses {[r['train/avg_loss'] for r in tr]}")
+        ts_ = [r["ts"] for r in rec if "train/avg_loss" in r]
+        utt = steps * DDPC_CLI_B * p
+        step_s = tr[1]["train/total_data_time"] + tr[1]["train/total_model_time"]
+        print(f"data-parallel capture (e) python -m titanet_torch train, TitaNet-S bf16, [chunk], {DDPC_CLI_B} rows a "
+              f"rank, {DDPC_CLI_SPEAKERS} speakers x {TRAIN_UTTERANCES} utterances: {how} P={p}: whole loop "
+              f"{2 * utt / got['wall']:.1f} utt/s ({got['wall']:.2f} s, 2 epochs of {steps} steps of {DDPC_CLI_B * p}; "
+              f"the other ranks' start, synthesis, validation and verification included); epoch 2 over its steps "
+              f"{utt / step_s:.1f} utt/s (StepTimer data {tr[1]['train/total_data_time']:.3f} s / model "
+              f"{tr[1]['train/total_model_time']:.3f} s), epoch 2 wall {ts_[1] - ts_[0]:.2f} s; rank 0 captured "
+              f"{got['captures']} graphs; train/avg_loss {tr[1]['train/avg_loss']:.4f} {tag}", flush=True)
+
+
+def ddp_capture_phase(tag: str):
+    """Phase 20; raises on any failed check. On one card prints that it did
+    not run and returns None; else returns rank 0's launches of rows 1-4
+    inside its graph a step (``ddp_graph_launches``)."""
+    import tempfile
+
+    import torch
+
+    from titanet_torch.ops import frontend as tf
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"phase 20 not run: {cards} card visible, needs 2")
+        return None
+    t_phase = time.perf_counter()
+    world = min(4, cards)
+    for q in (["--query-gpu=name,power.limit", "--format=csv,noheader"], ["topo", "-m"]):
+        print(subprocess.run(["nvidia-smi", *q], capture_output=True, text=True, timeout=60).stdout.rstrip())
+    work = tempfile.mkdtemp(prefix="titanet_torch_ddpc_")
+    try:
+        # (a) pinned, the graphs of every rank, (c)
+        exact = ddpc_ranks("exact", world, work, 900, NCCL_ALGO="Ring")
+        for i, case in enumerate(exact[0]["cases"]):
+            print(f"data-parallel capture (a) {world} ranks x {DDPC_B} rows, NCCL_ALGO=Ring, {case['label']}: "
+                  f"{DDPC_STEPS} captured steps vs {DDPC_STEPS} eager from one state on every rank: equal to the bit "
+                  f"({case['tensors']} tensors and metrics, counters {case['counters']}, the generators' states); "
+                  f"{case['captures']} graph(s) on each rank; collectives equal "
+                  f"({case['stats']['count']} all-reduces, {case['stats']['bytes']} B over the steps); losses "
+                  f"{case['losses']} {tag}")
+        widths = [r["width_captures"] for r in exact]
+        if widths != [2] * world:
+            raise AssertionError(f"data-parallel capture: graphs captured over two bucket widths {widths}")
+        print(f"data-parallel capture: two bucket widths in turns, graphs captured on each rank {widths} {tag}")
+        for r, res in enumerate(exact):
+            print(f"data-parallel capture (c) rank {r}: launches a replay {res['launches']}; {res['held']} {tag}")
+
+        # (d) at P = world and P = 2, NCCL's own choice; (b) at P = world
+        timing = {world: ddpc_ranks("timing-check", world, work, 900)}
+        if world != 2:
+            timing[2] = ddpc_ranks("timing", 2, work, 600)
+        for p in sorted(timing):
+            for r, res in enumerate(timing[p]):
+                n, worst = res["unpinned"]
+                parts = []
+                for route in ("graph", "eager"):
+                    x = res["routes"][route]
+                    col = x["collectives"]
+                    parts.append(
+                        f"{route}: median {x['median']:.3f} ms (min {x['min']:.3f}, max {x['max']:.3f}), "
+                        f"{DDPC_B * p / x['median'] * 1e3:.1f} utt/s over the {p} ranks, device {x['device_ms']:.3f} ms "
+                        f"(NCCL {x['nccl_ms']:.3f} in {x['nccl_kernels']:.0f} kernels, their wait for the other ranks "
+                        f"included; the rest {x['device_ms'] - x['nccl_ms']:.3f}), idle share "
+                        f"{1 - x['busy_ms'] / x['wall_ms']:.3f} over the {x['wall_ms']:.3f} ms a step of the profiled "
+                        f"steps (NCCL's waits busy), {x['kernels']:.0f} kernels a step, "
+                        f"host launch calls "
+                        f"a step {x['launch_calls']}, collectives a step {col['count']} ({col['bytes']} B)")
+                print(f"data-parallel capture (d) P={p} rank {r}, TitaNet-S bf16 {DDPC_B} rows a rank x {SECONDS} s, "
+                      f"pallas, Adam + clip + cosine + EMA: first call {res['first_s']:.3f} s, capture "
+                      f"{res['capture_s']:.3f} s, pool {res['pool_mib']:.1f} MiB; {DDPC_TURNS} steps each, in turns: "
+                      f"{' | '.join(parts)}; without NCCL_ALGO=Ring, {DDPC_STEPS} captured steps vs eager: "
+                      f"{'equal to the bit' if n == 0 else f'{n} tensors differ, worst {worst:.3e} / max'} {tag}")
+
+        # (b) the ranks' captured SGD steps against one process on their rows
+        ranks = [res["check"] for res in timing[world]]
+        dev = torch.device("cuda")
+        frontend = tf.FrontendConfig.from_ms(use_pallas_fused=True)
+        cw, _, cspk = ddpc_batch(1, 0, dev, 21, world * DDPC_CHECK_B)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        os.environ["TITANET_DW_BWD"] = "pallas"
+        try:
+            one = {dt: ddpc_check_steps(cw, cspk, frontend, dt) for dt in ("bfloat16", "float32")}
+            frozen = ddpc_check_steps(cw, cspk, frontend, "float32", lr=0.0)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+            os.environ.pop("TITANET_DW_BWD", None)
+        del cw, cspk
+        for dt in ("bfloat16", "float32"):
+            a = ranks[0][dt]
+            for r, b in enumerate((res[dt] for res in ranks[1:]), 1):
+                if a["checksum"] != b["checksum"] or not all(torch.equal(x, y) for x, y in zip(a["after"], b["after"])):
+                    raise AssertionError(f"data-parallel capture (b) {dt}: rank {r}'s parameters differ from rank 0's")
+            if not all(torch.equal(x, y) for x, y in zip(a["before"], one[dt]["before"])):
+                raise AssertionError(f"data-parallel capture (b) {dt}: the ranks did not start from the one "
+                                     "process's weights")
+        fmt = lambda d: ", ".join(f"{k} {v:.3e}" for k, v in d.items())  # noqa: E731
+        f32, idle = ddp_readings(ranks[0]["float32"], one["float32"]), ddp_readings(frozen, one["float32"])
+        b_loss = max(abs(x - y) / abs(y) for x, y in zip(ranks[0]["bfloat16"]["losses"], one["bfloat16"]["losses"]))
+        print(f"data-parallel capture (b) {world} ranks x {DDPC_CHECK_B} rows vs one process x "
+              f"{world * DDPC_CHECK_B} rows, both captured, TitaNet-S 17 blocks, dropout 0.5, SGD {DDP_LR}, "
+              f"{DDP_STEPS} steps, same start weights, cuDNN deterministic: bf16 losses rank 0 "
+              f"{ranks[0]['bfloat16']['losses']} vs one process {one['bfloat16']['losses']} (largest relative "
+              f"difference {b_loss:.3e}, limit {DDP_BF16_LOSS_RTOL}); f32 the ranks read {fmt(f32)}; limits "
+              f"{fmt(DDP_F32_LIMITS)}; a rank that never updates (the one process at learning rate 0) reads "
+              f"{fmt(idle)}; the ranks' parameters equal to the bit {tag}")
+        blind = [k for k in ("update_step1", "loss_later", "grad_norm_later", "update_all")
+                 if DDP_F32_LIMITS[k] >= idle[k]]
+        if blind:
+            raise AssertionError(f"data-parallel capture (b): the limits {blind} would pass a rank that never "
+                                 f"updates ({fmt(idle)})")
+        over = [k for k, v in f32.items() if not v <= DDP_F32_LIMITS[k]]
+        if over or not b_loss <= DDP_BF16_LOSS_RTOL:
+            raise AssertionError(f"data-parallel capture (b): the ranks' steps differ from the one process's beyond "
+                                 f"the limits (f32 {over}, bf16 loss {b_loss:.3e})")
+        del one, frozen, ranks
+        torch.cuda.empty_cache()
+
+        # (f) a lost rank: the others fail within the timeout
+        ddpc_lost_check(work, tag)
+
+        # (e) the trainer as users run it
+        ddpc_cli(work, [("mesh", 1), ("mesh", 2)] + ([("mesh", world)] if world != 2 else [])
+                 + [("contract", world)], tag)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"data-parallel capture phase: {time.perf_counter() - t_phase:.1f} s wall {tag}")
+    return exact[0]["launches"]
+
+
+def ddpc_lost_check(work: str, tag: str, world: int = 2) -> None:
+    """Phase 20 (f): ``world`` ranks of captured steps, the last killed
+    after launching a replay; every other rank must exit non-zero within
+    ``DDPC_LOST_TIMEOUT`` (its ``TITANET_DIST_TIMEOUT``) plus
+    ``DDPC_LOST_MARGIN`` seconds of the kill."""
+    from titanet_torch.parallel.distributed import free_port
+
+    port = free_port()
+    env = dict(os.environ, TITANET_DIST_TIMEOUT=str(DDPC_LOST_TIMEOUT))
+    # each rank writes to a file: a pipe nobody drains could block a rank's
+    # last words (c10d's reports are long) before it exits
+    logs = [os.path.join(work, f"lost-rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-capture-rank", "lost", str(r), str(world),
+                 str(port), work], env=env, stdout=log, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    timed_out = False
+    try:
+        procs[-1].wait(timeout=600)
+        t_kill = time.perf_counter()
+        for p in procs[:-1]:
+            p.wait(timeout=max(t_kill + DDPC_LOST_TIMEOUT + DDPC_LOST_MARGIN - time.perf_counter(), 0.1))
+        waited = time.perf_counter() - t_kill
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for path in logs:
+        with open(path) as f:
+            outs.append(f.read())
+    killed = outs.pop()
+    if timed_out:
+        raise AssertionError(f"data-parallel capture (f): a rank outlived its lost peer by more than "
+                             f"{DDPC_LOST_TIMEOUT + DDPC_LOST_MARGIN} s:\n" + "\n".join(o[-3000:] for o in outs + [killed]))
+    if procs[-1].returncode != -9 or "killed after launching replay 4" not in killed:
+        raise AssertionError(f"data-parallel capture (f): the last rank exited {procs[-1].returncode}:\n{killed[-3000:]}")
+    codes = [p.returncode for p in procs[:-1]]
+    if any(c == 0 for c in codes):
+        raise AssertionError(f"data-parallel capture (f): a surviving rank exited 0: {codes}")
+    why = ["replay watchdog" if "a rank is lost" in o else "c10d" for o in outs]
+    print(f"data-parallel capture (f) {world} ranks, the last killed after launching its fourth replay: the others "
+          f"exited {codes} within {waited:.1f} s of the kill (TITANET_DIST_TIMEOUT {DDPC_LOST_TIMEOUT} s, margin "
+          f"{DDPC_LOST_MARGIN} s), failed by {why} {tag}")
 
 
 def pool_phase(rng, t_frames: int, dev, report: dict, tag: str):
@@ -3905,6 +4508,10 @@ def main() -> int:
     # 19. the train step as one CUDA graph, and remat
     train_graph_launches = train_capture_phase(tag)
 
+    # 20. the data-parallel train step as one CUDA graph on every rank over NCCL (two cards or more)
+    torch.cuda.empty_cache()
+    ddp_graph_launches = ddp_capture_phase(tag) or {}
+
     # the f32 log-mel routes' launches on their paths: the train step's
     # (its frontend is "highest"), the f32 fused serving call's
     f32_launches = {"logmel": train_launches["pallas"]["logmel_dmma"],
@@ -3950,6 +4557,7 @@ def main() -> int:
             "ddp_trainer_launches": ddp_launches[zoo_key] if zoo_key else None,
             "graph_launches": graph_launches.get(zoo_key, {}),
             "train_graph_launches": train_graph_launches.get(zoo_key),
+            "ddp_graph_launches": ddp_graph_launches.get(zoo_key),
             **extra,
         })
     print(json.dumps({"kernels": kernels}))
@@ -3960,7 +4568,42 @@ def main() -> int:
     return 0
 
 
+def main_only_ddp_capture() -> int:
+    """``--only ddp-capture``: phase 1's build, then phase 20 alone (a
+    four-card call spends its time there), the card's name and the last
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from titanet_torch.ops.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = card()
+    tag = f"| card: {name}"
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built)} {tag}")
+    launches = ddp_capture_phase(tag)
+    if launches is not None:
+        print(json.dumps({"ddp_graph_launches": launches}))
+    print(name)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ddp-capture-rank"]:
+        sys.exit(ddp_capture_rank_main(sys.argv[2:]))
+    if sys.argv[1:] == ["--only", "ddp-capture"]:
+        sys.exit(main_only_ddp_capture())
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only ddp-capture)", file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

@@ -1212,3 +1212,126 @@ def test_captured_remat_train_step_equals_the_plain_one(cuda_device, policy):
         recs.append(_train_record(st))
     assert recs[0][1] == recs[1][1]
     assert all(torch.equal(x, y) for x, y in zip(recs[0][0], recs[1][0]))
+
+
+@pytest.mark.cuda
+def test_captured_shard_map_step_equals_eager_to_the_bit(cuda_device):
+    """The ``shard_map`` step on one card (a mesh of size 1): four steps
+    through its graph against four ``capture=False`` steps, dropout and
+    SpecAugment drawn from the step's rank generators, reseeded before each
+    call (a replay reads a registered generator's seed and offset, so it
+    draws what a fresh generator of that step draws)."""
+    from titanet_torch.parallel import make_mesh
+    from titanet_torch.parallel.shard_map_step import make_shard_map_train_step
+    from titanet_torch.train import capture as cap
+    from titanet_torch.train import state as ts
+
+    fe = tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    wav, _ = _capture_batch(cuda_device, b=4, t=24000)
+    spk = torch.tensor([0, 3, 6, 1], device=cuda_device)
+    mesh = make_mesh(None, device=cuda_device)
+    assert mesh.size == 1
+    out, graphs = [], cap.StepGraphs()
+    saved, ts.GRAPHS = ts.GRAPHS, graphs
+    try:
+        for capture in (None, False):
+            st = _train_state(cuda_device)
+            step = make_shard_map_train_step(mesh, model=st.model, head=st.head, optimizer=st.optimizer, frontend=fe,
+                                             augment=(0.35, 1, 0.15, 1, 0.5), capture=capture)
+            losses = [step(st, wav, None, spk)[1]["loss"] for _ in range(4)]
+            out.append((_train_record(st), losses))
+    finally:
+        ts.GRAPHS = saved
+    (a, ca), la = out[0]
+    (b, cb), lb = out[1]
+    assert ca == cb == (4, 4, 0) and graphs.captures == 1
+    assert all(torch.equal(x, y) for x, y in zip(a + la, b + lb))
+
+
+# ---------------------------------------------------------------- NCCL ranks
+# The data-parallel steps as CUDA graphs on NCCL ranks, one card each
+# (tests/torch_parallel_worker.py tasks nccl_capture and nccl_lost): they
+# need two cards and skip on one. The spawning helpers are imported from
+# this directory by their own name (pytest puts it on the path), since a
+# package named ``tests`` elsewhere on the path can shadow this one.
+
+
+@pytest.fixture(scope="module")
+def nccl_ranks(tmp_path_factory):
+    """Two NCCL ranks' results of the worker's ``nccl_capture`` task, with
+    ``NCCL_ALGO=Ring`` in both (an eager and a captured all-reduce then sum
+    in one order)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL refuses two ranks on one)")
+    from torch_parallel_helpers import run_worker_ranks
+
+    rng = np.random.default_rng(20)
+    t = 24000
+    tt = np.arange(t) / 16000
+    wav = (rng.uniform(0.05, 0.5, (8, 1)) * np.sin(2 * np.pi * rng.uniform(100, 2000, (8, 1)) * tt)
+           + 0.05 * rng.standard_normal((8, t))).astype(np.float32)
+    inputs = {"wav": wav, "lengths": np.array([t, t - 5000, 9000, t, 12000, t, t - 3000, 16000], np.int32),
+              "speakers": np.array([0, 3, 6, 1, 2, 5, 4, 7], np.int64), "widths": (t, 16000)}
+    return run_worker_ranks("nccl_capture", inputs, tmp_path_factory.mktemp("nccl"), NCCL_ALGO="Ring")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["global", "accumulate", "shard_map"])
+def test_nccl_captured_steps_equal_eager_to_the_bit(nccl_ranks, case):
+    """Four steps of each rule through its graph (collectives inside)
+    against four ``capture=False`` steps from one state: losses, every
+    parameter, running statistic, Adam moment, weight EMA, the counters and
+    each generator's state; one graph (two under accumulation)."""
+    for r in nccl_ranks:
+        eager, graph = r[case]["eager"], r[case]["graph"]
+        assert r[case]["captures"] == (2 if case == "accumulate" else 1)
+        assert all(torch.equal(a, b) for a, b in zip(eager["losses"], graph["losses"]))
+        assert eager["state"].keys() == graph["state"].keys()
+        for k, v in eager["state"].items():
+            assert (v == graph["state"][k]) if not isinstance(v, torch.Tensor) else torch.equal(v, graph["state"][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["global", "accumulate", "shard_map"])
+def test_nccl_collective_stats_count_replays_as_eager_steps(nccl_ranks, case):
+    for r in nccl_ranks:
+        eager, graph = r[case]["eager"]["stats"], r[case]["graph"]["stats"]
+        assert graph == eager and eager["count"] > 0
+
+
+@pytest.mark.cuda
+def test_nccl_ranks_capture_on_the_same_calls(nccl_ranks):
+    """Two bucket widths in turns: two graphs on every rank."""
+    assert [r["widths_captures"] for r in nccl_ranks] == [2] * len(nccl_ranks)
+
+
+@pytest.mark.cuda
+def test_nccl_lost_rank_fails_the_others_within_the_timeout(tmp_path):
+    """The last rank kills itself after launching a replay: the other
+    rank's replayed collectives never finish, and it exits non-zero within
+    ``TITANET_DIST_TIMEOUT`` plus a margin, never hangs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL refuses two ranks on one)")
+    import time
+
+    from torch_parallel_helpers import start_worker_ranks
+
+    rng = np.random.default_rng(21)
+    inputs = {"wav": (rng.standard_normal((8, 24000)) * 0.1).astype(np.float32),
+              "speakers": np.arange(8, dtype=np.int64) % 7, "steps": 50, "kill_after": 4}
+    timeout = 20
+    procs, _ = start_worker_ranks("nccl_lost", inputs, tmp_path, TITANET_DIST_TIMEOUT=timeout)
+    survivor, killed = procs
+    margin = 60
+    try:
+        killed.communicate(timeout=240)
+        t_kill = time.monotonic()
+        survivor_out = survivor.communicate(timeout=timeout + margin)[0]
+        waited = time.monotonic() - t_kill
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert killed.returncode == -9
+    assert survivor.returncode != 0 and waited < timeout + margin, survivor_out[-2000:]

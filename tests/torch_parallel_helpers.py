@@ -39,17 +39,25 @@ def communicate(procs, timeout: float = TIMEOUT_S):
     return [(p.returncode, out) for out, p in outs]
 
 
-def run_worker_ranks(task: str, inputs: dict, tmp_path, world: int = 2):
-    """Run ``task`` of the worker on ``world`` ranks; returns each rank's
-    saved results (asserts every rank exited 0)."""
+def start_worker_ranks(task: str, inputs: dict, tmp_path, world: int = 2, **env):
+    """Start ``task`` of the worker on ``world`` ranks (``env``: more
+    environment for each); returns the processes and their output files."""
     inp = tmp_path / f"{task}_inputs.pkl"
     with open(inp, "wb") as f:
         pickle.dump(inputs, f)
     port = free_port()
     outs = [tmp_path / f"{task}_rank{r}.pt" for r in range(world)]
     procs = [subprocess.Popen([sys.executable, WORKER, task, str(r), str(world), str(port), str(inp), str(outs[r])],
-                              cwd=REPO, env=rank_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                              cwd=REPO, env=rank_env(**env), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
              for r in range(world)]
+    return procs, outs
+
+
+def run_worker_ranks(task: str, inputs: dict, tmp_path, world: int = 2, **env):
+    """Run ``task`` of the worker on ``world`` ranks; returns each rank's
+    saved results (asserts every rank exited 0)."""
+    procs, outs = start_worker_ranks(task, inputs, tmp_path, world, **env)
     for rc, log in communicate(procs):
         assert rc == 0, log[-4000:]
     return [torch.load(o, weights_only=False) for o in outs]

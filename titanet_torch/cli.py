@@ -544,8 +544,6 @@ def _local_group(rank: int, world: int, port: int, dev: torch.device):
     """Join the local ranks' group through the launcher contract (NCCL on
     the card, gloo on the CPU), and leave it and the contract's variables
     on the way out."""
-    import torch.distributed as dist
-
     contract = dict(TITANET_COORDINATOR=f"127.0.0.1:{port}", TITANET_NUM_PROCESSES=str(world),
                     TITANET_PROCESS_ID=str(rank))
     saved = {k: os.environ.get(k) for k in contract}
@@ -555,7 +553,7 @@ def _local_group(rank: int, world: int, port: int, dev: torch.device):
         try:
             yield
         finally:
-            dist.destroy_process_group()
+            pd.destroy_process_group()
     finally:
         for k, v in saved.items():
             if v is None:

@@ -145,7 +145,9 @@ class BatchNorm(nn.Module):
             mean = (xf * m).sum(dim=axes) / torch.clamp(n, min=1.0)
             m2 = ((xf - mean) ** 2 * m).sum(dim=axes)
         else:
-            n = torch.tensor(float(xf[..., 0].numel()), device=xf.device)
+            # made on the device: a host tensor's copy would be a pageable
+            # host-to-device copy at every site, which a captured step refuses
+            n = xf.new_full((), float(xf[..., 0].numel()))
             mean = xf.mean(dim=axes)
             m2 = ((xf - mean) ** 2).sum(dim=axes)
         c = mean.shape[0]

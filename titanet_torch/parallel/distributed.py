@@ -27,12 +27,31 @@ a lost rank fails the others instead of hanging them.
 Every all-reduce of the port goes through :func:`all_reduce_` (the
 differentiable :func:`all_reduce` and :func:`all_gather_rows` too), which
 counts the calls and bytes (:func:`collective_stats`).
+
+On an NCCL group the data-parallel train steps run as one CUDA graph a
+step shape (``titanet_torch.train.capture``), with every collective of the
+step inside: BatchNorm's forward and backward all-reduces, the GE2E row
+gathers, the gradient bucket and the loss mean. A replay runs no Python,
+so the capture records the change a step makes to the counts and every
+replay adds it (:func:`stats_since`, :func:`add_stats`): the counts read
+the same after N captured steps as after N eager ones. A graph must not
+outlive the communicators it holds: every rank leaves its group through
+:func:`destroy_process_group`, which drops the graphs that hold the
+group's collectives (:func:`hold_collectives`) before it destroys the
+group; at exit the same drop runs by itself. A replay enqueues
+no work that c10d's watchdog sees, so the graphs keep the timeout
+themselves: a replay's collectives that have not finished within
+``TITANET_DIST_TIMEOUT`` abort the group (:func:`abort`) and fail the
+process (``titanet_torch.train.capture.ReplayWatchdog``). gloo cannot be
+captured: on a gloo group the steps run eagerly (:func:`capturable`).
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -44,6 +63,10 @@ DEFAULT_TIMEOUT_S = 600.0
 # calls and bytes of every all-reduce this process issued (forward and
 # backward), by kind, since the last reset_collective_stats()
 _STATS: dict = {}
+
+# what holds graphs with the group's collectives (hold_collectives); weak,
+# so that registering keeps nothing alive
+_HOLDERS: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def timeout() -> datetime.timedelta:
@@ -127,6 +150,81 @@ def collective_stats() -> dict:
 
 def reset_collective_stats() -> None:
     _STATS.clear()
+
+
+def stats_snapshot() -> dict:
+    """A copy of the counts, for :func:`stats_since`."""
+    return {k: dict(v) for k, v in _STATS.items()}
+
+
+def stats_since(snapshot: dict) -> dict:
+    """``{kind: (calls, bytes)}`` counted since ``snapshot``; the counts go
+    back to it (a capture launches nothing)."""
+    delta = {}
+    for k, v in _STATS.items():
+        old = snapshot.get(k, {"count": 0, "bytes": 0})
+        if v["count"] != old["count"] or v["bytes"] != old["bytes"]:
+            delta[k] = (v["count"] - old["count"], v["bytes"] - old["bytes"])
+    _STATS.clear()
+    _STATS.update({k: dict(v) for k, v in snapshot.items()})
+    return delta
+
+
+def add_stats(delta: dict) -> None:
+    """Count ``delta`` (:func:`stats_since`'s), as a replay of the step
+    it was recorded from issues it."""
+    for k, (count, nbytes) in delta.items():
+        st = _STATS.setdefault(k, {"count": 0, "bytes": 0})
+        st["count"] += count
+        st["bytes"] += nbytes
+
+
+def backend(group=None) -> Optional[str]:
+    """The backend of ``group`` (the default group when None), lower
+    case, or None without a live group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return str(dist.get_backend(group)).lower()
+
+
+def capturable(group=None) -> bool:
+    """Whether a CUDA graph can hold the collectives of ``group``: NCCL
+    can be captured, gloo cannot (its collectives run on the host)."""
+    return backend(group) == "nccl"
+
+
+def hold_collectives(holder) -> None:
+    """Register ``holder``, whose ``release_collectives()`` drops its graphs
+    that hold collectives (``titanet_torch.train.capture.StepGraphs``), to
+    be released before the group goes (:func:`destroy_process_group`, and
+    at exit). The registry is weak: it keeps no holder alive."""
+    _HOLDERS.add(holder)
+
+
+def release_collectives() -> int:
+    """Drop every registered holder's graphs that hold collectives, after
+    the card has run them; returns how many went."""
+    return sum(h.release_collectives() for h in list(_HOLDERS))
+
+
+# before the interpreter's teardown destroys the process group (atexit runs
+# its hooks last registered first, and torch.distributed's come before)
+atexit.register(release_collectives)
+
+
+def destroy_process_group() -> None:
+    """Leave the default group: drop the graphs that hold its collectives
+    (a graph must not outlive the communicators it holds), then destroy
+    it. Every rank of the port leaves its group through this."""
+    release_collectives()
+    dist.destroy_process_group()
+
+
+def abort() -> None:
+    """Abort the default group's communicators: a collective that waits
+    for a lost rank returns, so the process can fail instead of
+    hanging."""
+    dist.distributed_c10d._abort_process_group()
 
 
 def all_reduce_(x: torch.Tensor, group=None, op=dist.ReduceOp.SUM, kind: str = "other") -> torch.Tensor:

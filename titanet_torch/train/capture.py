@@ -39,7 +39,28 @@ kernel of the step once.
 A kernel wrapper counts its launches in Python (``.launches``), which a
 replay does not run. Capture records each counter's change and takes it
 back (capture launches nothing); every replay adds it again, so a counter
-still counts launches.
+still counts launches. The collective counts of
+``titanet_torch.parallel.distributed`` (``collective_stats()``) are kept
+the same way.
+
+A step under a mesh of P > 1 ranks on an NCCL group holds its collectives
+(``train_step(..., mesh=)`` and the ``shard_map`` step): every rank
+captures on the same call, since the key is built from what every rank
+shares (shapes, static arguments, the same sequence of owners), and the
+warm-up runs the step's collectives eagerly first, which creates the
+communicator before capture. Capture runs in CUDA's ``thread_local``
+mode, so that another thread's CUDA calls (c10d's watchdog querying its
+events, this module's :class:`ReplayWatchdog`) do not invalidate it; host
+work on the capturing thread still fails the capture. A replay enqueues
+no work that c10d's watchdog sees: :class:`ReplayWatchdog` records an
+event after each replay of a graph with collectives and, when one has not
+completed within ``TITANET_DIST_TIMEOUT`` seconds of becoming the oldest
+pending, aborts the group and fails the process, so a lost rank fails
+the others instead of hanging them. A graph must not outlive the
+communicators it holds: a cache that captured collectives registers with
+``titanet_torch.parallel.distributed.hold_collectives``, whose
+``destroy_process_group`` (and exit hook) calls
+:meth:`StepGraphs.release_collectives` before the group goes.
 
 There is no fallback: a capture or replay that fails raises. A capture of
 host work (a read of a device value, a host-to-device copy of pageable
@@ -54,7 +75,10 @@ nothing.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
+import sys
 import threading
 import time
 import weakref
@@ -63,6 +87,8 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 from torch import nn
 from torch.utils import _pytree as pytree
+
+from titanet_torch.parallel import distributed as pd
 
 
 def wanted(capture: Optional[bool], device: torch.device) -> bool:
@@ -122,6 +148,8 @@ class StepGraph:
     capture_s: float
     owners: tuple
     generators: tuple = ()
+    # {kind: (calls, bytes)} of the collectives a replay issues
+    collectives: dict = dataclasses.field(default_factory=dict)
 
 
 class StepGraphs:
@@ -168,6 +196,19 @@ class StepGraphs:
         dtype of each of its tensors)``."""
         dev = next(x.device for x in inputs if x is not None)
         return (name, static, dev, tuple(_input_key(x) for x in inputs), tuple(_owner_key(o) for o in owners))
+
+    def release_collectives(self) -> int:
+        """Drop the graphs that hold collectives, after the card has run
+        them; returns how many. A graph must not outlive the communicators
+        it holds: ``titanet_torch.parallel.distributed.destroy_process_group``
+        calls this before it destroys the group (module docstring)."""
+        with self._lock:
+            keys = [k for k, g in self._graphs.items() if g.collectives]
+            if keys and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            for k in keys:
+                del self._graphs[k]
+        return len(keys)
 
     def pool_bytes(self, device=None) -> int:
         """Bytes the shared pool of ``device`` (the current CUDA device by
@@ -217,6 +258,7 @@ class StepGraphs:
                 t.record_stream(current)
         counters = _counters()
         before = [getattr(obj, attr) for obj, attr in counters]
+        stats = pd.stats_snapshot()
         graph = torch.cuda.CUDAGraph()
         gens = tuple(o for o in owners if isinstance(o, torch.Generator))
         for gen in gens:
@@ -225,20 +267,25 @@ class StepGraphs:
             graph.register_generator_state(gen)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=self._pools[dev], stream=stream):
+            with torch.cuda.graph(graph, pool=self._pools[dev], stream=stream, capture_error_mode="thread_local"):
                 static_out = fn(*static_in)
         finally:
             deltas = tuple(getattr(obj, attr) - b for (obj, attr), b in zip(counters, before))
             for (obj, attr), b in zip(counters, before):
                 setattr(obj, attr, b)
+            collectives = pd.stats_since(stats)
         outputs, spec = pytree.tree_flatten(static_out)
         self._watch(owners)
         self._graphs[key] = StepGraph(graph, static_in, outputs, spec, deltas, time.perf_counter() - t0,
-                                      tuple(id(o) for o in owners), gens)
+                                      tuple(id(o) for o in owners), gens, collectives)
+        if collectives:
+            pd.hold_collectives(self)
         self.captures += 1
         return out
 
     def _replay(self, entry: StepGraph, inputs, dev):
+        if entry.collectives:
+            WATCHDOG.check()  # no replay after the group was aborted
         stream = self._stream(dev)
         current = torch.cuda.current_stream(dev)
         stream.wait_stream(current)
@@ -247,6 +294,10 @@ class StepGraphs:
                 if static is not None:
                     static.copy_(x)
             entry.graph.replay()
+            if entry.collectives:
+                done = torch.cuda.Event()
+                done.record(stream)
+                WATCHDOG.watch(done, pd.timeout().total_seconds(), dev)
             outputs = [None if t is None else t.clone() for t in entry.outputs]
         current.wait_stream(stream)
         for t in outputs:
@@ -255,7 +306,85 @@ class StepGraphs:
         for (obj, attr), d in zip(_counters(), entry.deltas):
             if d:
                 setattr(obj, attr, getattr(obj, attr) + d)
+        pd.add_stats(entry.collectives)
         return pytree.tree_unflatten(outputs, entry.spec)
 
 
+class ReplayWatchdog:
+    """The timeout of replayed collectives (module docstring). :meth:`watch`
+    takes an event recorded after a replay; a daemon thread waits for the
+    events in order. The oldest pending event's clock starts when it was
+    recorded or when the one before it completed, whichever is later, so
+    the timeout bounds how long the card makes no progress on a replay's
+    collectives, not how far the host runs ahead. When it passes, the
+    watchdog writes why to stderr, aborts the default group (the spinning
+    collective kernels return, and the caller's next replay raises with
+    that message) and, ``grace_s`` seconds later, ends the process with
+    exit code 1, as c10d ends a process whose collective timed out.
+    ``abort`` and ``exit`` are replaceable for tests."""
+
+    def __init__(self, abort: Callable = pd.abort, exit: Callable = os._exit, grace_s: float = 10.0,
+                 poll_s: float = 0.01):
+        self._abort, self._exit, self.grace_s, self.poll_s = abort, exit, grace_s, poll_s
+        self._pending: collections.deque = collections.deque()
+        self._cv = threading.Condition()
+        self._thread: Optional[threading.Thread] = None
+        self.error: Optional[str] = None
+
+    def check(self) -> None:
+        """Raises once the watchdog has fired."""
+        if self.error:
+            raise RuntimeError(self.error)
+
+    def watch(self, event, timeout_s: float, device: Optional[torch.device] = None) -> None:
+        """Bound ``event`` (recorded after a replay on ``device``) by
+        ``timeout_s``; raises once the watchdog has fired."""
+        self.check()
+        with self._cv:
+            self._pending.append((event, timeout_s, device, time.monotonic()))
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._run, name="titanet-replay-watchdog", daemon=True)
+                self._thread.start()
+            self._cv.notify()
+
+    def pending(self) -> int:
+        return len(self._pending)
+
+    def _run(self) -> None:
+        last_done = time.monotonic()
+        while True:
+            with self._cv:
+                while not self._pending:
+                    self._cv.wait()
+                event, timeout_s, device, recorded = self._pending[0]
+            if device is not None:
+                # the event's card: a query on another would open a context there
+                torch.cuda.set_device(device)
+            start = max(recorded, last_done)
+            while not event.query():
+                if time.monotonic() - start > timeout_s:
+                    self._fire(timeout_s)
+                    return
+                time.sleep(self.poll_s)
+            last_done = time.monotonic()
+            with self._cv:
+                self._pending.popleft()
+
+    def _fire(self, timeout_s: float) -> None:
+        self.error = (f"titanet_torch: the collectives of a replayed step did not finish within {timeout_s:g} s "
+                      "(TITANET_DIST_TIMEOUT): a rank is lost; the process group is aborted")
+        print(self.error, file=sys.stderr, flush=True)
+        # the abort runs apart: the process ends after the grace whatever it does
+        threading.Thread(target=self._abort_quietly, name="titanet-replay-abort", daemon=True).start()
+        time.sleep(self.grace_s)
+        self._exit(1)
+
+    def _abort_quietly(self) -> None:
+        try:
+            self._abort()
+        except Exception as e:
+            print(f"titanet_torch: aborting the process group failed: {e!r}", file=sys.stderr, flush=True)
+
+
 GRAPHS = StepGraphs()  # the process's graphs, as jax.jit's cache of executables is the process's
+WATCHDOG = ReplayWatchdog()  # the process's bound on replayed collectives

@@ -18,7 +18,8 @@
   the counters and hands the step its scalars (learning rate, Adam's bias
   corrections, the accumulation divisor, the margin scale) as one f32
   tensor, and the graph advances the three generators as an eager step
-  does.
+  does. Under a mesh of P > 1 ranks on NCCL the graph holds the step's
+  collectives too; on gloo the step runs eagerly.
 - :func:`eval_step`, :class:`MetricsAcc` / :func:`accumulate_metrics`.
 - :func:`make_optimizer`: Adam or SGD with optax's semantics (see
   :class:`Optimizer`).
@@ -449,6 +450,21 @@ def _mesh_active(mesh):
     return mesh.active() if _sharded(mesh) else contextlib.nullcontext()
 
 
+def wanted_under_mesh(capture: Optional[bool], device: torch.device, mesh) -> bool:
+    """Whether a train step on ``device`` under ``mesh`` runs as a CUDA
+    graph: :func:`titanet_torch.train.capture.wanted`, and under a mesh of
+    P > 1 ranks only on an NCCL group. A gloo group's collectives run on
+    the host, which a graph cannot hold: there ``capture`` None runs
+    eagerly and True raises."""
+    if _sharded(mesh) and not pd.capturable(mesh.group):
+        if capture:
+            raise ValueError(f"a train step under a mesh of {mesh.size} ranks on a {pd.backend(mesh.group)} group "
+                             "cannot be captured: gloo's collectives run on the host, outside any CUDA graph; "
+                             "capture needs an NCCL group (capture=None runs such a step eagerly)")
+        return False
+    return wanted(capture, device)
+
+
 def mean_over_ranks(tensors: List[torch.Tensor], mesh, kind: str = "gradients") -> List[torch.Tensor]:
     """The mean over the ranks of ``mesh`` of each tensor, in one all-reduce
     of a flat bucket a dtype (new tensors; counted under ``kind``)."""
@@ -604,8 +620,12 @@ def train_step(
     by every replay as an eager step advances it), the static arguments,
     whether this call updates or only accumulates, the depthwise-backward
     route and the inputs' shapes: one graph a bucket width, uniform or
-    ragged. Under a ``mesh`` of P > 1 ranks the step runs eagerly (None)
-    or raises (True)."""
+    ragged. Under a ``mesh`` of P > 1 ranks on an NCCL group the graph also
+    holds every collective of the step (BatchNorm's forward and backward
+    all-reduces, the GE2E row gathers, the gradient bucket and the loss
+    mean), and every rank captures on the same call
+    (:mod:`titanet_torch.train.capture`); on a gloo group the step runs
+    eagerly (None) or raises (True): :func:`wanted_under_mesh`."""
     wav, lens, spk = _as_device_tensors(state, waveform, lengths, speakers)
     opt, opt_state = state.optimizer, state.opt_state
     applies = opt.applies(opt_state)
@@ -633,14 +653,10 @@ def train_step(
                 torch._foreach_add_(state.ema, params, alpha=1.0 - ema_decay)
         return {"loss": loss, "grad_norm": grad_norm, "preds": preds, "embeddings": emb}
 
-    graph = wanted(capture, wav.device)
-    if graph and _sharded(mesh):
-        if capture:
-            raise ValueError("train_step under a mesh of P > 1 ranks runs eagerly: capture=True is refused")
-        graph = False
-    if graph:
+    if wanted_under_mesh(capture, wav.device, mesh):
         static = (kw["augment"], frontend, renorm_head, masked, ema_decay, margin is not None,
-                  None if teacher_model is None else distill_alpha, applies, dw_bwd_mode())
+                  None if teacher_model is None else distill_alpha, applies, dw_bwd_mode(),
+                  mesh if _sharded(mesh) else None)
         owners = [state, opt] + ([] if teacher_model is None else [teacher_model]) + list(state.generators().values())
         metrics = GRAPHS.run("train_step", static, owners, step, (wav, lens, spk, scalars))
     else:
