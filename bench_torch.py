@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving and training steps goes, on one GPU.
 
-    python3 bench_torch.py [--batch 128] [--seconds 3] [--blocks 17] [--runs 20]
-                           [--variant embed|fused|int8|frames|all ...] [--train]
-                           [--tree DIR]
+    python3 bench_torch.py [--batch 128] [--seconds 3] [--model-size s] [--blocks 17]
+                           [--runs 20] [--variant embed|fused|int8|frames|all ...]
+                           [--train] [--tree DIR]
 
 Serving (default): for the serving (bf16, fused frontend) and parity (f32,
 TF32 off) modes of ``titanet_torch.train.state.embed_step`` on TitaNet-S
-(random weights from seed 0). ``--variant fused`` times the fused serving
+(random weights from seed 0; ``--model-size l --blocks 5`` for TitaNet-L). ``--variant fused`` times the fused serving
 variant instead (wav -> ``log_mel_spectrogram_pallas`` ->
 ``titanet_apply_fused`` -> ``l2_normalize``, bf16 and f32), ``int8`` the
 quantized one (``embed_step_quantized`` on the f32 model's tree), ``all``
@@ -45,10 +45,12 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+# the hand-written kernels by name; "megablock_kernel" is the FP32-core
+# mega-block that the cluster design replaced, for an older --tree
 OWN_KERNELS = (
     "logmel_kernel", "logmel_tc_kernel", "logmel_dmma_kernel", "attn_u_kernel", "attn_stats_kernel", "attn_de_kernel", "gemm_kernel",
     "pool_onepass_kernel", "pool_merge_kernel", "tc_de_kernel", "tc_dh_kernel", "tc_atb_kernel",
-    "sum_parts_kernel", "dw_bwd_kernel", "dw_reduce_kernel", "megablock_kernel",
+    "sum_parts_kernel", "dw_bwd_kernel", "dw_reduce_kernel", "megablock_cluster_kernel", "megablock_kernel",
     "megablock_tc_kernel", "mel_frames_tc_kernel", "mel_frames_dmma_kernel", "mel_frames_kernel",
 )
 
@@ -167,6 +169,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--seconds", type=float, default=3.0)
+    p.add_argument("--model-size", choices=("s", "m", "l"), default="s", help="the serving modes' TitaNet size")
     p.add_argument("--blocks", type=int, default=17)
     p.add_argument("--runs", type=int, default=20)
     p.add_argument("--variant", choices=("embed", "fused", "int8", "frames", "all"), nargs="+",
@@ -236,10 +239,11 @@ def main() -> int:
                 print(json.dumps(res))
             continue
         for label, make, (_, dtype, fe) in modes[variant]:
-            model = get_titanet(n_mega_blocks=args.blocks, dtype=dtype, device=dev,
+            model = get_titanet(model_size=args.model_size, n_mega_blocks=args.blocks, dtype=dtype, device=dev,
                                 generator=torch.Generator().manual_seed(0))
             res = run_mode(label, make(model, fe), args.runs)
-            res.update(batch=args.batch, seconds=args.seconds, blocks=args.blocks, card=name)
+            res.update(batch=args.batch, seconds=args.seconds, model_size=args.model_size, blocks=args.blocks,
+                       card=name)
             print(json.dumps(res))
             del model
     return 0

@@ -65,18 +65,24 @@ Phases (any failure exits non-zero and prints no result):
      bf16 (one bf16 ulp of it), biases of std 0.3 so the edge rows carry
      real values; edge-row and interior errors apart; two calls equal to
      the bit; which design ran (bf16 tensor-core with wgmma or mma.sync,
-     f32 tensor-core 3xTF32 at C = 256 and 512, fp32-core at 1024); the
-     bound of the work each design does (3xTF32: three products at the
-     TF32 rate and the depthwise and epilogue passes at the FP32 rate)
-     beside the FP32-core bound; the unfused library route (the port's
-     ``MegaBlock`` sub-blocks in eval mode) timed beside; one ragged case
-     more at (256, 3) in bf16 and f32: B=3, T=1000 (the last tile partial);
-  11. the fused serving path on TitaNet-S: wav -> ``log_mel_spectrogram_pallas``
-     -> ``titanet_apply_fused`` -> ``l2_normalize``, bf16 and f32: launches
-     {mel_frames: 1, megablock: 17}, finite unit-norm [128, 192], cosine vs
-     ``embed_step`` of the same model (below 1 through the edge rows of each
-     mega-block), kernel route vs all-plain fused route (f32 > 0.99999),
-     median ms per batch and device time a call;
+     f32 tensor-core 3xTF32; at C = 1024 both the cluster design, with the
+     clusters the card holds at once); the bound of the work each design
+     does (3xTF32: three products at the TF32 rate and the depthwise and
+     epilogue passes at the FP32 rate) beside the FP32-core bound; the
+     unfused library route (the port's ``MegaBlock`` sub-blocks in eval
+     mode) timed beside, and the replaced design's time; ragged cases in
+     bf16 and f32 (two calls equal to the bit): B=3, T=1000 at (256, 3)
+     and (1024, 11) (the last tile partial), and at (1024, 11) T = one
+     tile - 1, one tile and one tile + 1;
+  11. the fused serving path on TitaNet-S (17 mega-blocks), then on
+     TitaNet-L (``get_titanet(model_size="l")``, 5 mega-blocks, hidden 1024,
+     k = 11): wav -> ``log_mel_spectrogram_pallas`` -> ``titanet_apply_fused``
+     -> ``l2_normalize``, bf16 and f32: launches {mel_frames: 1, megablock:
+     17 or 5}, finite unit-norm [128, 192], cosine vs ``embed_step`` of the
+     same model (below 1 through the edge rows of each mega-block; L's
+     limits ``FUSED_L_VS_EMBED_STEP_*``), kernel route vs all-plain fused
+     route (f32 > 0.99999, bf16 > 0.999), median ms per batch and device time
+     a call, ``embed_step``'s beside them;
   12. the int8 variant: ``quantize_titanet`` -> ``embed_step_quantized`` at
      B=128 x 3 s: unit norm, cosine vs the f32 ``embed_step`` > 0.99, median
      ms, weight bytes; ``SpeakerEmbedder(quantized=True)`` padded == solo
@@ -275,7 +281,10 @@ Phases (any failure exits non-zero and prints no result):
      within ``TITANET_DIST_TIMEOUT`` plus a margin. ``python3
      chip_smoke.py --only ddp-capture`` builds the kernels and runs phase
      20 alone (for a four-card machine), then the card's name and the
-     last line.
+     last line. ``python3 chip_smoke.py --only megablock-l`` builds the
+     kernels and runs phase 10 at (1024, 11) and phase 11 on TitaNet-L
+     alone (~2 min), then a JSON line with the mega-block record at (1024,
+     11), the card's name and the last line.
 
 The line before the last is the card's name and power limit; before it, a
 JSON line with each kernel's launches on its path (serving for the forward
@@ -283,7 +292,9 @@ kernels, the pallas-route training step for the backward kernels, the
 fused serving call for the frames and mega-block kernels; the f32 routes
 of rows 1, 5 and 6 in ``f32_*`` keys: the train step's log-mel launch, the
 f32 fused serving call's; ``f32_bound_ms`` is the 3xTF32 bound, rows 1 and
-6 add ``f32_design_bound_ms``, the f64 tensor-core design's; rows 1-4 also
+6 add ``f32_design_bound_ms``, the f64 tensor-core design's; row 5 adds
+``titanet_l``: both dtypes at (1024, 11) and their launches a TitaNet-L
+fused call; rows 1-4 also
 ``zoo_trainer_launches``: each zoo family's launches in its phase-15
 trainer run, ``device_corpus_trainer_launches``: phase 16's
 device-resident ``cli.train``, and ``ddp_trainer_launches``: rank 0's
@@ -323,6 +334,15 @@ B, SECONDS, SR = 128, 3, 16000
 # alike; the limits sit just under.
 FUSED_VS_EMBED_STEP_F32 = 0.99999
 FUSED_VS_EMBED_STEP_BF16 = 0.9999
+FUSED_VS_EMBED_STEP = {"f32": FUSED_VS_EMBED_STEP_F32, "bf16": FUSED_VS_EMBED_STEP_BF16}
+# The same on TitaNet-L (5 mega-blocks, k = 11: 10 edge rows a side a
+# mega-block, against S's 2), B=128 x 3 s: set from the all-plain fused
+# route's reading, which the kernel does not change: 0.9999990 in f32 and
+# 0.9999921 in bf16 (NVIDIA H100 80GB HBM3, 700 W); the limits sit just
+# under, above PARITY.md's budget of 1 - 1e-3.
+FUSED_L_VS_EMBED_STEP_F32 = 0.99999
+FUSED_L_VS_EMBED_STEP_BF16 = 0.9999
+FUSED_L_VS_EMBED_STEP = {"f32": FUSED_L_VS_EMBED_STEP_F32, "bf16": FUSED_L_VS_EMBED_STEP_BF16}
 # Times of the designs that this script's kernels replaced, at the same
 # shapes (NVIDIA H100 80GB HBM3, 700 W), quoted in the phases' lines beside
 # this run's times and nowhere else. The FP32-core designs of the bf16
@@ -347,6 +367,10 @@ PREV_MS = {
     # and shapes, profiler device time); and the fused f32 serving call of
     # phase 11 it ran in: median wall ms and device ms a call
     ("megablock_f32", 256): 0.7166, ("megablock_f32", 512): 2.9906, ("megablock_f32", 1024): 27.2492,
+    # the bf16 mega-block at (1024, 11) on one block a tile of 32 rows
+    # (mma.sync), before the cluster design (same card and shape, profiler
+    # device time)
+    ("megablock_tc", 1024): 5.4884,
     # the f32 log-mel routes on the FP32 cores (logmel_kernel<float>,
     # mel_frames_kernel), before the f64 tensor-core design (same card and
     # shapes, profiler device time); and the fused f32 serving call of phase
@@ -3839,6 +3863,228 @@ def pool_phase(rng, t_frames: int, dev, report: dict, tag: str):
     return a, c, wa32, ba, wb32, bb
 
 
+def check_embeddings(e, tol, what):
+    """Finite unit-norm ``[B, 192]`` embeddings, or raise."""
+    import torch
+
+    if e.shape != (B, 192) or not torch.isfinite(e).all():
+        raise AssertionError(f"{what}: embeddings are not finite [B, 192]")
+    norm_err = (torch.linalg.vector_norm(e.float(), dim=-1) - 1).abs().max().item()
+    if norm_err > tol:
+        raise AssertionError(f"{what}: embeddings are not unit norm: {norm_err}")
+
+
+def megablock_errors(out, ref, t_len, edge, dt):
+    """Per-row error, edge rows and interior apart, against the limit: f32
+    1e-4 of the largest entry, bf16 one bf16 ulp of it."""
+    import numpy as np
+    import torch
+
+    top = ref.float().abs().max().item()
+    tol = 1e-4 * top if dt == torch.float32 else 2.0 ** (np.floor(np.log2(top)) - 7)
+    per_row = (out.float() - ref.float()).abs().amax(dim=(0, 2))
+    e_edge = max(per_row[:edge].max().item(), per_row[t_len - edge:].max().item())
+    e_in = per_row[edge:t_len - edge].max().item() if t_len > 2 * edge else 0.0
+    return e_edge, e_in, tol, top
+
+
+def megablock_phase(rng, dev, shapes, t_frames: int, report: dict, tag: str) -> None:
+    """Phase 10 at ``shapes`` ((C, k) pairs), B=128, T=``t_frames``, S=3
+    (see the module docstring), with the ragged cases at (256, 3) and
+    (1024, 11); fills ``report[("megablock", C, dtype)]``. Draws its inputs
+    from ``rng`` in a fixed order."""
+    import numpy as np
+    import torch
+
+    from titanet_torch.models.titanet import MegaBlock
+    from titanet_torch.ops.kernels.megablock import (
+        fused_sub_blocks,
+        fused_sub_blocks_plain,
+        kernel_design,
+        max_active_clusters,
+        tile_rows,
+    )
+
+    n_sub = 3
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    for c_, k_ in shapes:
+        pad = (k_ - 1) // 2
+        edge = (n_sub - 1) * pad
+        x32 = torch.from_numpy(rng.standard_normal((B, t_frames, c_)).astype(np.float32)).to(dev)
+        dw_w = f32(rng.standard_normal((n_sub, k_, c_)) * 0.5)
+        dw_b = f32(rng.standard_normal((n_sub, c_)) * 0.3)
+        pw32 = f32(rng.standard_normal((n_sub, c_, c_)) / np.sqrt(c_))
+        pw_b = f32(rng.standard_normal((n_sub, c_)) * 0.3)
+        bn = f32(np.stack([rng.uniform(0.5, 1.5, (n_sub, c_)), rng.standard_normal((n_sub, c_)) * 0.3], axis=1))
+        for dt in (torch.float32, torch.bfloat16):
+            design = kernel_design(dt, c_)
+            args = (x32.to(dt), dw_w, dw_b, pw32.to(dt), pw_b, bn)
+            out, ref = fused_sub_blocks(*args, kernel_size=k_), fused_sub_blocks_plain(*args, kernel_size=k_)
+            again = fused_sub_blocks(*args, kernel_size=k_)
+            torch.cuda.synchronize()
+            e_edge, e_in, tol, top = megablock_errors(out, ref, t_frames, edge, dt)
+            if not torch.isfinite(out).all() or max(e_edge, e_in) > tol:
+                raise AssertionError(f"megablock C={c_} k={k_} {dt}: error edge {e_edge}, interior {e_in} > {tol}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"megablock C={c_} k={k_} {dt}: two calls differ")
+            unfused = MegaBlock(c_, k_, n_sub, dtype=None if dt == torch.float32 else dt).to(dev).eval()
+
+            def library_route(x=args[0], mod=unfused):
+                with torch.no_grad():
+                    for i in range(n_sub):
+                        x = getattr(mod, f"sub_block_{i}")(x)
+                return x
+
+            product_ops = 2 * B * t_frames * n_sub * c_ * c_
+            ops = product_ops + 2 * B * t_frames * n_sub * c_ * k_
+            nbytes = 2 * args[0].numel() * args[0].element_size() + pw32.numel() * args[0].element_size() \
+                + 4 * (dw_w.numel() + dw_b.numel() + pw_b.numel() + bn.numel())
+            fp32_core_ms, _ = bound_ms(nbytes, ops, "float32")
+            if "3xTF32" in design:
+                # the work this design does: three products on the TF32 tensor
+                # cores, the depthwise taps (2k + 1) and the epilogue (bias,
+                # scale, shift, relu) on the FP32 cores, one after the other
+                cuda_ops = B * t_frames * n_sub * c_ * (2 * k_ + 1 + 4)
+                t_ops = 3 * product_ops / PEAK_OPS["tf32"] + cuda_ops / PEAK_OPS["float32"]
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                bms, by = max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+                bound_note = (f"bound {bms:.4f} ms ({by}; 3 x {product_ops / 1e9:.2f} GFLOP at 495 TFLOP/s TF32 + "
+                              f"{cuda_ops / 1e9:.3f} GFLOP at 67 TFLOP/s), FP32-core bound {fp32_core_ms:.4f} ms")
+            else:
+                bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
+                bound_note = f"bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP)"
+            iters = 20 if c_ == 256 else 5
+            ms, timed_by = device_ms(lambda: fused_sub_blocks(*args, kernel_size=k_), names=("megablock",),
+                                     iters=iters)
+            pms = cuda_ms(lambda: fused_sub_blocks_plain(*args, kernel_size=k_), iters=3)
+            ums, _ = device_ms(library_route, iters=iters)
+            report[("megablock", c_, dt)] = dict(max_abs_err=max(e_edge, e_in), ms=ms, plain_ms=pms,
+                                                 bound_ms=bms, bound_by=by, timed_by=timed_by, design=design,
+                                                 fp32_core_bound_ms=fp32_core_ms, unfused_ms=ums)
+            if c_ == 1024:
+                clusters = max_active_clusters(dt, k_)
+                tile = tile_rows(c_, dt) - 2 * pad * (n_sub - 1)
+                was = (f"; {tile}-row tiles, {clusters} clusters on the card at once "
+                       f"(cudaOccupancyMaxActiveClusters); before: ")
+                was += (f"the fp32-core design {PREV_MS['megablock_f32', c_]} ms" if dt == torch.float32 else
+                        f"the mma.sync design of 12-row tiles {PREV_MS['megablock_tc', c_]} ms, the fp32-core "
+                        f"design {PREV_MS['megablock', c_]} ms by events")
+                report[("megablock", c_, dt)]["max_active_clusters"] = clusters
+            elif dt == torch.bfloat16:
+                was = f"; fp32-core design: {PREV_MS['megablock', c_]} ms by events"
+            else:
+                was = f"; replaced fp32-core design: {PREV_MS['megablock_f32', c_]} ms"
+            print(f"megablock C={c_} k={k_} {dt} ({design}): max abs err first/last {edge} rows {e_edge:.3e}, interior "
+                  f"{e_in:.3e} (tol {tol:.3e}, largest entry {top:.3f}; relative {max(e_edge, e_in) / top:.3e}); "
+                  f"two calls equal bits; kernel {ms:.4f} ms (device time, {timed_by}{was}), "
+                  f"plain {pms:.4f} ms, unfused library route {ums:.4f} ms (device time), {bound_note}, "
+                  f"{nbytes / 1e6:.1f} MB {tag}")
+            del args, out, again, ref, unfused
+        if c_ in (256, 1024):
+            # ragged: at (256, 3) 9 tiles of 124 rows (bf16) and 14 of 76 (f32),
+            # the last one partial; at (1024, 11) B=3, T=1000 (10 tiles of 108
+            # rows) and T = one tile - 1, one tile, one tile + 1
+            tiles = {dt: tile_rows(c_, dt) - 2 * pad * (n_sub - 1) for dt in (torch.bfloat16, torch.float32)}
+            xr = torch.from_numpy(rng.standard_normal((3, 1000, c_)).astype(np.float32)).to(dev)
+            for dt in (torch.bfloat16, torch.float32):
+                cases = [1000] if c_ == 256 else [1000, tiles[dt] - 1, tiles[dt], tiles[dt] + 1]
+                for t_len in cases:
+                    args = (xr[:, :t_len].to(dt).contiguous(), dw_w, dw_b, pw32.to(dt), pw_b, bn)
+                    out, ref = fused_sub_blocks(*args, kernel_size=k_), fused_sub_blocks_plain(*args, kernel_size=k_)
+                    again = fused_sub_blocks(*args, kernel_size=k_)
+                    torch.cuda.synchronize()
+                    e_edge, e_in, tol, top = megablock_errors(out, ref, t_len, edge, dt)
+                    if not torch.isfinite(out).all() or max(e_edge, e_in) > tol:
+                        raise AssertionError(f"megablock ragged C={c_} {dt} B=3 T={t_len}: error edge {e_edge}, "
+                                             f"interior {e_in} > {tol}")
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"megablock ragged C={c_} {dt} B=3 T={t_len}: two calls differ")
+                    print(f"megablock C={c_} k={k_} {dt} ({kernel_design(dt, c_)}) ragged B=3 T={t_len} (tiles of "
+                          f"{tiles[dt]} rows): max abs err first/last {edge} rows {e_edge:.3e}, interior {e_in:.3e} "
+                          f"(tol {tol:.3e}, largest entry {top:.3f}); two calls equal bits {tag}")
+                    del args, out, again, ref
+            del xr
+        del x32, pw32
+
+
+def fused_phase(wav, lengths, n_frames: int, size: str, n_mega_blocks: int, limits: dict, tag: str):
+    """Phase 11 on TitaNet-``size`` (``get_titanet``, ``n_mega_blocks``,
+    random weights from seed 0), bf16 then f32: wav ->
+    ``log_mel_spectrogram_pallas`` -> ``titanet_apply_fused`` ->
+    ``l2_normalize`` (see the module docstring). ``limits[label]``: the
+    least cosine against ``embed_step``. Returns ``({label: launches a
+    call}, the f32 model)``."""
+    import torch
+
+    from titanet_torch.models import fused_inference, get_titanet, l2_normalize
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.kernels.megablock import fused_sub_blocks, fused_sub_blocks_plain
+    from titanet_torch.ops.kernels.melspec import log_mel_frames, log_mel_frames_plain, log_mel_spectrogram_pallas
+    from titanet_torch.train.state import embed_step
+
+    dev = wav.device
+    cosine_rows = torch.nn.functional.cosine_similarity
+    cfg32 = tf.FrontendConfig.from_ms(use_pallas_fused=True)
+    cfg16 = tf.FrontendConfig.from_ms(precision="default", use_pallas_fused=True)
+    name = f"TitaNet-{size.upper()}"
+
+    def fused_serve(model, cfg):
+        mel, _ = log_mel_spectrogram_pallas(wav, cfg)
+        return l2_normalize(fused_inference.titanet_apply_fused(model, mel))
+
+    fused_launches = {}
+    for label, dt, cfg, tol in (("bf16", torch.bfloat16, cfg16, 1e-2), ("f32", None, cfg32, 1e-5)):
+        model = get_titanet(model_size=size, n_mega_blocks=n_mega_blocks, dtype=dt, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        log_mel_frames.launches = log_mel_frames.dmma_launches = fused_sub_blocks.launches = 0
+        emb = fused_serve(model, cfg)
+        torch.cuda.synchronize()
+        counts = {"mel_frames": log_mel_frames.launches, "megablock": fused_sub_blocks.launches}
+        if counts != {"mel_frames": 1, "megablock": n_mega_blocks} or log_mel_frames.dmma_launches != (dt is None):
+            raise AssertionError(f"fused serving {name} {label}: launches {counts}, f64 tensor-core frames launches "
+                                 f"{log_mel_frames.dmma_launches}")
+        fused_launches[label] = counts
+        check_embeddings(emb, tol, f"fused serving {name} {label}")
+        ref = embed_step(model, wav, lengths, frontend=cfg, device=dev)
+        cos = cosine_rows(emb.float(), ref.float(), dim=-1).min().item()
+        # the all-plain fused route: both kernels' plain versions on the same tensors
+        fused_inference.fused_sub_blocks = fused_sub_blocks_plain
+        try:
+            mel_plain = log_mel_frames_plain(
+                tf.frame_signal(wav, 512, 160).reshape(B * n_frames, 512).contiguous(),
+                *tf._constants(cfg, dev, torch.float32 if dt is None else torch.bfloat16)[3:],
+                precision=cfg.precision,
+            ).reshape(B, n_frames, 80)
+            plain_emb = l2_normalize(fused_inference.titanet_apply_fused(model, mel_plain))
+        finally:
+            fused_inference.fused_sub_blocks = fused_sub_blocks
+        cos_plain = cosine_rows(emb.float(), plain_emb.float(), dim=-1).min().item()
+        cos_plain_ref = cosine_rows(plain_emb.float(), ref.float(), dim=-1).min().item()
+        min_cos = limits[label]
+        if cos < min_cos or cos_plain_ref < min_cos:
+            raise AssertionError(f"fused serving {name} {label}: cosine vs embed_step {cos} (kernel route), "
+                                 f"{cos_plain_ref} (all-plain route) < {min_cos}")
+        if cos_plain <= (0.99999 if dt is None else 0.999):
+            raise AssertionError(f"fused serving {name} {label}: kernel route vs all-plain route cosine {cos_plain}")
+        med, lo, hi = median_ms(lambda: fused_serve(model, cfg))
+        emed, elo, ehi = median_ms(lambda: embed_step(model, wav, lengths, frontend=cfg, device=dev))
+        dev_ms, timed_by = device_ms(lambda: fused_serve(model, cfg), iters=5)
+        edev_ms, etimed_by = device_ms(lambda: embed_step(model, wav, lengths, frontend=cfg, device=dev), iters=5)
+        was = "" if dt is not None or size != "s" else (
+            f" (with the replaced FP32-core frames kernel: median {PREV_MS['fused_f32', 'median']} ms, device "
+            f"{PREV_MS['fused_f32', 'device']} ms)")
+        print(f"fused serving {name} ({n_mega_blocks} mega-blocks) {label}: launches per call {counts}; min cosine vs "
+              f"embed_step {cos:.7f} (all-plain fused route vs embed_step {cos_plain_ref:.7f}; limit {min_cos}); "
+              f"kernel route vs all-plain route {cos_plain:.9f}; median {med:.3f} ms per batch of {B} x {SECONDS} s "
+              f"(min {lo:.3f}, max {hi:.3f}, 10 runs); device time {dev_ms:.3f} ms a call ({timed_by}, 5 calls){was}; "
+              f"embed_step beside it {emed:.3f} ms (min {elo:.3f}, max {ehi:.3f}), device time {edev_ms:.3f} ms "
+              f"({etimed_by}) {tag}")
+        del emb, ref, mel_plain, plain_emb
+        if dt is not None:
+            del model
+    return fused_launches, model
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3848,12 +4094,9 @@ def main() -> int:
         return 1
     from titanet_torch.models import get_titanet
     from titanet_torch.ops import frontend as tf
-    from titanet_torch.models import fused_inference, l2_normalize
     from titanet_torch.models.quantized import quantize_titanet
-    from titanet_torch.models.titanet import MegaBlock
     from titanet_torch.ops.kernels import _build, dwconv
     from titanet_torch.ops.kernels import pool as pool_kernels
-    from titanet_torch.ops.kernels.megablock import fused_sub_blocks, fused_sub_blocks_plain, kernel_design
     from titanet_torch.ops.kernels.melspec import (
         KERNEL_DESIGNS,
         frames_kernel,
@@ -3862,7 +4105,6 @@ def main() -> int:
         log_mel_frames_plain,
         log_mel_fused,
         log_mel_fused_plain,
-        log_mel_spectrogram_pallas,
     )
     from titanet_torch.ops.kernels.pool import (
         attentive_pool_bwd,
@@ -4217,13 +4459,6 @@ def main() -> int:
 
     cosine_rows = torch.nn.functional.cosine_similarity
 
-    def check_embeddings(e, tol, what):
-        if e.shape != (B, 192) or not torch.isfinite(e).all():
-            raise AssertionError(f"{what}: embeddings are not finite [B, 192]")
-        norm_err = (torch.linalg.vector_norm(e.float(), dim=-1) - 1).abs().max().item()
-        if norm_err > tol:
-            raise AssertionError(f"{what}: embeddings are not unit norm: {norm_err}")
-
     # 9. frames log-mel kernel vs plain, and vs the fused kernel. "default":
     # 2e-3, under 4x the 5.5e-4 (vs plain) and 5.7e-4 (vs the fused kernel,
     # which rounds the power twice) this input gives (NVIDIA H100 80GB HBM3,
@@ -4306,153 +4541,11 @@ def main() -> int:
     del frames, buf32, buf, out, again, ref, other, one_tap, once, apart, re, im, db
 
     # 10. mega-block kernel vs plain; the unfused library route beside it
-    n_sub = 3
+    megablock_phase(rng, dev, ((256, 3), (512, 7), (1024, 11)), t_frames, report, tag)
 
-    def megablock_errors(out, ref, t_len, edge, dt):
-        """Per-row error, edge rows and interior apart, against the limit:
-        f32 1e-4 of the largest entry, bf16 one bf16 ulp of it."""
-        top = ref.float().abs().max().item()
-        tol = 1e-4 * top if dt == torch.float32 else 2.0 ** (np.floor(np.log2(top)) - 7)
-        per_row = (out.float() - ref.float()).abs().amax(dim=(0, 2))
-        e_edge = max(per_row[:edge].max().item(), per_row[t_len - edge:].max().item())
-        e_in = per_row[edge:t_len - edge].max().item()
-        return e_edge, e_in, tol, top
-
-    for c_, k_ in ((256, 3), (512, 7), (1024, 11)):
-        pad = (k_ - 1) // 2
-        edge = (n_sub - 1) * pad
-        x32 = torch.from_numpy(rng.standard_normal((B, t_frames, c_)).astype(np.float32)).to(dev)
-        f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
-        dw_w = f32(rng.standard_normal((n_sub, k_, c_)) * 0.5)
-        dw_b = f32(rng.standard_normal((n_sub, c_)) * 0.3)
-        pw32 = f32(rng.standard_normal((n_sub, c_, c_)) / np.sqrt(c_))
-        pw_b = f32(rng.standard_normal((n_sub, c_)) * 0.3)
-        bn = f32(np.stack([rng.uniform(0.5, 1.5, (n_sub, c_)), rng.standard_normal((n_sub, c_)) * 0.3], axis=1))
-        for dt in (torch.float32, torch.bfloat16):
-            design = kernel_design(dt, c_)
-            args = (x32.to(dt), dw_w, dw_b, pw32.to(dt), pw_b, bn)
-            out, ref = fused_sub_blocks(*args, kernel_size=k_), fused_sub_blocks_plain(*args, kernel_size=k_)
-            again = fused_sub_blocks(*args, kernel_size=k_)
-            torch.cuda.synchronize()
-            e_edge, e_in, tol, top = megablock_errors(out, ref, t_frames, edge, dt)
-            if not torch.isfinite(out).all() or max(e_edge, e_in) > tol:
-                raise AssertionError(f"megablock C={c_} k={k_} {dt}: error edge {e_edge}, interior {e_in} > {tol}")
-            if not torch.equal(out, again):
-                raise AssertionError(f"megablock C={c_} k={k_} {dt}: two calls differ")
-            unfused = MegaBlock(c_, k_, n_sub, dtype=None if dt == torch.float32 else dt).to(dev).eval()
-
-            def library_route(x=args[0], mod=unfused):
-                with torch.no_grad():
-                    for i in range(n_sub):
-                        x = getattr(mod, f"sub_block_{i}")(x)
-                return x
-
-            product_ops = 2 * B * t_frames * n_sub * c_ * c_
-            ops = product_ops + 2 * B * t_frames * n_sub * c_ * k_
-            nbytes = 2 * args[0].numel() * args[0].element_size() + pw32.numel() * args[0].element_size() \
-                + 4 * (dw_w.numel() + dw_b.numel() + pw_b.numel() + bn.numel())
-            fp32_core_ms, _ = bound_ms(nbytes, ops, "float32")
-            if "3xTF32" in design:
-                # the work this design does: three products on the TF32 tensor
-                # cores, the depthwise taps (2k + 1) and the epilogue (bias,
-                # scale, shift, relu) on the FP32 cores, one after the other
-                cuda_ops = B * t_frames * n_sub * c_ * (2 * k_ + 1 + 4)
-                t_ops = 3 * product_ops / PEAK_OPS["tf32"] + cuda_ops / PEAK_OPS["float32"]
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                bms, by = max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-                bound_note = (f"bound {bms:.4f} ms ({by}; 3 x {product_ops / 1e9:.2f} GFLOP at 495 TFLOP/s TF32 + "
-                              f"{cuda_ops / 1e9:.3f} GFLOP at 67 TFLOP/s), FP32-core bound {fp32_core_ms:.4f} ms")
-            else:
-                bms, by = bound_ms(nbytes, ops, str(dt).split(".")[1])
-                bound_note = f"bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP)"
-            iters = 20 if c_ == 256 else 5
-            ms, timed_by = device_ms(lambda: fused_sub_blocks(*args, kernel_size=k_), names=("megablock",),
-                                     iters=iters)
-            pms = cuda_ms(lambda: fused_sub_blocks_plain(*args, kernel_size=k_), iters=3)
-            ums, _ = device_ms(library_route, iters=iters)
-            report[("megablock", c_, dt)] = dict(max_abs_err=max(e_edge, e_in), ms=ms, plain_ms=pms,
-                                                 bound_ms=bms, bound_by=by, timed_by=timed_by, design=design,
-                                                 fp32_core_bound_ms=fp32_core_ms, unfused_ms=ums)
-            if dt == torch.bfloat16:
-                was = f"; fp32-core design: {PREV_MS['megablock', c_]} ms by events"
-            elif "3xTF32" in design:
-                was = f"; replaced fp32-core design: {PREV_MS['megablock_f32', c_]} ms"
-            else:
-                was = f"; the fp32-core design kept (before: {PREV_MS['megablock_f32', c_]} ms)"
-            print(f"megablock C={c_} k={k_} {dt} ({design}): max abs err first/last {edge} rows {e_edge:.3e}, interior "
-                  f"{e_in:.3e} (tol {tol:.3e}, largest entry {top:.3f}; relative {max(e_edge, e_in) / top:.3e}); "
-                  f"two calls equal bits; kernel {ms:.4f} ms (device time, {timed_by}{was}), "
-                  f"plain {pms:.4f} ms, unfused library route {ums:.4f} ms (device time), {bound_note}, "
-                  f"{nbytes / 1e6:.1f} MB {tag}")
-            del args, out, again, ref, unfused
-        if c_ == 256:
-            # ragged: 9 tiles of 124 rows (bf16) and 14 of 76 (f32), the last one partial
-            xr = torch.from_numpy(rng.standard_normal((3, 1000, c_)).astype(np.float32)).to(dev)
-            for dt in (torch.bfloat16, torch.float32):
-                args = (xr.to(dt), dw_w, dw_b, pw32.to(dt), pw_b, bn)
-                out, ref = fused_sub_blocks(*args, kernel_size=k_), fused_sub_blocks_plain(*args, kernel_size=k_)
-                torch.cuda.synchronize()
-                e_edge, e_in, tol, top = megablock_errors(out, ref, 1000, edge, dt)
-                if not torch.isfinite(out).all() or max(e_edge, e_in) > tol:
-                    raise AssertionError(f"megablock ragged {dt} B=3 T=1000: error edge {e_edge}, interior {e_in} > {tol}")
-                print(f"megablock C={c_} k={k_} {dt} ({kernel_design(dt, c_)}) ragged B=3 T=1000: max abs "
-                      f"err first/last {edge} rows {e_edge:.3e}, interior {e_in:.3e} (tol {tol:.3e}, largest entry "
-                      f"{top:.3f}) {tag}")
-                del args, out, ref
-            del xr
-        del x32, pw32
-
-    # 11. fused serving path, TitaNet-S, 17 mega-blocks, B=128 x 3 s
-    def fused_serve(model, cfg):
-        mel, _ = log_mel_spectrogram_pallas(wav, cfg)
-        return l2_normalize(fused_inference.titanet_apply_fused(model, mel))
-
-    fused_launches = {}
-    for label, dt, cfg, tol, min_cos in (("bf16", torch.bfloat16, cfg16, 1e-2, FUSED_VS_EMBED_STEP_BF16),
-                                         ("f32", None, cfg32, 1e-5, FUSED_VS_EMBED_STEP_F32)):
-        model = get_titanet(n_mega_blocks=17, dtype=dt, device=dev, generator=torch.Generator().manual_seed(0))
-        log_mel_frames.launches = log_mel_frames.dmma_launches = fused_sub_blocks.launches = 0
-        emb = fused_serve(model, cfg)
-        torch.cuda.synchronize()
-        counts = {"mel_frames": log_mel_frames.launches, "megablock": fused_sub_blocks.launches}
-        if counts != {"mel_frames": 1, "megablock": 17} or log_mel_frames.dmma_launches != (dt is None):
-            raise AssertionError(f"fused serving {label}: launches {counts}, f64 tensor-core frames launches "
-                                 f"{log_mel_frames.dmma_launches}")
-        fused_launches[label] = counts
-        check_embeddings(emb, tol, f"fused serving {label}")
-        ref = embed_step(model, wav, lengths, frontend=cfg, device=dev)
-        cos = cosine_rows(emb.float(), ref.float(), dim=-1).min().item()
-        # the all-plain fused route: both kernels' plain versions on the same tensors
-        fused_inference.fused_sub_blocks = fused_sub_blocks_plain
-        try:
-            mel_plain = log_mel_frames_plain(
-                tf.frame_signal(wav, 512, 160).reshape(B * n_frames, 512).contiguous(),
-                *tf._constants(cfg, dev, torch.float32 if dt is None else torch.bfloat16)[3:],
-                precision=cfg.precision,
-            ).reshape(B, n_frames, 80)
-            plain_emb = l2_normalize(fused_inference.titanet_apply_fused(model, mel_plain))
-        finally:
-            fused_inference.fused_sub_blocks = fused_sub_blocks
-        cos_plain = cosine_rows(emb.float(), plain_emb.float(), dim=-1).min().item()
-        cos_plain_ref = cosine_rows(plain_emb.float(), ref.float(), dim=-1).min().item()
-        if cos < min_cos or cos_plain_ref < min_cos:
-            raise AssertionError(f"fused serving {label}: cosine vs embed_step {cos} (kernel route), "
-                                 f"{cos_plain_ref} (all-plain route) < {min_cos}")
-        if cos_plain <= (0.99999 if dt is None else 0.999):
-            raise AssertionError(f"fused serving {label}: kernel route vs all-plain route cosine {cos_plain}")
-        med, lo, hi = median_ms(lambda: fused_serve(model, cfg))
-        emed, elo, ehi = median_ms(lambda: embed_step(model, wav, lengths, frontend=cfg, device=dev))
-        dev_ms, timed_by = device_ms(lambda: fused_serve(model, cfg), iters=5)
-        was = "" if dt is not None else (
-            f" (with the replaced FP32-core frames kernel: median {PREV_MS['fused_f32', 'median']} ms, device "
-            f"{PREV_MS['fused_f32', 'device']} ms)")
-        print(f"fused serving {label}: launches per call {counts}; min cosine vs embed_step {cos:.7f} (all-plain "
-              f"fused route vs embed_step {cos_plain_ref:.7f}; limit {min_cos}); kernel route vs all-plain route "
-              f"{cos_plain:.9f}; median {med:.3f} ms per batch of {B} x {SECONDS} s (min {lo:.3f}, max {hi:.3f}, "
-              f"10 runs); device time {dev_ms:.3f} ms a call ({timed_by}, 5 calls){was}; embed_step beside it "
-              f"{emed:.3f} ms (min {elo:.3f}, max {ehi:.3f}) {tag}")
-        del emb, ref, mel_plain, plain_emb
-    m32 = model  # the f32 model of the last pass
+    # 11. fused serving path: TitaNet-S (17 mega-blocks), then TitaNet-L (5), B=128 x 3 s
+    fused_launches, m32 = fused_phase(wav, lengths, n_frames, "s", 17, FUSED_VS_EMBED_STEP, tag)
+    fused_l_launches, _ = fused_phase(wav, lengths, n_frames, "l", 5, FUSED_L_VS_EMBED_STEP, tag)
 
     # 12. int8 variant
     e32 = embed_step(m32, wav, lengths, frontend=cfg32, device=dev)
@@ -4480,7 +4573,7 @@ def main() -> int:
         raise AssertionError(f"quantized SpeakerEmbedder padded vs solo cosines {cosines}")
     print(f"SpeakerEmbedder(quantized=True): 4 requests (1.2/3/7/40 s); padded vs solo cosines "
           f"{np.array2string(cosines, precision=7)} {tag}")
-    del embedder, qtree, m32, model
+    del embedder, qtree, m32
 
     # 13. the trainer as users run it; 14. the serving entry points on its run A
     root, n_speakers = trainer_phase(tag)
@@ -4546,7 +4639,8 @@ def main() -> int:
             extra = {"f32_design": f["design"], "f32_launches": fused_launches["f32"]["megablock"],
                      "f32_max_abs_err": f["max_abs_err"], "f32_ms": f["ms"], "f32_plain_ms": f["plain_ms"],
                      "f32_bound_ms": f["bound_ms"], "f32_bound_by": f["bound_by"],
-                     "f32_fp32_core_bound_ms": f["fp32_core_bound_ms"], "f32_unfused_library_ms": f["unfused_ms"]}
+                     "f32_fp32_core_bound_ms": f["fp32_core_bound_ms"], "f32_unfused_library_ms": f["unfused_ms"],
+                     "titanet_l": megablock_l_record(report, fused_l_launches)}
         kernels.append({
             "name": name_, "route": "cuda", "source": src, "replaces": line,
             "launches": path_launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -4561,6 +4655,64 @@ def main() -> int:
             **extra,
         })
     print(json.dumps({"kernels": kernels}))
+    print(name)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def megablock_l_record(report: dict, launches: dict) -> dict:
+    """The mega-block kernel at (1024, 11) for the ``kernels`` line: each
+    dtype's design, error, ms, plain ms, bound, FP32-core bound, unfused
+    library route and clusters at once (phase 10), and its launches a
+    TitaNet-L fused call (phase 11)."""
+    import torch
+
+    rec = {}
+    for label, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        r = report["megablock", 1024, dt]
+        rec[label] = {"design": r["design"], "launches": launches[label]["megablock"],
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                      "fp32_core_bound_ms": r["fp32_core_bound_ms"], "unfused_library_ms": r["unfused_ms"],
+                      "max_active_clusters": r["max_active_clusters"], "timed_by": r["timed_by"]}
+    return rec
+
+
+def main_only_megablock_l() -> int:
+    """``--only megablock-l``: phase 1's build, phase 10 at (1024, 11) and
+    phase 11 on TitaNet-L (the waveforms of the whole run), then the
+    mega-block record at (1024, 11), the card's name and the last line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from titanet_torch.ops import frontend as tf
+    from titanet_torch.ops.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = card()
+    tag = f"| card: {name}"
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built)} {tag}")
+    for src, (secs, log) in built.items():
+        info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln or "C75" in ln]
+        print(f"  nvcc {src}: {secs:.2f} s; " + " / ".join(info))
+    rng = np.random.default_rng(0)
+    n_samples = SECONDS * SR
+    wav = torch.from_numpy((rng.standard_normal((B, n_samples)) * 0.1).astype(np.float32)).to(dev)
+    lengths = torch.full((B,), n_samples, dtype=torch.int32, device=dev)
+    _, n_frames, _ = tf._framing_buffer(wav, 512, 160, lengths)
+    report = {}
+    megablock_phase(rng, dev, ((1024, 11),), n_frames, report, tag)
+    launches, _ = fused_phase(wav, lengths, n_frames, "l", 5, FUSED_L_VS_EMBED_STEP, tag)
+    print(json.dumps({"megablock_titanet_l": megablock_l_record(report, launches)}))
     print(name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -4603,7 +4755,10 @@ if __name__ == "__main__":
         sys.exit(ddp_capture_rank_main(sys.argv[2:]))
     if sys.argv[1:] == ["--only", "ddp-capture"]:
         sys.exit(main_only_ddp_capture())
+    if sys.argv[1:] == ["--only", "megablock-l"]:
+        sys.exit(main_only_megablock_l())
     if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, or --only ddp-capture)", file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (none, --only ddp-capture or --only megablock-l)",
+              file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

@@ -711,6 +711,9 @@ _MEGABLOCK_BF16_SHAPES = [(b, t, 256, 3, 3) for t in (1, 5, 127, 129, 1000) for 
 # same cases around its tiles
 _MEGABLOCK_F32_SHAPES = [(b, t, c, k, 3) for c, k, tile in ((256, 3, 76), (512, 7, 52))
                          for t in (5, tile - 1, tile, tile + 1, 7 * tile + 13) for b in (1, 3)]
+# both dtypes at C = 1024 (the cluster design; 108-row tiles at k = 11): the
+# same cases around its tile
+_MEGABLOCK_1024_SHAPES = [(b, t, 1024, 11, 3) for t in (5, 107, 108, 109, 3 * 108 + 13) for b in (1, 3)]
 
 
 @pytest.mark.cuda
@@ -718,18 +721,21 @@ _MEGABLOCK_F32_SHAPES = [(b, t, c, k, 3) for c, k, tile in ((256, 3, 76), (512, 
     "dtype,shape",
     [(dt, sh) for dt in (torch.float32, torch.bfloat16) for sh in _MEGABLOCK_SHAPES]
     + [(torch.bfloat16, sh) for sh in _MEGABLOCK_BF16_SHAPES]
-    + [(torch.float32, sh) for sh in _MEGABLOCK_F32_SHAPES],
+    + [(torch.float32, sh) for sh in _MEGABLOCK_F32_SHAPES]
+    + [(dt, sh) for dt in (torch.float32, torch.bfloat16) for sh in _MEGABLOCK_1024_SHAPES],
 )
 def test_megablock_kernel_matches_plain(cuda_device, dtype, shape):
     """Row by row, the edge rows included: f32 within 1e-4 of the largest
     entry (the product sums in another order, as 3xTF32 on the tensor cores
     at C = 128, 256 and 512), bf16 within one bf16 ulp of it (a depthwise
-    sum on a rounding boundary). A second call gives the same bits."""
+    sum on a rounding boundary). A second call gives the same bits. C =
+    1024 runs the cluster design in both dtypes."""
     b, t, c, k, s = shape
     args = _chain_args(cuda_device, dtype, b, t, c, k, s)
+    design = megablock.kernel_design(dtype, c)
     if dtype == torch.float32:
-        design = megablock.kernel_design(dtype, c)
-        assert design == "fp32-core" if c == 1024 else design.startswith("tensor-core, 3xTF32 mma.sync")
+        assert design.startswith("tensor-core, 3xTF32 mma.sync")
+    assert design.endswith(", cluster of 8" if dtype == torch.float32 else ", cluster of 4") == (c == 1024)
     before = megablock.fused_sub_blocks.launches
     out = megablock.fused_sub_blocks(*args, kernel_size=k)
     again = megablock.fused_sub_blocks(*args, kernel_size=k)
@@ -749,6 +755,52 @@ def test_megablock_kernel_raises_on_what_it_does_not_take(cuda_device):
     args = _chain_args(cuda_device, torch.float32, 1, 20, 192, 3)
     with pytest.raises(ValueError):
         megablock.fused_sub_blocks(*args, kernel_size=3)  # C=192
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("refusal", ["cluster of 16", "shared memory over the limit"])
+def test_megablock_refused_cluster_launch_raises(cuda_device, dtype, refusal):
+    """A cluster launch that the card refuses raises with the error that
+    ``cudaLaunchKernelEx`` returned, and leaves no error behind: the design's
+    own launch after it is right."""
+    args = _chain_args(cuda_device, dtype, 1, 40, 1024, 11)
+    n = megablock.CLUSTER_TILES[1024, dtype].blocks
+    blocks, extra = (16, 0) if refusal == "cluster of 16" else (n, megablock.MAX_SMEM)
+    assert megablock.max_active_clusters(dtype, 11) >= 1
+    with pytest.raises(RuntimeError, match="mega-block kernel launch failed"):
+        megablock.cluster_launch(*args, kernel_size=11, cluster_blocks=blocks, extra_smem=extra)
+    out = megablock.cluster_launch(*args, kernel_size=11, cluster_blocks=n)
+    torch.cuda.synchronize()
+    ref = megablock.fused_sub_blocks_plain(*args, kernel_size=11)
+    top = ref.float().abs().max().item()
+    tol = 1e-4 * top if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_titanet_l_fused_call_launches_five_megablocks(cuda_device, dtype):
+    """TitaNet-L from ``get_titanet(model_size="l")`` (5 mega-blocks,
+    hidden 1024, k = 11): one fused call launches the frames log-mel kernel
+    once and the mega-block kernel five times, and its embeddings are close
+    to ``embed_step``'s (they differ in each mega-block's edge rows)."""
+    from titanet_torch.models import get_titanet, l2_normalize
+    from titanet_torch.models.fused_inference import titanet_apply_fused
+    from titanet_torch.train.state import embed_step
+
+    model = get_titanet(model_size="l", dtype=dtype, device=cuda_device, generator=torch.Generator().manual_seed(0))
+    assert model.n_mega_blocks == 5 and model.mega_block_kernel_size == 11
+    wav = np.random.default_rng(8).standard_normal((2, 48000)).astype(np.float32) * 0.1
+    fe = tf.FrontendConfig.from_ms(precision="highest" if dtype is None else "default")
+    log_mel_frames.launches = megablock.fused_sub_blocks.launches = 0
+    mel, _ = log_mel_spectrogram_pallas(torch.from_numpy(wav).to(cuda_device), fe)
+    emb = l2_normalize(titanet_apply_fused(model, mel)).float()
+    torch.cuda.synchronize()
+    assert log_mel_frames.launches == 1 and megablock.fused_sub_blocks.launches == 5
+    ref = embed_step(model, wav, np.full(2, 48000, np.int32), frontend=fe, device=cuda_device).float()
+    assert emb.shape == (2, 192) and torch.isfinite(emb).all()
+    assert torch.nn.functional.cosine_similarity(emb, ref, dim=-1).min() > 0.99
 
 
 @pytest.mark.cuda

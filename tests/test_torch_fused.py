@@ -130,7 +130,7 @@ def test_fused_wrapper_runs_plain_on_cpu_and_checks_inputs():
     assert not tk.kernel_supports(200, 3, 3, torch.float32)
     assert not tk.kernel_supports(256, 4, 3, torch.float32)
     assert not tk.kernel_supports(256, 3, 3, torch.float16)
-    assert not tk.kernel_supports(1024, 15, 3, torch.float32)  # tile shorter than 8 rows
+    assert not tk.kernel_supports(1024, 19, 8, torch.float32)  # tile of 2 rows, shorter than 8
 
 
 def test_fold_bn_matches_jax():

@@ -149,17 +149,20 @@ def test_3xtf32_walk_matches_plain_and_pallas(k, t_case):
 @pytest.mark.parametrize("shape", [(256, 3, 3), (512, 7, 3), (1024, 11, 3)])  # TitaNet S, M, L
 def test_f32_tile_fits_and_names_its_design(shape):
     c, k, s = shape
-    design, rm, nc, ks, nst = mk.F32_TILES[c]
     assert mk.smem_bytes(c, k, torch.float32) <= mk.MAX_SMEM == 227 * 1024
     assert mk.kernel_supports(c, k, s, torch.float32)
-    assert mk.tile_rows(c, torch.float32) == rm and rm - (k - 1) * (s - 1) >= 8
-    if c == 1024:  # not even one f32 buffer of 32 rows beside two 1024-column slabs: FP32 cores
-        assert design == "fp32-core" and mk.kernel_design(torch.float32, c) == "fp32-core"
+    assert mk.kernel_design(torch.float32, c).startswith("tensor-core, 3xTF32 mma.sync")
+    if c == 1024:
+        # not even one f32 buffer of 32 rows beside two 1024-column slabs fits
+        # a block: a cluster of blocks shares the tile, each holding C/N channels
+        n, rm = mk.CLUSTER_TILES[c, torch.float32].blocks, mk.CLUSTER_TILES[c, torch.float32].rows
+        assert mk.kernel_design(torch.float32, c) == f"tensor-core, 3xTF32 mma.sync, cluster of {n}"
         pad = (k - 1) // 2
-        assert ((rm + 2 * pad) * (c + 4) + 2 * 8 * (c + 8) + 3 * c) * 4 > mk.MAX_SMEM
+        assert ((32 + 2 * pad) * (c + 4) + 2 * 8 * (c + 8) + 3 * c) * 4 > mk.MAX_SMEM
     else:
+        design, rm = mk.F32_TILES[c][:2]
         assert design.startswith("3xTF32")
-        assert mk.kernel_design(torch.float32, c).startswith("tensor-core, 3xTF32 mma.sync")
+    assert mk.tile_rows(c, torch.float32) == rm and rm - (k - 1) * (s - 1) >= 8
     assert mk.kernel_design(torch.bfloat16, c).startswith("tensor-core, ")
 
 

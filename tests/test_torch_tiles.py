@@ -48,18 +48,29 @@ def test_megablock_tile_fits(dtype, shape):
 def test_megablock_mirror_refuses(dtype):
     assert not mk.kernel_supports(256, 4, 3, dtype)  # even k
     assert not mk.kernel_supports(192, 3, 3, dtype)  # C not in the table
-    assert not mk.kernel_supports(1024, 15, 3, dtype)  # tile shorter than 8 rows
+    # eight stages at k = 19: a tile of 2 rows (shorter than 8) in shared memory that fits
+    assert not mk.kernel_supports(1024, 19, 8, dtype) and mk.smem_bytes(1024, 19, dtype) <= mk.MAX_SMEM
     assert not mk.kernel_supports(256, 3, 0, dtype)
     for other in (torch.float16, torch.float64, torch.int8):
         assert not mk.kernel_supports(256, 3, 3, other)
 
 
-@pytest.mark.parametrize("channels", sorted(mk.TC_TILES))
+@pytest.mark.parametrize("channels", sorted(mk.TC_TILES) + [1024])
 def test_megablock_bf16_tiles_are_tensor_core_shaped(channels):
     """Rows in 16s (an mma tile; 64s for a warpgroup), output columns a
     pass and weight slab rows dividing C, slabs in 16s (the product's
     depth), a ring deep enough for its pipeline, 16-byte rows for cp.async,
-    and for wgmma two column halves of 128 or 256."""
+    and for wgmma two column halves of 128 or 256. C = 1024 runs the
+    cluster design: a block's C/N columns in one pass, its K chunks the
+    slabs (``tests/test_torch_megablock_1024.py`` holds the rest)."""
+    if channels == 1024:
+        insn, n, rm, wm, wn, kc, nst = mk.CLUSTER_TILES[channels, torch.bfloat16]
+        nc, ks = channels // n, kc  # a block's columns in one pass, a chunk's depth
+        assert mk.kernel_design(torch.bfloat16, channels) == f"tensor-core, wgmma in place, cluster of {n}"
+        assert insn == "wgmma" and rm == 64 * wm and kc == 64 and nc // wn in (128, 256)
+        assert nc % 16 == 0 and channels % nc == 0 and channels % ks == 0 and nst >= 3
+        assert ((nc + 8) * 2) % 16 == 0  # the activation rows, for the 16-byte copies
+        return
     insn, rm, nc, ks, nst = mk.TC_TILES[channels]
     assert nc % 16 == 0 and ks % 16 == 0
     assert channels % nc == 0 and channels % ks == 0
@@ -102,7 +113,8 @@ def _chain_tile_by_tile(x, dw_w, dw_b, pw_w, pw_b, bn, k, geometry):
     tile = rm - 2 * pad * (s - 1)
     b, t, c = x.shape
     elem = torch.empty((), dtype=dtype).element_size()
-    resident = (tile + 2 * halo) * channels * elem
+    blocks = mk.CLUSTER_TILES[geometry].blocks if geometry in mk.CLUSTER_TILES else 1  # a block holds C/N channels
+    resident = (tile + 2 * halo) * (channels // blocks) * elem
     assert resident < mk.smem_bytes(channels, k, dtype) <= mk.MAX_SMEM
     out = torch.empty_like(x)
     for t0 in range(0, t, tile):
@@ -124,31 +136,36 @@ def _chain_tile_by_tile(x, dw_w, dw_b, pw_w, pw_b, bn, k, geometry):
     return out
 
 
-# the mirror's geometries (f32 and bf16, all channel counts) by their RM
+# the mirror's geometries (f32 and bf16, all channel counts) by their RM and
+# whether a cluster of blocks shares the tile (C = 1024)
+CHANNELS = (128, 256, 512, 1024)
 GEOMETRIES = {}
 for _dt in DTYPES:
-    for _c in mk.TC_TILES:
-        GEOMETRIES.setdefault(mk.tile_rows(_c, _dt), []).append((_c, _dt))
+    for _c in CHANNELS:
+        GEOMETRIES.setdefault((mk.tile_rows(_c, _dt), (_c, _dt) in mk.CLUSTER_TILES), []).append((_c, _dt))
 
 
 def test_tile_rows_cover_both_designs():
-    assert sorted(GEOMETRIES) == [32, 64, 80, 128]
-    assert sum(len(g) for g in GEOMETRIES.values()) == len(DTYPES) * len(mk.TC_TILES)
+    assert sorted(GEOMETRIES) == [(64, False), (80, False), (128, False), (128, True)]
+    assert sum(len(g) for g in GEOMETRIES.values()) == len(DTYPES) * len(CHANNELS)
 
 
-@pytest.mark.parametrize("rm", [32, 64, 80, 128])
+@pytest.mark.parametrize("rm,cluster", [pytest.param(64, False, id="64"), pytest.param(80, False, id="80"),
+                                        pytest.param(128, False, id="128"),
+                                        pytest.param(128, True, id="128-cluster")])
 @pytest.mark.parametrize("k", [3, 7])
 @pytest.mark.parametrize("t_case", ["1", "tile-1", "tile", "tile+1", "301"])
-def test_tiled_chain_equals_plain(rm, k, t_case):
+def test_tiled_chain_equals_plain(rm, cluster, k, t_case):
     """The chain run tile by tile, with the mirror's tile of every geometry
-    whose height is ``rm``, equals the plain version in f32 at C = 128:
-    every row, the edge rows and the rows next to a tile boundary included."""
+    whose height is ``rm`` (shared by a cluster or not), equals the plain
+    version in f32 at C = 128: every row, the edge rows and the rows next to
+    a tile boundary included."""
     c, s = 128, 3
     tile = rm - (k - 1) * (s - 1)
     t = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1, "301": 301}[t_case]
     args = _chain_args(t, c, k, s, seed=k * 1000 + t)
     ref = mk.fused_sub_blocks_plain(*args, kernel_size=k)
-    for geometry in GEOMETRIES[rm]:
+    for geometry in GEOMETRIES[rm, cluster]:
         assert mk.tile_rows(*geometry) == rm
         got = _chain_tile_by_tile(*args, k, geometry)
         # the same sums in the same order on the same rows; the matmul may block
