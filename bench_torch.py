@@ -22,9 +22,8 @@ For each mode: the median wall time per call (host clock around
 synchronized calls) with quartiles, the median host time per call (the
 call's return after an empty queue, not synchronized: what the host spends
 issuing it), then a ``torch.profiler`` trace of 3
-calls giving device time per kernel, the hand-written kernels' times, and
-the device's idle share (1 - summed kernel time / wall time of the traced
-calls); training adds the peak device memory. Prints one JSON line per
+calls giving device time per kernel and the hand-written kernels' times;
+training adds the peak device memory. Prints one JSON line per
 mode, with the card's name and power limit.
 
 ``--tree DIR`` imports ``titanet_torch`` from another checkout (its kernels
@@ -95,11 +94,9 @@ def run_mode(label, step, runs):
     n_traced = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
         for _ in range(n_traced):
             step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     per_kernel = {}
     launches = 0
     for ev in prof.events():
@@ -116,7 +113,6 @@ def run_mode(label, step, runs):
         "host_ms_median": statistics.median(host),
         "device_ms_per_call": device_ms,
         "device_kernels_per_call": launches / n_traced,
-        "idle_share": max(0.0, 1.0 - device_ms * n_traced / wall_ms),
         "own_kernels_ms": {k: per_kernel.get(k, 0.0) for k in OWN_KERNELS},
         "top_kernels_ms": top,
     }

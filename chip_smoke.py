@@ -2126,7 +2126,7 @@ def utilities_phase(root: str, n_speakers: int, tag: str) -> dict:
     # (c) profiling
     logdir = os.path.join(root, "trace")
     with tp.trace(logdir):
-        with tp.annotate("embed_step x3"):
+        with tp.span("embed_step x3"):
             for _ in range(3):
                 embed_step(model, wav8, len8, frontend=frontend, device=dev)
         torch.cuda.synchronize()

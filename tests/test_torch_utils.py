@@ -113,19 +113,20 @@ def test_figure_epoch_pushes_images_to_wandb_and_tensorboard(monkeypatch, tmp_pa
 
 
 def test_profiling_helpers_on_the_cpu(tmp_path):
-    from titanet_torch.utils.profiling import StepProfiler, annotate, device_memory_stats, trace
+    from titanet_torch.utils.profiling import StepProfiler, device_memory_stats, span, trace
 
     p = StepProfiler()
     x = torch.ones(8, 8)
     with trace(str(tmp_path / "trace")):
         for _ in range(3):
             with p.step("mm", result_to_fence=lambda: y):
-                with annotate("matmul"):
+                with span("matmul"):
                     y = x @ x
     s = p.summary()
     assert set(s) == {"mm_ms_median"} and s["mm_ms_median"] >= 0.0
-    (name,) = os.listdir(tmp_path / "trace")
+    spans_file, name = sorted(os.listdir(tmp_path / "trace"))  # the span log beside the Chrome trace
     assert name.endswith(".json") and "matmul" in open(tmp_path / "trace" / name).read()
+    assert spans_file.endswith(".jsonl") and open(tmp_path / "trace" / spans_file).read().count('"matmul"') == 3
     assert device_memory_stats("cpu") == {}
     if not torch.cuda.is_available():
         assert device_memory_stats() == {}

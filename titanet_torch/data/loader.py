@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from titanet_torch.data.dataset import SpeakerDataset
+from titanet_torch.utils.profiling import span
 
 
 @dataclass
@@ -637,16 +638,17 @@ def _stage(batch: Batch, device: torch.device, stream) -> dict:
     descriptor crosses to the card."""
     from titanet_torch.data.device_corpus import DeviceBatch
 
-    if isinstance(batch, DeviceBatch):
-        if batch.corpus.device.type != device.type:
-            raise ValueError(f"device corpus is on {batch.corpus.device}, batches were asked on {device}")
-        wav, lengths, speakers = batch.gather()
-        return {"waveform": wav, "lengths": lengths, "speaker_ids": speakers}
-    host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.__dict__.items()}
-    if device.type != "cuda":
-        return {k: v.to(device) for k, v in host.items()}
-    with torch.cuda.stream(stream):
-        return {k: v.pin_memory().to(device, non_blocking=True) for k, v in host.items()}
+    with span("feed.gather", rows=len(batch)):
+        if isinstance(batch, DeviceBatch):
+            if batch.corpus.device.type != device.type:
+                raise ValueError(f"device corpus is on {batch.corpus.device}, batches were asked on {device}")
+            wav, lengths, speakers = batch.gather()
+            return {"waveform": wav, "lengths": lengths, "speaker_ids": speakers}
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.__dict__.items()}
+        if device.type != "cuda":
+            return {k: v.to(device) for k, v in host.items()}
+        with torch.cuda.stream(stream):
+            return {k: v.pin_memory().to(device, non_blocking=True) for k, v in host.items()}
 
 
 def device_prefetch(iterator, device="cuda", size: int = 2):

@@ -89,6 +89,7 @@ from torch import nn
 from torch.utils import _pytree as pytree
 
 from titanet_torch.parallel import distributed as pd
+from titanet_torch.utils.profiling import span
 
 
 def wanted(capture: Optional[bool], device: torch.device) -> bool:
@@ -180,14 +181,19 @@ class StepGraphs:
         reads, and the generators it draws from. Returns ``fn``'s output
         (a tree of tensors and None), new tensors the caller owns."""
         inputs = tuple(inputs)
-        key = self.key(name, static, owners, inputs)
+        with span("graph.key") as sp:
+            key = self.key(name, static, owners, inputs)
+            if sp:
+                sp.count(tensors=sum(len(ptrs) for _, ptrs, _ in key[4]))
         dev = key[2]
         with self._lock:
             self._collect_dead()
             entry = self._graphs.get(key)
             if entry is None:
-                return self._capture(key, owners, fn, inputs, dev)
-            return self._replay(entry, inputs, dev)
+                with span("graph.capture", step=name):
+                    return self._capture(key, owners, fn, inputs, dev)
+            with span("graph.replay", step=name):
+                return self._replay(entry, inputs, dev)
 
     @staticmethod
     def key(name: str, static, owners: Sequence, inputs: Sequence) -> tuple:

@@ -17,6 +17,7 @@ or by the first batch of that shape and replayed by every later one;
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -24,6 +25,9 @@ import numpy as np
 from titanet_torch._device import resolve_device
 from titanet_torch.ops.frontend import FrontendConfig
 from titanet_torch.train.state import embed_step, embed_step_quantized
+from titanet_torch.utils.profiling import span
+
+_REQUESTS = itertools.count()  # the process's embedding requests, the id of each one's spans
 
 
 def geometric_buckets(
@@ -74,12 +78,16 @@ class SpeakerEmbedder:
         bs = self.batch_size
         for i in range(0, len(wavs), bs):
             group = wavs[i : i + bs]
-            batch = np.zeros((bs, bucket), np.float32)
-            lengths = np.zeros(bs, np.int32)
-            for j, w in enumerate(group):
-                batch[j, : len(w)] = w
-                lengths[j] = len(w)
-            lengths[len(group):] = 1  # harmless filler rows
+            with span("embed.pad", bucket=bucket, rows=bs, real_rows=len(group),
+                      computed_samples=bs * bucket) as sp:
+                batch = np.zeros((bs, bucket), np.float32)
+                lengths = np.zeros(bs, np.int32)
+                for j, w in enumerate(group):
+                    batch[j, : len(w)] = w
+                    lengths[j] = len(w)
+                lengths[len(group):] = 1  # harmless filler rows
+                if sp:
+                    sp.count(real_samples=int(lengths[: len(group)].sum()))
             if self.qtree is not None:
                 emb = embed_step_quantized(
                     self.qtree, batch, lengths,
@@ -90,7 +98,8 @@ class SpeakerEmbedder:
                     self.model, batch, lengths,
                     frontend=self.frontend, masked=True, device=self.device, capture=self.capture,
                 )
-            out.append(emb.float().cpu().numpy()[: len(group)])
+            with span("embed.readback"):
+                out.append(emb.float().cpu().numpy()[: len(group)])
         return np.concatenate(out)
 
     def _windows(self, wav: np.ndarray) -> List[np.ndarray]:
@@ -116,35 +125,44 @@ class SpeakerEmbedder:
 
     def embed(self, waveforms: Sequence[np.ndarray]) -> np.ndarray:
         """-> unit-norm embeddings [len(waveforms), E], original order."""
-        waveforms = [np.asarray(w, np.float32).reshape(-1) for w in waveforms]
-        cap = self.buckets[-1]
-        flat: List[np.ndarray] = []
-        owner: List[int] = []
-        for i, w in enumerate(waveforms):
-            for win in (self._windows(w) if len(w) > cap else [w]):
-                flat.append(win)
-                owner.append(i)
+        with span("embed.request", id=next(_REQUESTS)) as request:
+            with span("embed.plan"):
+                waveforms = [np.asarray(w, np.float32).reshape(-1) for w in waveforms]
+                cap = self.buckets[-1]
+                flat: List[np.ndarray] = []
+                owner: List[int] = []
+                for i, w in enumerate(waveforms):
+                    for win in (self._windows(w) if len(w) > cap else [w]):
+                        flat.append(win)
+                        owner.append(i)
 
-        order = np.argsort([self._bucket_for(len(w)) for w in flat], kind="stable")
-        results = np.zeros((len(flat), self.model.embedding_size), np.float32)
-        pos = 0
-        while pos < len(order):
-            bucket = self._bucket_for(len(flat[order[pos]]))
-            group = [order[pos]]
-            while (
-                pos + len(group) < len(order)
-                and self._bucket_for(len(flat[order[pos + len(group)]])) == bucket
-            ):
-                group.append(order[pos + len(group)])
-            emb = self._embed_padded([flat[g] for g in group], bucket)
-            results[np.asarray(group)] = emb
-            pos += len(group)
+                order = np.argsort([self._bucket_for(len(w)) for w in flat], kind="stable")
+                groups = []  # (bucket, indices into flat): runs of one bucket in that order
+                pos = 0
+                while pos < len(order):
+                    bucket = self._bucket_for(len(flat[order[pos]]))
+                    group = [order[pos]]
+                    while (
+                        pos + len(group) < len(order)
+                        and self._bucket_for(len(flat[order[pos + len(group)]])) == bucket
+                    ):
+                        group.append(order[pos + len(group)])
+                    groups.append((bucket, group))
+                    pos += len(group)
+                results = np.zeros((len(flat), self.model.embedding_size), np.float32)
+            if request:
+                request.count(waveforms=len(waveforms), windows=len(flat),
+                              samples=sum(len(w) for w in waveforms))
 
-        out = np.zeros((len(waveforms), self.model.embedding_size), np.float32)
-        counts = np.zeros(len(waveforms), np.int64)
-        for k, i in enumerate(owner):
-            out[i] += results[k]
-            counts[i] += 1
-        out /= np.maximum(counts[:, None], 1)
-        out /= np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
-        return out
+            for bucket, group in groups:
+                results[np.asarray(group)] = self._embed_padded([flat[g] for g in group], bucket)
+
+            with span("embed.merge"):
+                out = np.zeros((len(waveforms), self.model.embedding_size), np.float32)
+                counts = np.zeros(len(waveforms), np.int64)
+                for k, i in enumerate(owner):
+                    out[i] += results[k]
+                    counts[i] += 1
+                out /= np.maximum(counts[:, None], 1)
+                out /= np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
+            return out

@@ -189,7 +189,7 @@ def train_one_epoch(
     Returns ``(state, metrics, (embeddings or None, targets))``; under a
     ``mesh`` the embeddings are this rank's rows."""
     dev = _device_of(state)
-    timer = StepTimer()
+    timer = StepTimer(dev)
     all_targets, all_emb = [], []
     loader.set_epoch(epoch)
     step = 0
@@ -220,7 +220,7 @@ def train_one_epoch(
             if not math.isfinite(loss):
                 raise NonFiniteLossError(f"Loss is {loss} at epoch {epoch} step {step}")
             console.log_step("train", epoch, total_epochs, step, n_steps, loss,
-                             {"model": timer.totals.get("model", 0.0) / step})
+                             {"model": timer.total("model") / step})
         elif nan_check_every and step % nan_check_every == 0 and bool(acc.nonfinite):
             raise NonFiniteLossError(f"Loss became non-finite by epoch {epoch} step {step}")
         timer.start("data")
@@ -249,7 +249,7 @@ def evaluate(
     """No-grad mirror of :func:`train_one_epoch` (reference evaluate,
     src/learn.py:313-406), with the same device-side accumulation."""
     dev = _device_of(state)
-    timer = StepTimer()
+    timer = StepTimer(dev)
     all_targets, all_emb = [], []
     loader.set_epoch(epoch if isinstance(epoch, int) else 0)
     acc = init_metrics_acc(state.head.n_classes, device=dev)

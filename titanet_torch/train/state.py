@@ -59,6 +59,7 @@ from titanet_torch.ops.frontend import FrontendConfig, log_mel_spectrogram
 from titanet_torch.ops.norm import ema_update_batch_stats
 from titanet_torch.parallel import distributed as pd
 from titanet_torch.train.capture import GRAPHS, wanted
+from titanet_torch.utils.profiling import span
 
 
 def _dequantize_waveform(waveform: torch.Tensor) -> torch.Tensor:
@@ -66,6 +67,15 @@ def _dequantize_waveform(waveform: torch.Tensor) -> torch.Tensor:
     if not waveform.is_floating_point():
         return waveform.to(torch.float32) * (1.0 / 32768.0)
     return waveform
+
+
+def _upload_counts(*inputs) -> dict:
+    """What an embedding step's inputs bring from the host: ``bytes`` of
+    the host arrays and tensors among them, ``pinned`` whether every host
+    tensor is in pinned memory (an array never is)."""
+    host = [x for x in inputs if not (isinstance(x, torch.Tensor) and x.device.type != "cpu")]
+    return {"bytes": int(sum(x.nbytes for x in host)),
+            "pinned": all(isinstance(x, torch.Tensor) and x.is_pinned() for x in host)}
 
 
 def embed_step(
@@ -87,22 +97,26 @@ def embed_step(
     step as a CUDA graph on the card, one a shape
     (:mod:`titanet_torch.train.capture`, as the JAX step is jitted), and
     eagerly on the CPU; False runs it eagerly; True on the CPU raises."""
-    dev = resolve_device(device)
-    param = next(model.parameters())
-    if param.device.type != dev.type:
-        raise ValueError(f"model is on {param.device}, embed_step was asked for {dev}")
-    wav = torch.as_tensor(waveform, device=dev)
-    lens = torch.as_tensor(lengths, device=dev)
-    model.eval()
+    with span("embed.step"):
+        dev = resolve_device(device)
+        param = next(model.parameters())
+        if param.device.type != dev.type:
+            raise ValueError(f"model is on {param.device}, embed_step was asked for {dev}")
+        with span("embed.upload") as sp:
+            if sp:
+                sp.count(**_upload_counts(waveform, lengths))
+            wav = torch.as_tensor(waveform, device=dev)
+            lens = torch.as_tensor(lengths, device=dev)
+        model.eval()
 
-    def step(wav, lens):
-        mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
-        return l2_normalize(model(mel, mask=mask if masked else None))
+        def step(wav, lens):
+            mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
+            return l2_normalize(model(mel, mask=mask if masked else None))
 
-    with torch.inference_mode():
-        if not wanted(capture, dev):
-            return step(wav, lens)
-        return GRAPHS.run("embed_step", (frontend, masked), (model,), step, (wav, lens))
+        with torch.inference_mode():
+            if not wanted(capture, dev):
+                return step(wav, lens)
+            return GRAPHS.run("embed_step", (frontend, masked), (model,), step, (wav, lens))
 
 
 def embed_step_quantized(
@@ -121,22 +135,26 @@ def embed_step_quantized(
     :func:`embed_step`'s."""
     from titanet_torch.models.quantized import titanet_apply_quantized
 
-    dev = resolve_device(device)
-    if qtree.prolog_kernel.device.type != dev.type:
-        raise ValueError(
-            f"quantized tree is on {qtree.prolog_kernel.device}, embed_step_quantized was asked for {dev}"
-        )
-    wav = torch.as_tensor(waveform, device=dev)
-    lens = torch.as_tensor(lengths, device=dev)
+    with span("embed.step"):
+        dev = resolve_device(device)
+        if qtree.prolog_kernel.device.type != dev.type:
+            raise ValueError(
+                f"quantized tree is on {qtree.prolog_kernel.device}, embed_step_quantized was asked for {dev}"
+            )
+        with span("embed.upload") as sp:
+            if sp:
+                sp.count(**_upload_counts(waveform, lengths))
+            wav = torch.as_tensor(waveform, device=dev)
+            lens = torch.as_tensor(lengths, device=dev)
 
-    def step(wav, lens):
-        mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
-        return l2_normalize(titanet_apply_quantized(qtree, mel, mask=mask if masked else None))
+        def step(wav, lens):
+            mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
+            return l2_normalize(titanet_apply_quantized(qtree, mel, mask=mask if masked else None))
 
-    with torch.inference_mode():
-        if not wanted(capture, dev):
-            return step(wav, lens)
-        return GRAPHS.run("embed_step_quantized", (frontend, masked), (qtree,), step, (wav, lens))
+        with torch.inference_mode():
+            if not wanted(capture, dev):
+                return step(wav, lens)
+            return GRAPHS.run("embed_step_quantized", (frontend, masked), (qtree,), step, (wav, lens))
 
 
 def _as_augment_config(augment) -> Optional[AugmentConfig]:
@@ -626,44 +644,47 @@ def train_step(
     mean), and every rank captures on the same call
     (:mod:`titanet_torch.train.capture`); on a gloo group the step runs
     eagerly (None) or raises (True): :func:`wanted_under_mesh`."""
-    wav, lens, spk = _as_device_tensors(state, waveform, lengths, speakers)
-    opt, opt_state = state.optimizer, state.opt_state
-    applies = opt.applies(opt_state)
-    margin = margin_scale(state.step, margin_warmup_steps)
-    scalars = device_scalars(opt.scalars(opt_state, wav.device) + [margin or 0.0], wav.device)
-    kw = dict(frontend=frontend, augment=_as_augment_config(augment), masked=masked,
-              teacher_model=teacher_model, distill_alpha=distill_alpha, mesh=mesh)
+    with span("train.step", id=state.step):
+        with span("train.prepare"):
+            wav, lens, spk = _as_device_tensors(state, waveform, lengths, speakers)
+            opt, opt_state = state.optimizer, state.opt_state
+            applies = opt.applies(opt_state)
+            margin = margin_scale(state.step, margin_warmup_steps)
+            scalars = device_scalars(opt.scalars(opt_state, wav.device) + [margin or 0.0], wav.device)
+        kw = dict(frontend=frontend, augment=_as_augment_config(augment), masked=masked,
+                  teacher_model=teacher_model, distill_alpha=distill_alpha, mesh=mesh)
 
-    def step(wav, lens, spk, scalars):
-        loss, grads, emb, preds = loss_and_grads(
-            state, wav, lens, spk, margin=None if margin is None else scalars[4], **kw)
-        ema_update_batch_stats(state.model)
-        params = state.params()
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        grad_norm = global_norm(grads)
-        updates = opt.apply(grads, opt_state, params, scalars, applies)
-        with torch.no_grad():
-            if updates is not None:
-                torch._foreach_add_(params, updates)
-            if renorm_head:
-                renormalize_params(state.head)
-            if ema_decay is not None and state.ema is not None:
-                # weight EMA after the update and the renorm: e <- d*e + (1-d)*p
-                torch._foreach_mul_(state.ema, ema_decay)
-                torch._foreach_add_(state.ema, params, alpha=1.0 - ema_decay)
-        return {"loss": loss, "grad_norm": grad_norm, "preds": preds, "embeddings": emb}
+        def step(wav, lens, spk, scalars):
+            loss, grads, emb, preds = loss_and_grads(
+                state, wav, lens, spk, margin=None if margin is None else scalars[4], **kw)
+            ema_update_batch_stats(state.model)
+            params = state.params()
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            grad_norm = global_norm(grads)
+            updates = opt.apply(grads, opt_state, params, scalars, applies)
+            with torch.no_grad():
+                if updates is not None:
+                    torch._foreach_add_(params, updates)
+                if renorm_head:
+                    renormalize_params(state.head)
+                if ema_decay is not None and state.ema is not None:
+                    # weight EMA after the update and the renorm: e <- d*e + (1-d)*p
+                    torch._foreach_mul_(state.ema, ema_decay)
+                    torch._foreach_add_(state.ema, params, alpha=1.0 - ema_decay)
+            return {"loss": loss, "grad_norm": grad_norm, "preds": preds, "embeddings": emb}
 
-    if wanted_under_mesh(capture, wav.device, mesh):
-        static = (kw["augment"], frontend, renorm_head, masked, ema_decay, margin is not None,
-                  None if teacher_model is None else distill_alpha, applies, dw_bwd_mode(),
-                  mesh if _sharded(mesh) else None)
-        owners = [state, opt] + ([] if teacher_model is None else [teacher_model]) + list(state.generators().values())
-        metrics = GRAPHS.run("train_step", static, owners, step, (wav, lens, spk, scalars))
-    else:
-        metrics = step(wav, lens, spk, scalars)
-    opt.advance(opt_state, applies)
-    state.step += 1
-    return state, metrics
+        if wanted_under_mesh(capture, wav.device, mesh):
+            static = (kw["augment"], frontend, renorm_head, masked, ema_decay, margin is not None,
+                      None if teacher_model is None else distill_alpha, applies, dw_bwd_mode(),
+                      mesh if _sharded(mesh) else None)
+            owners = ([state, opt] + ([] if teacher_model is None else [teacher_model])
+                      + list(state.generators().values()))
+            metrics = GRAPHS.run("train_step", static, owners, step, (wav, lens, spk, scalars))
+        else:
+            metrics = step(wav, lens, spk, scalars)
+        opt.advance(opt_state, applies)
+        state.step += 1
+        return state, metrics
 
 
 @torch.no_grad()

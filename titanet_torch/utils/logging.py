@@ -16,6 +16,8 @@ import os
 import time
 from typing import Dict, Optional
 
+import torch
+
 
 class ConsoleLogger:
     """Step/epoch tables (reference log_step/log_epoch, src/learn.py:22-61)."""
@@ -158,29 +160,60 @@ class WandbLogger:
 
 
 class StepTimer:
-    """Data/compute wall-time split per step (reference timing harness,
-    src/learn.py:85-135), aggregated per epoch. It reads the host clock and
-    never synchronizes the card: "model" is the time the host spends
-    issuing a step, as the JAX package's is its dispatch time."""
+    """Data/model time split per step (reference timing harness,
+    src/learn.py:85-135), aggregated per epoch. "data" is the host's time
+    in the feed. On a CUDA ``device`` "model" is the device time of each
+    step: a pair of CUDA events on the current stream around it, read when
+    the epoch's totals are (:meth:`epoch_metrics`, :meth:`total`), so no
+    step waits for the card; a host clock there would read the enqueue of a
+    captured step. Elsewhere both are host wall time."""
 
-    def __init__(self):
+    def __init__(self, device=None):
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
         self._t0: Optional[float] = None
         self._phase: Optional[str] = None
+        self._device = torch.device(device) if device is not None and torch.device(device).type == "cuda" else None
+        self._events: list = []  # [start, end] CUDA events of each "model" phase not yet read
+
+    def _record(self):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self._device))
+        return event
 
     def start(self, phase: str):
         now = time.perf_counter()
         if self._phase is not None and self._t0 is not None:
-            self.totals[self._phase] = self.totals.get(self._phase, 0.0) + now - self._t0
+            if self._device is not None and self._phase == "model":
+                self._events[-1].append(self._record())
+            else:
+                self.totals[self._phase] = self.totals.get(self._phase, 0.0) + now - self._t0
             self.counts[self._phase] = self.counts.get(self._phase, 0) + 1
+        if self._device is not None and phase == "model":
+            self._events.append([self._record()])
         self._phase, self._t0 = phase, now
 
     def stop(self):
         self.start("_idle")
         self._phase = None
 
+    def _read_events(self) -> None:
+        """Add the device time of every ended "model" phase (waits for the
+        last one's end)."""
+        ended = [pair for pair in self._events if len(pair) == 2]
+        if not ended:
+            return
+        ended[-1][1].synchronize()
+        self.totals["model"] = self.totals.get("model", 0.0) + 1e-3 * sum(a.elapsed_time(b) for a, b in ended)
+        self._events = [pair for pair in self._events if len(pair) < 2]
+
+    def total(self, phase: str) -> float:
+        """Seconds in ``phase`` over the phases ended so far."""
+        self._read_events()
+        return self.totals.get(phase, 0.0)
+
     def epoch_metrics(self, prefix: str) -> Dict[str, float]:
+        self._read_events()
         out = {}
         for phase, total in self.totals.items():
             if phase.startswith("_"):

@@ -2,9 +2,10 @@
 
 - :func:`trace`: a ``torch.profiler`` capture over the CPU and, where a
   card exists, CUDA activity, written into ``logdir`` as a Chrome trace
-  (Perfetto or ``chrome://tracing`` open it),
-- :func:`annotate`: a named region on the timeline
-  (``torch.profiler.record_function``),
+  (Perfetto or ``chrome://tracing`` open it), with the spans it recorded
+  beside it as JSON lines,
+- :func:`span`: the program's span, a named region at a layer boundary
+  with counts of what it handled; :func:`spans` reads the spans recorded,
 - :class:`StepProfiler`: per-step host wall time, fenced with
   ``torch.cuda.synchronize`` on the device of the tensors it is given, so
   asynchronous launches do not hide device time,
@@ -13,12 +14,21 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
+
+LOG_SPANS = 1 << 16  # the span log keeps the last this many
+_LOG: collections.deque = collections.deque(maxlen=LOG_SPANS)
+_SEQ = itertools.count()
+_LOCAL = threading.local()
 
 
 @contextlib.contextmanager
@@ -31,6 +41,7 @@ def trace(logdir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    first = next(_SEQ)
     prof = profile(activities=activities)
     prof.__enter__()
     try:
@@ -39,11 +50,101 @@ def trace(logdir: str):
         prof.__exit__(None, None, None)
         n = len([f for f in os.listdir(logdir) if f.startswith(f"trace_{os.getpid()}_")])
         prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{n}.json"))
+        with open(os.path.join(logdir, f"spans_{os.getpid()}_{n}.jsonl"), "w") as f:
+            for entry in spans():
+                if entry["seq"] > first:
+                    f.write(json.dumps(entry) + "\n")
 
 
-def annotate(name: str):
-    """Named region on the profiler timeline."""
-    return torch.profiler.record_function(name)
+class _Span:
+    """A span while a profiler records (:func:`span`)."""
+
+    __slots__ = ("name", "id", "counts", "seq", "parent", "root", "t0", "_region")
+
+    def __init__(self, name: str, id, counts: dict):
+        self.name, self.id, self.counts = name, id, counts
+
+    def __enter__(self):
+        stack = _stack()
+        parent = stack[-1] if stack else None
+        self.seq = next(_SEQ)
+        self.parent = None if parent is None else parent.seq
+        self.root = self.id if parent is None else parent.root
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        self._region = torch._C._profiler._RecordFunctionFast(self.name)
+        self._region.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._region.__exit__(*exc)
+        t1 = time.perf_counter_ns()
+        _stack().pop()
+        _LOG.append({"name": self.name, "seq": self.seq, "parent": self.parent, "root": self.root,
+                     "start_ns": self.t0, "end_ns": t1, "counts": self.counts})
+        return False
+
+    def count(self, **counts) -> None:
+        """Add counts known only inside the span."""
+        self.counts.update(counts)
+
+
+class _Off:
+    """The span while no profiler records: one shared object that does
+    nothing, and is false, so that a count costly to compute can be
+    skipped (``if sp: sp.count(...)``)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __bool__(self) -> bool:
+        return False
+
+    def count(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+def _stack() -> list:
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+def span(name: str, id=None, **counts):
+    """The program's span around the work of one layer boundary, with
+    ``counts`` of what it handled (more by ``.count(...)`` inside it).
+
+    While no profiler records (``torch.autograd._profiler_enabled()`` is
+    false) it is one shared null context: a flag check and nothing else.
+    While one records, the span is a region of the profiler's function
+    scope (``torch._C._profiler._RecordFunctionFast``), so the profiler's
+    trace shows it on the host's row above the device work it launched, on
+    the device's clock. Unlike ``torch.profiler.record_function``'s user
+    scope it adds no mark to the device's rows, where a reader of device
+    time would count it as the device's work. As it ends, it appends to the
+    span log (:func:`spans`) its name, its sequence number, its parent's
+    (the enclosing span of this thread), the id of its outermost span
+    (``id`` of that span: a request's or a step's number, so the spans of
+    one request share it), its start and end (``time.perf_counter_ns``)
+    and its counts."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, id, counts)
+
+
+def spans() -> List[dict]:
+    """The span log: the last :data:`LOG_SPANS` spans recorded, in the
+    order they ended (a child before its parent)."""
+    return list(_LOG)
 
 
 def _fence(result) -> None:
