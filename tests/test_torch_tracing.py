@@ -122,7 +122,9 @@ def test_embedder_logs_its_span_tree_under_one_request_id(model, tmp_path):
         assert s["parent"] == parent["seq"] and parent["start_ns"] <= s["start_ns"] <= s["end_ns"] <= parent["end_ns"]
     order = [s["name"] for s in sorted(inner, key=lambda s: s["start_ns"])]
     assert order[0] == "embed.plan" and order[-1] == "embed.merge"
-    assert order[1:-1] == ["embed.pad", "embed.step", "embed.upload", "embed.readback"] * 5
+    # each batch after the first is padded and launched before the one before it is read back
+    batch = ["embed.pad", "embed.step", "embed.upload"]
+    assert order[1:-1] == batch + (batch + ["embed.readback"]) * 4 + ["embed.readback"]
 
 
 def test_embedder_pad_counts_equal_hand_counts(model, tmp_path):
@@ -132,7 +134,7 @@ def test_embedder_pad_counts_equal_hand_counts(model, tmp_path):
     want = [(4000, [3000, 3500]), (4000, [2000]), (8000, [7000] + windows[:1]), (8000, windows[1:3]),
             (8000, windows[3:])]
     assert pads == [{"bucket": b, "rows": BATCH, "real_rows": len(real), "computed_samples": BATCH * b,
-                     "real_samples": sum(real)} for b, real in want]
+                     "real_samples": sum(real), "in_flight": int(k > 0)} for k, (b, real) in enumerate(want)]
     uploads = [s["counts"] for s in inner if s["name"] == "embed.upload"]
     assert uploads == [{"bytes": BATCH * b * 4 + BATCH * 4, "pinned": False} for b, _ in want]
 

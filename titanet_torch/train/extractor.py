@@ -13,14 +13,28 @@ On the card every (bucket, ``batch_size``) shape is one CUDA graph
 or by the first batch of that shape and replayed by every later one;
 ``capture=False`` embeds eagerly, ``capture`` as
 :func:`titanet_torch.train.state.embed_step`'s.
+
+A call's batches are staged in two reused slots (``_Slot``: the padded
+batch, its lengths and its embeddings; pinned host memory on the card, so
+that neither copy waits for the card). Batch k is padded into slot k % 2,
+handed to the step and its readback queued before batch k - 1 is read
+back: the host pads the next batch while the card runs the last, and
+nothing between two readbacks waits for the card. A slot is refilled only
+after the batch that last used it was read back, and a fill zeros only the
+samples its rows may still hold past their lengths. The slots hold
+``batch_size`` rows of the first call's largest bucket, and of the largest
+bucket once a later call needs longer rows; one lock lets one call at a
+time use them. Every batch of a call is read back before it returns.
 """
 
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from titanet_torch._device import resolve_device
 from titanet_torch.ops.frontend import FrontendConfig
@@ -38,6 +52,64 @@ def geometric_buckets(
     while buckets[-1] < max_samples:
         buckets.append(int(buckets[-1] * growth))
     return buckets
+
+
+class _Slot:
+    """One staging slot: ``wav`` (flat float32, viewed as ``[rows,
+    bucket]`` for each batch), the batch's ``lengths`` and ``out``, the
+    ``[rows, E]`` float32 embeddings read back into, in pinned memory on the
+    card; ``done``, the event recorded after the readback copy on the card.
+    ``bucket`` is the width ``wav`` was last filled at and ``held[j]`` the
+    samples row ``j`` may hold past zero, so a fill zeros only those."""
+
+    def __init__(self, rows: int, samples: int, emb: int, pin: bool):
+        self.wav = torch.zeros(samples, dtype=torch.float32, pin_memory=pin)
+        self.lengths = torch.ones(rows, dtype=torch.int32, pin_memory=pin)
+        self.out = torch.zeros(rows, emb, dtype=torch.float32, pin_memory=pin)
+        self.done = torch.cuda.Event() if pin else None
+        self.bucket = 0
+        self.held = np.zeros(rows, np.int64)
+        self.rows = 0  # the real rows of the batch last launched
+
+    def fill(self, group: List[np.ndarray], bucket: int):
+        """``group`` padded to ``[rows, bucket]`` with zeros, the rows past
+        it zeros of length 1 (harmless filler rows) -> (waveform, lengths)
+        tensors over the slot's memory."""
+        flat = self.wav.numpy()
+        if bucket != self.bucket:  # the rows move: zero what the last width's rows held
+            for j in np.flatnonzero(self.held):
+                flat[j * self.bucket : j * self.bucket + self.held[j]] = 0
+            self.held[:] = 0
+            self.bucket = bucket
+        rows = len(self.held)
+        batch = flat[: rows * bucket].reshape(rows, bucket)
+        lengths = self.lengths.numpy()
+        for j in range(rows):
+            real = j < len(group)
+            n = len(group[j]) if real else 0
+            if real:
+                batch[j, :n] = group[j]
+            if self.held[j] > n:
+                batch[j, n : self.held[j]] = 0
+            self.held[j] = n
+            lengths[j] = n if real else 1
+        return self.wav[: rows * bucket].view(rows, bucket), self.lengths
+
+    def launch_readback(self, emb: torch.Tensor, rows: int) -> None:
+        """Queue the copy of ``emb``, whose first ``rows`` are real, into
+        ``out`` (no wait on the card)."""
+        self.rows = rows
+        self.out.copy_(emb.float(), non_blocking=self.done is not None)
+        if self.done is not None:
+            self.done.record(torch.cuda.current_stream(emb.device))
+
+    def read(self) -> np.ndarray:
+        """The real rows' embeddings of the batch this slot last launched,
+        once its readback copy has run."""
+        with span("embed.readback"):
+            if self.done is not None:
+                self.done.synchronize()
+            return self.out[: self.rows].numpy().copy()
 
 
 class SpeakerEmbedder:
@@ -59,6 +131,8 @@ class SpeakerEmbedder:
         self.buckets = sorted(buckets) if buckets else geometric_buckets()
         self.batch_size = batch_size
         self.window_overlap = window_overlap
+        self._slots: Optional[List[_Slot]] = None  # the batches' staging (_staging)
+        self._lock = threading.Lock()  # one call at a time uses the slots
         self.qtree = None
         if quantized:
             # int8 encoder products (titanet_torch.models.quantized): the
@@ -73,34 +147,65 @@ class SpeakerEmbedder:
                 return b
         return self.buckets[-1]
 
-    def _embed_padded(self, wavs: List[np.ndarray], bucket: int) -> np.ndarray:
+    def _staging(self, bucket: int) -> List[_Slot]:
+        """The two staging slots, with rows of at least ``bucket``
+        samples: the first call makes them for its largest bucket, a later
+        call that needs longer rows makes them again for the embedder's
+        largest bucket."""
+        samples = self.batch_size * bucket
+        if self._slots is None or self._slots[0].wav.numel() < samples:
+            if self._slots is not None:
+                samples = self.batch_size * max(bucket, self.buckets[-1])
+            pin = self.device.type == "cuda"
+            self._slots = [_Slot(self.batch_size, samples, self.model.embedding_size, pin) for _ in range(2)]
+        return self._slots
+
+    def _embed_batches(self, batches: List[tuple]) -> List[np.ndarray]:
+        """``batches`` (``(bucket, waveforms)``, at most ``batch_size``
+        each) -> each one's embeddings, in order. Batch k is padded into
+        slot k % 2 and launched before batch k - 1 is read back, so the
+        host pads the next batch while the card runs the last; every batch
+        is read back before this returns (module docstring)."""
         out = []
+        with self._lock:
+            slots = self._staging(max(bucket for bucket, _ in batches))
+            pending = None  # the slot of the batch launched and not yet read back
+            try:
+                for k, (bucket, group) in enumerate(batches):
+                    slot = slots[k % 2]
+                    with span("embed.pad", bucket=bucket, rows=self.batch_size, real_rows=len(group),
+                              computed_samples=self.batch_size * bucket, in_flight=int(pending is not None)) as sp:
+                        wav, lengths = slot.fill(group, bucket)
+                        if sp:
+                            sp.count(real_samples=sum(len(w) for w in group))
+                    if self.qtree is not None:
+                        emb = embed_step_quantized(
+                            self.qtree, wav, lengths,
+                            frontend=self.frontend, masked=True, device=self.device, capture=self.capture,
+                        )
+                    else:
+                        emb = embed_step(
+                            self.model, wav, lengths,
+                            frontend=self.frontend, masked=True, device=self.device, capture=self.capture,
+                        )
+                    slot.launch_readback(emb, len(group))
+                    if pending is not None:
+                        out.append(pending.read())
+                    pending = slot
+                out.append(pending.read())
+            except BaseException:
+                if self.device.type == "cuda":
+                    # the slots are reused only after every copy from or into them has run
+                    torch.cuda.current_stream(self.device).synchronize()
+                raise
+        return out
+
+    def _batches(self, wavs: List[np.ndarray], bucket: int) -> List[tuple]:
         bs = self.batch_size
-        for i in range(0, len(wavs), bs):
-            group = wavs[i : i + bs]
-            with span("embed.pad", bucket=bucket, rows=bs, real_rows=len(group),
-                      computed_samples=bs * bucket) as sp:
-                batch = np.zeros((bs, bucket), np.float32)
-                lengths = np.zeros(bs, np.int32)
-                for j, w in enumerate(group):
-                    batch[j, : len(w)] = w
-                    lengths[j] = len(w)
-                lengths[len(group):] = 1  # harmless filler rows
-                if sp:
-                    sp.count(real_samples=int(lengths[: len(group)].sum()))
-            if self.qtree is not None:
-                emb = embed_step_quantized(
-                    self.qtree, batch, lengths,
-                    frontend=self.frontend, masked=True, device=self.device, capture=self.capture,
-                )
-            else:
-                emb = embed_step(
-                    self.model, batch, lengths,
-                    frontend=self.frontend, masked=True, device=self.device, capture=self.capture,
-                )
-            with span("embed.readback"):
-                out.append(emb.float().cpu().numpy()[: len(group)])
-        return np.concatenate(out)
+        return [(bucket, wavs[i : i + bs]) for i in range(0, len(wavs), bs)]
+
+    def _embed_padded(self, wavs: List[np.ndarray], bucket: int) -> np.ndarray:
+        return np.concatenate(self._embed_batches(self._batches(wavs, bucket)))
 
     def _windows(self, wav: np.ndarray) -> List[np.ndarray]:
         cap = self.buckets[-1]
@@ -154,8 +259,10 @@ class SpeakerEmbedder:
                 request.count(waveforms=len(waveforms), windows=len(flat),
                               samples=sum(len(w) for w in waveforms))
 
-            for bucket, group in groups:
-                results[np.asarray(group)] = self._embed_padded([flat[g] for g in group], bucket)
+            batches = [b for bucket, group in groups for b in self._batches([flat[g] for g in group], bucket)]
+            if batches:
+                results[np.concatenate([group for _, group in groups])] = np.concatenate(
+                    self._embed_batches(batches))
 
             with span("embed.merge"):
                 out = np.zeros((len(waveforms), self.model.embedding_size), np.float32)

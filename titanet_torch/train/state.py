@@ -78,6 +78,15 @@ def _upload_counts(*inputs) -> dict:
             "pinned": all(isinstance(x, torch.Tensor) and x.is_pinned() for x in host)}
 
 
+def _upload(x, dev: torch.device) -> torch.Tensor:
+    """A step's input on ``dev``: a tensor in pinned host memory is copied
+    without a wait for the device (the caller keeps it unchanged until the
+    step's work has run); anything else as ``torch.as_tensor`` copies it."""
+    if isinstance(x, torch.Tensor) and dev.type == "cuda" and x.device.type == "cpu" and x.is_pinned():
+        return x.to(dev, non_blocking=True)
+    return torch.as_tensor(x, device=dev)
+
+
 def embed_step(
     model: torch.nn.Module,
     waveform,
@@ -91,7 +100,10 @@ def embed_step(
     """``waveform [B, T]`` (float or int16 PCM; tensor or array) and
     ``lengths [B]`` -> unit-norm embeddings ``[B, E]`` on ``device``, in the
     model's dtype. With ``masked``, SE and pooling ignore padded frames, so
-    a padded row's embedding equals the utterance's solo embedding.
+    a padded row's embedding equals the utterance's solo embedding. Inputs
+    in pinned host memory are uploaded without a wait for the card
+    (:func:`_upload`): the caller leaves them unchanged until the step's
+    work has run.
 
     ``capture`` (:func:`titanet_torch.train.capture.wanted`): None runs the
     step as a CUDA graph on the card, one a shape
@@ -105,8 +117,7 @@ def embed_step(
         with span("embed.upload") as sp:
             if sp:
                 sp.count(**_upload_counts(waveform, lengths))
-            wav = torch.as_tensor(waveform, device=dev)
-            lens = torch.as_tensor(lengths, device=dev)
+            wav, lens = _upload(waveform, dev), _upload(lengths, dev)
         model.eval()
 
         def step(wav, lens):
@@ -144,8 +155,7 @@ def embed_step_quantized(
         with span("embed.upload") as sp:
             if sp:
                 sp.count(**_upload_counts(waveform, lengths))
-            wav = torch.as_tensor(waveform, device=dev)
-            lens = torch.as_tensor(lengths, device=dev)
+            wav, lens = _upload(waveform, dev), _upload(lengths, dev)
 
         def step(wav, lens):
             mel, mask = log_mel_spectrogram(_dequantize_waveform(wav), frontend, lengths=lens)
