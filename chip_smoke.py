@@ -23,6 +23,12 @@ Phases (any failure exits non-zero and prints no result):
      ``pool_onepass_kernel``) also against its decomposition in plain torch
      (``attentive_pool_fwd_split``, the same tolerance), beside the replaced
      two-pass design's time and the bytes the design moves through L2;
+     3b. ECAPA-TDNN's context route at the embedder's largest bucket (B=64,
+     T=3845, C=1536, H=128, ragged lengths from 1 to T): ``context_stats``
+     (``ctx_stats_kernel``, ``ctx_finish_kernel``; atol 1e-4) and the pool
+     forward with a bias a row and the rows' lengths (rtol 2e-2) against
+     their plain versions, two calls equal to the bit, each timed beside
+     its bound (h once over the valid frames) and its plain version;
   4. ``embed_step`` on TitaNet-S (17 mega-blocks, random weights from seed
      0) at B=128 x 3 s, serving bf16 and parity f32 (TF32 off): launch
      counts (bf16 through the tensor-core log-mel kernel), unit-norm finite
@@ -159,8 +165,15 @@ Phases (any failure exits non-zero and prints no result):
      is replayed on its own operands against its plain version (phase 2's
      tolerances); the Conformer's pool forward and backward of a train
      step (C = 1536, H = 128, T' = 151) and its pool-forward launches of
-     ``infer --split`` likewise (phases 3 and 6); every other family
-     launches no pool kernel, and no family the depthwise backward.
+     ``infer --split`` likewise (phases 3 and 6); both ECAPA families'
+     pooling outside autograd in bf16 (validation, verification,
+     ``embed_step``, the ``SpeakerEmbedder``, ``infer --audio``) through
+     the context route, one ``context_stats`` and one pool-forward launch
+     a call, every launch replayed on its own operands (C = 1536, H = 128,
+     the embedder's ragged rows up to T = 3845) against its plain version
+     (phase 3b's tolerances), their train steps and the f32 service
+     plainly; every other family launches no pool kernel, and no family
+     the depthwise backward.
   16. the device-resident corpus and the utilities: (a) phase 13's corpus
      as one int16 CUDA tensor (MB, upload ms and GB/s), phase 13's four
      trainer kernels held against their plain versions on the device
@@ -302,7 +315,10 @@ three steps in phase 17; rows 1 and 2 add ``graph_launches``: the launches a
 captured call of each path of phase 18 counted; rows 1-4 add
 ``train_graph_launches``: a replay of phase 19's train graph, and
 ``ddp_graph_launches``: rank 0's replay of its graph in phase 20, null on
-one card), error
+one card; two more rows, ``context_stats`` and ``attentive_pool_fwd_rows``,
+ECAPA's context route from phase 3b, their launches an ECAPA-1024
+``embed_step`` call and each ECAPA family's trainer launches in phase
+15), error
 vs its plain version, time, plain time, bound and library time, every number
 from this run, and ``timed_by``: ``"profiler"`` (device time of the
 kernel's launches), or ``"events"`` (CUDA events around its wrapper) where
@@ -1033,9 +1049,12 @@ class embedding_calls:
     It keeps what each kernel call was given, cloned, by wrapping the names
     the path looks the kernels up by (``frontend._log_mel_fused`` with the
     waveform, config and lengths it turns into the kernel's operands;
-    ``pooling.attentive_pool_fused``) and the output. On exit ``calls``,
-    ``launches``, ``tc_launches``, ``dmma_launches``, ``pool_launches``,
-    ``mel`` and ``pool`` hold them. Inside, the embedding steps and
+    ``pooling.attentive_pool_fused``; ECAPA's context route, the names
+    ``models.ecapa`` calls it by: ``context_stats`` and
+    ``attentive_pool_fwd`` with a bias a row and the rows' lengths) and the
+    output. On exit ``calls``, ``launches``, ``tc_launches``,
+    ``dmma_launches``, ``pool_launches``, ``ctx_launches``, ``mel``,
+    ``pool``, ``ctx`` and ``rows`` hold them. Inside, the embedding steps and
     ``eval_step`` run eagerly (``capture=False`` whatever the caller asks):
     a CUDA graph's replay runs no Python, so only the eager route hands each
     launch's operands to the wrappers; phase 18 holds the captured route,
@@ -1044,21 +1063,24 @@ class embedding_calls:
     makes launch nothing and are not kept."""
 
     def __enter__(self):
+        from titanet_torch.models import ecapa
         from titanet_torch.ops import frontend, pooling
         from titanet_torch.ops.kernels.melspec import log_mel_fused
-        from titanet_torch.ops.kernels.pool import attentive_pool_fwd
+        from titanet_torch.ops.kernels.pool import attentive_pool_fwd, context_stats
         from titanet_torch.train import extractor, loop, state
 
-        self.calls, self.mel, self.pool, self._saved = 0, [], [], []
+        self.calls, self.mel, self.pool, self.ctx, self.rows, self._saved = 0, [], [], [], [], []
         for mod in (extractor, loop, state):
             for name in ("embed_step", "embed_step_quantized", "eval_step"):
                 if getattr(mod, name, None) is not None:
                     self._wrap(mod, name, self._eager if name == "eval_step" else self._counted)
         self._wrap(frontend, "_log_mel_fused", self._keep_mel)
         self._wrap(pooling, "attentive_pool_fused", self._keep_pool)
-        self._mel_fn, self._pool_fn = log_mel_fused, attentive_pool_fwd
+        self._wrap(ecapa, "context_stats", self._keep_ctx)
+        self._wrap(ecapa, "attentive_pool_fwd", self._keep_rows)
+        self._mel_fn, self._pool_fn, self._ctx_fn = log_mel_fused, attentive_pool_fwd, context_stats
         log_mel_fused.launches = log_mel_fused.tc_launches = log_mel_fused.dmma_launches = 0
-        attentive_pool_fwd.launches = 0
+        attentive_pool_fwd.launches = context_stats.launches = 0
         return self
 
     def _wrap(self, mod, name, make):
@@ -1102,6 +1124,28 @@ class embedding_calls:
             return out
         return call
 
+    def _keep_ctx(self, fn):
+        import torch
+
+        def call(h, lengths=None, eps=1e-6):
+            out = fn(h, lengths, eps)
+            if not torch.cuda.is_current_stream_capturing():
+                self.ctx.append(dict(h=h.clone(), lengths=None if lengths is None else lengths.clone(), eps=eps,
+                                     out=out.clone()))
+            return out
+        return call
+
+    def _keep_rows(self, fn):
+        import torch
+
+        def call(h, a, c, wa, ba, wb, bb, eps, fold, lengths=None):
+            out = fn(h, a, c, wa, ba, wb, bb, eps, fold, lengths)
+            if not torch.cuda.is_current_stream_capturing():
+                self.rows.append(dict(args=tuple(t.clone() for t in (h, a, c, wa, ba, wb, bb)), eps=eps, fold=fold,
+                                      lengths=None if lengths is None else lengths.clone(), out=out.clone()))
+            return out
+        return call
+
     def __exit__(self, *exc):
         import torch
 
@@ -1110,7 +1154,7 @@ class embedding_calls:
             setattr(mod, name, fn)
         self.launches, self.tc_launches = self._mel_fn.launches, self._mel_fn.tc_launches
         self.dmma_launches = self._mel_fn.dmma_launches
-        self.pool_launches = self._pool_fn.launches
+        self.pool_launches, self.ctx_launches = self._pool_fn.launches, self._ctx_fn.launches
         return False
 
 
@@ -1150,7 +1194,7 @@ def replay_mel(records, what: str, dtype=None):
 
 
 def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel: str = "f32",
-                          fillers: bool = True, pool: bool = False, echo: bool = True) -> dict:
+                          fillers: bool = True, pool: bool = False, ctx: bool = False, echo: bool = True) -> dict:
     """The kernels a command's embedding calls went through, held against
     their plain versions on the tensors the command gave them; raises on a
     miss, returns the summary.
@@ -1166,21 +1210,28 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
 
     ``pool``: every embedding call pooled unmasked through the pool-forward
     kernel once, and each launch holds as phase 13's
-    (:func:`pool_fwd_vs_plain`); otherwise no launch."""
+    (:func:`pool_fwd_vs_plain`); ``ctx``: every embedding call pooled
+    through ECAPA's context route once, one ``context_stats`` and one
+    ``attentive_pool_fwd`` launch (a bias a row, the rows' lengths), each
+    held by :func:`replay_ctx_route`; otherwise no launch of either."""
     import torch
 
     want_mel = calls.calls if mel else 0
     want_pool = calls.calls if pool else 0
+    want_ctx = calls.calls if ctx else 0
     if calls.calls == 0 or calls.launches != want_mel or len(calls.mel) != want_mel \
             or calls.tc_launches != (want_mel if mel == "bf16" else 0) \
             or calls.dmma_launches != (want_mel if mel == "f32" else 0) \
-            or calls.pool_launches != want_pool or len(calls.pool) != want_pool:
+            or calls.pool_launches != want_pool + want_ctx or len(calls.pool) != want_pool \
+            or calls.ctx_launches != want_ctx or len(calls.ctx) != want_ctx or len(calls.rows) != want_ctx:
         raise AssertionError(f"{what}: {calls.calls} embedding calls; {calls.launches} log-mel launches "
                              f"({calls.tc_launches} bf16 tensor-core, {calls.dmma_launches} f64 tensor-core, "
                              f"{len(calls.mel)} kept), expected {want_mel} "
-                             f"{mel}; {calls.pool_launches} pool-forward launches ({len(calls.pool)} kept), "
-                             f"expected {want_pool}")
-    summary = {"calls": calls.calls, "launches": calls.launches, "pool_launches": calls.pool_launches}
+                             f"{mel}; {calls.pool_launches} pool-forward launches ({len(calls.pool)} kept unmasked, "
+                             f"{len(calls.rows)} a bias a row), expected {want_pool} + {want_ctx}; "
+                             f"{calls.ctx_launches} context launches ({len(calls.ctx)} kept), expected {want_ctx}")
+    summary = {"calls": calls.calls, "launches": calls.launches, "pool_launches": calls.pool_launches,
+               "ctx_launches": calls.ctx_launches}
     line = f"  {what}: {calls.calls} embedding calls"
     if mel:
         atol = 2e-3 if mel == "bf16" else 1e-4
@@ -1202,11 +1253,69 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
         line += (f"; unmasked pooling, all through the pool-forward kernel, replayed on every launch's operands "
                  f"(h, dtype, fold {shapes}), the command's output bit for bit, vs plain: max abs err "
                  f"{max(errs):.3e} (rtol 2e-2)")
+    elif ctx:
+        held = replay_ctx_route(calls.ctx, calls.rows, what)
+        summary.update(ctx_max_abs_err=held["ctx_err"], rows_max_abs_err=held["rows_err"], ctx_line=held["line"])
+        line += f"; ECAPA's context route, {held['line']}"
     else:
         line += "; masked pooling (plain torch), no pool-forward launch"
     if echo:
         print(f"{line} {tag}")
     return summary
+
+
+def replay_ctx_route(ctx: list, rows: list, what: str) -> dict:
+    """ECAPA's context route as :class:`embedding_calls` kept it (one
+    ``context_stats`` and one ``attentive_pool_fwd`` launch a pooling call,
+    paired in order), each launch replayed on its own operands: the replay
+    gives the path's output bit for bit and matches its plain version,
+    ``context_stats_plain`` at rtol and atol 1e-4 (f32 sums of bf16 values
+    in other orders) and ``attentive_pool_fwd_plain(..., lengths)`` at
+    phase 3's 2e-2 (bf16 output, the kernel's ex2.approx softmax). A pair
+    shares one ``h`` and one ``lengths``, and the pool's bias is one row a
+    row. Raises on a miss; returns both errors and a summary."""
+    import torch
+
+    from titanet_torch.ops.kernels.pool import (
+        attentive_pool_fwd,
+        attentive_pool_fwd_plain,
+        context_stats,
+        context_stats_plain,
+    )
+
+    if len(ctx) != len(rows) or not ctx:
+        raise AssertionError(f"{what}: {len(ctx)} context and {len(rows)} pool launches kept")
+    ctx_err = rows_err = 0.0
+    shapes, ragged, least = set(), 0, None
+    for c, r in zip(ctx, rows):
+        h, lengths = c["h"], c["lengths"]
+        b, t, ch = h.shape
+        same = torch.equal(h, r["args"][0]) and (lengths is None) == (r["lengths"] is None) \
+            and (lengths is None or torch.equal(lengths, r["lengths"]))
+        if not same or tuple(r["args"][4].shape) != (b, r["args"][3].shape[1]):
+            raise AssertionError(f"{what}: a context launch and its pool launch on other operands")
+        got = context_stats(h, lengths, c["eps"])
+        out = attentive_pool_fwd(*r["args"], r["eps"], r["fold"], r["lengths"])
+        torch.cuda.synchronize()
+        if not (torch.equal(got, c["out"]) and torch.equal(out, r["out"])):
+            raise AssertionError(f"{what}: the context route's replay on {(b, t, ch)} differs from the path's output")
+        ref_ctx = context_stats_plain(h, lengths, c["eps"])
+        ref = attentive_pool_fwd_plain(*r["args"], r["eps"], r["fold"], r["lengths"]).float()
+        torch.testing.assert_close(got, ref_ctx, rtol=1e-4, atol=1e-4, msg=lambda m: f"{what}: context_stats: {m}")
+        torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2,
+                                   msg=lambda m: f"{what}: attentive_pool_fwd (a bias a row): {m}")
+        ctx_err = max(ctx_err, (got - ref_ctx).abs().max().item())
+        rows_err = max(rows_err, (out.float() - ref).abs().max().item())
+        shapes.add((b, t, ch, str(h.dtype).split(".")[1]))
+        if lengths is not None:
+            ragged += int(lengths.min().item() < lengths.max().item())
+            n = int(lengths.min().item())
+            least = n if least is None else min(least, n)
+    line = (f"{len(ctx)} context_stats + {len(rows)} attentive_pool_fwd launches (h {sorted(shapes)}; "
+            f"{sum(c['lengths'] is not None for c in ctx)} with lengths, {ragged} ragged, shortest row "
+            f"{least} frames), replayed on every launch's operands, the path's output bit for bit, vs plain: "
+            f"context max abs err {ctx_err:.3e} (1e-4), pool {rows_err:.3e} (2e-2)")
+    return {"ctx_err": ctx_err, "rows_err": rows_err, "launches": len(ctx), "line": line}
 
 
 def post(url: str, body: bytes):
@@ -1530,9 +1639,15 @@ def zoo_phase(tag: str) -> dict:
     ``--fast-frontend``) on the trained checkpoint. Every log-mel launch is
     replayed on its own operands against its plain version; the
     Conformer's pool-forward and pool-backward launches of a train step
-    (C = 1536, T' = 151) and of ``infer --split`` too; every other family
-    launches no pool kernel. Raises on any failed check; returns each
-    family's launches of the four kernels in its trainer run."""
+    (C = 1536, T' = 151) and of ``infer --split`` too. ECAPA's pooling in
+    its bf16 model outside autograd (validation, verification,
+    ``embed_step``, the embedder, ``infer``) takes the context route, one
+    ``context_stats`` and one ``attentive_pool_fwd`` launch a call, each
+    replayed on its own operands (C = 1536, H = 128; the embedder's rows
+    ragged, up to its 38.4 s bucket) by :func:`replay_ctx_route`; its train
+    steps and the f32 service pool plainly. Every other family launches no
+    pool kernel. Raises on any failed check; returns each family's launches
+    of the five kernels in its trainer run."""
     import tempfile
     import threading
     from http.server import HTTPServer
@@ -1546,7 +1661,7 @@ def zoo_phase(tag: str) -> dict:
     from titanet_torch.ops.frontend import FrontendConfig
     from titanet_torch.ops.kernels import dwconv
     from titanet_torch.ops.kernels.melspec import log_mel_fused
-    from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd
+    from titanet_torch.ops.kernels.pool import attentive_pool_bwd, attentive_pool_fwd, context_stats
     from titanet_torch.train import checkpoint as ckpt
     from titanet_torch.train import state as ts
     from titanet_torch.train.capture import GRAPHS
@@ -1554,7 +1669,7 @@ def zoo_phase(tag: str) -> dict:
 
     dev = torch.device("cuda")
     counters = {"logmel": log_mel_fused, "pool_fwd": attentive_pool_fwd, "pool_bwd": attentive_pool_bwd,
-                "dw_bwd": dwconv.dw_bwd}
+                "dw_bwd": dwconv.dw_bwd, "ctx": context_stats}
 
     def zero():
         for c in counters.values():
@@ -1597,7 +1712,7 @@ def zoo_phase(tag: str) -> dict:
 
         for name, model_cfg, size in ZOO_FAMILIES:
             t_family = time.perf_counter()
-            conformer = "conformer" in model_cfg
+            conformer, ecapa = "conformer" in model_cfg, "ecapa" in model_cfg
             cfg = trainer_config(root, name, 1, ("chunk",), model=model_cfg)
             run = os.path.join(root, name)
             os.environ["TITANET_DW_BWD"] = "pallas"
@@ -1614,14 +1729,18 @@ def zoo_phase(tag: str) -> dict:
                 metrics = cli.evaluate_checkpoint(cfg, run)
             trainer = read()
             n_graphs = GRAPHS.captures - captures
+            # ECAPA's validation and verification batches take the context route
+            n_ctx = val_batches + 2 * test_batches if ecapa else 0
             want = {"logmel": steps + val_batches + 2 * test_batches,
-                    "pool_fwd": steps + val_batches if conformer else 0, "pool_bwd": steps if conformer else 0,
-                    "dw_bwd": 0}
+                    "pool_fwd": (steps + val_batches if conformer else 0) + n_ctx,
+                    "pool_bwd": steps if conformer else 0, "dw_bwd": 0, "ctx": n_ctx}
             # the calls kept on the eager route: all but the train graphs' replays
-            if trainer != want or not 1 <= n_graphs < steps or len(calls.mel) != want["logmel"] - steps + n_graphs:
-                raise AssertionError(f"zoo {name} trainer: launches {trainer} ({len(calls.mel)} log-mel kept, "
-                                     f"{n_graphs} train graphs), expected {want}")
+            if trainer != want or not 1 <= n_graphs < steps or len(calls.mel) != want["logmel"] - steps + n_graphs \
+                    or len(calls.ctx) != n_ctx:
+                raise AssertionError(f"zoo {name} trainer: launches {trainer} ({len(calls.mel)} log-mel, "
+                                     f"{len(calls.ctx)} context kept, {n_graphs} train graphs), expected {want}")
             mel_err, _, _ = replay_mel(calls.mel, f"zoo {name} trainer", torch.float32)
+            trainer_ctx = replay_ctx_route(calls.ctx, calls.rows, f"zoo {name} trainer")["line"] if ecapa else ""
             graph_held = hold_train_graph_kernels(ops, f"zoo {name} train graph", n_graphs, int(conformer), 0)
             del ops
             loss = epoch_record(read_jsonl(os.path.join(run, "metrics.jsonl")), 1, "train/")["train/avg_loss"]
@@ -1661,7 +1780,7 @@ def zoo_phase(tag: str) -> dict:
                     or not all(torch.isfinite(p).all() for p in state.params()):
                 raise AssertionError(f"zoo {name} train steps: losses {losses}, grad norms {norms}")
             want = {"logmel": ZOO_STEPS, "pool_fwd": ZOO_STEPS if conformer else 0,
-                    "pool_bwd": ZOO_STEPS if conformer else 0, "dw_bwd": 0}
+                    "pool_bwd": ZOO_STEPS if conformer else 0, "dw_bwd": 0, "ctx": 0}
             if per_step != want:
                 raise AssertionError(f"zoo {name} train steps: launches {per_step}, expected {want}")
             pool_line = ""
@@ -1691,7 +1810,7 @@ def zoo_phase(tag: str) -> dict:
             # 3. embedding: embed_step at B=128 x 3 s (the bf16 tensor-core
             # log-mel kernel; unmasked, so the Conformer pools through the
             # pool kernel) and the SpeakerEmbedder (masked, the CLI's f32
-            # log-mel kernel)
+            # log-mel kernel); ECAPA through its context route in both
             model = state.model.eval()
             embed = lambda: ts.embed_step(model, wav, lengths, frontend=cfg16, device=dev)  # noqa: E731
             with embedding_calls() as calls:
@@ -1700,7 +1819,7 @@ def zoo_phase(tag: str) -> dict:
                     or (torch.linalg.vector_norm(e.float(), dim=-1) - 1).abs().max().item() > 1e-2:
                 raise AssertionError(f"zoo {name} embed_step: not finite unit rows [B, 192]")
             embed_k = check_command_kernels(calls, f"zoo {name} embed_step", tag, mel="bf16", fillers=False,
-                                            pool=conformer, echo=False)
+                                            pool=conformer, ctx=ecapa, echo=False)
             emb_med, _, _ = median_ms(embed, runs=5, warmup=1)
             emb_dev, emb_busy, emb_kernels, _ = device_profile(embed, iters=3, warmup=1)
             embedder = SpeakerEmbedder(model, frontend, device=dev)
@@ -1710,7 +1829,12 @@ def zoo_phase(tag: str) -> dict:
             cos = np.sum(batched * solo, -1) / (np.linalg.norm(batched, axis=-1) * np.linalg.norm(solo, axis=-1))
             if batched.shape != (4, 192) or not np.isfinite(batched).all() or cos.min() <= 0.999:
                 raise AssertionError(f"zoo {name} SpeakerEmbedder: padded vs solo cosines {cos}")
-            check_command_kernels(calls, f"zoo {name} SpeakerEmbedder", tag, echo=False)
+            embedder_k = check_command_kernels(calls, f"zoo {name} SpeakerEmbedder", tag, ctx=ecapa, echo=False)
+            ctx_line = ""
+            if ecapa:
+                ctx_line = (f"; context route: trainer {trainer_ctx}; embed_step context err "
+                            f"{embed_k['ctx_max_abs_err']:.2e}, pool {embed_k['rows_max_abs_err']:.2e}; "
+                            f"SpeakerEmbedder {embedder_k['ctx_line']}")
             n_params = count_params(model)
             cls = type(model).__name__
             del state, model, embedder, step, embed
@@ -1721,7 +1845,7 @@ def zoo_phase(tag: str) -> dict:
                 json.dump(cfg.to_dict(), f)
             with embedding_calls() as calls:
                 emb, labels = cli.main(["infer", "-p", params, "-c", run, "--audio", utt_dir])
-            check_command_kernels(calls, f"zoo {name} infer --audio", tag, echo=False)
+            check_command_kernels(calls, f"zoo {name} infer --audio", tag, ctx=ecapa, echo=False)
             restored, rfront, _ = cli._restore_for_eval(cfg, n_speakers, run, None, dev)
             direct = SpeakerEmbedder(restored.model, rfront, device=dev).embed(
                 [read_mono(os.path.join(utt_dir, f"{lab}.wav"), SR) for lab in labels])
@@ -1775,7 +1899,7 @@ def zoo_phase(tag: str) -> dict:
             shutil.rmtree(run, ignore_errors=True)
             torch.cuda.empty_cache()
             os.environ.pop("TITANET_DW_BWD", None)
-            out[name] = trainer
+            out[name] = {**trainer, "embed_step_ctx": embed_k["ctx_launches"]}
             print(f"zoo {name} ({cls}, {n_params / 1e6:.2f}M params, bf16): cli.train 1 epoch ({steps} steps of "
                   f"{TRAIN_BATCH}, [chunk]) {train_s:.2f} s, train/avg_loss {loss:.4f}, test/eer "
                   f"{metrics['test/eer']:.4f}, test/mindcf {metrics['test/mindcf']:.4f}, launches {trainer}, "
@@ -1790,7 +1914,8 @@ def zoo_phase(tag: str) -> dict:
                   f"{SECONDS} s median {emb_med:.2f} ms, device {emb_dev:.2f} ms, busy {emb_busy:.2f} ms, {emb_kernels} kernels, idle "
                   f"{1 - emb_busy / emb_med:.2f}, log-mel bf16 err {embed_k['max_abs_err']:.2e}"
                   f"{', pool ' + format(embed_k['pool_max_abs_err'], '.2e') if conformer else ''}; SpeakerEmbedder "
-                  f"padded vs solo min cosine {cos.min():.7f}; infer --audio vs direct {infer_diff:.1e}{split_line}"
+                  f"padded vs solo min cosine {cos.min():.7f}{ctx_line}; infer --audio vs direct {infer_diff:.1e}"
+                  f"{split_line}"
                   f"{serve_line}; {time.perf_counter() - t_family:.1f} s wall {tag}")
         return out
     finally:
@@ -3797,6 +3922,80 @@ def ddpc_lost_check(work: str, tag: str, world: int = 2) -> None:
           f"{DDPC_LOST_MARGIN} s), failed by {why} {tag}")
 
 
+# ECAPA-TDNN's context route at the embedder's largest bucket: a full batch
+# of 64 rows of 38.4 s (T = 3845 frames of the MFA's 1536 channels, H =
+# 128), the rows' lengths drawn over [1, T], the first 1 and the last T
+ECAPA_ROUTE_B, ECAPA_ROUTE_T = 64, 3845
+CTX_KERNELS = ("ctx_stats_kernel", "ctx_finish_kernel")
+
+
+def ecapa_route_phase(rng, dev, report: dict, tag: str) -> None:
+    """Phase 3b: ECAPA's context route, ``context_stats`` (the two kernels
+    of :data:`CTX_KERNELS`) and ``attentive_pool_fwd`` with a bias a row and
+    the rows' lengths (``pool_onepass_kernel``'s per-row instantiation and
+    ``pool_merge_kernel``), each against its plain version at
+    :data:`ECAPA_ROUTE_B` x :data:`ECAPA_ROUTE_T`: one launch a call, two
+    calls equal to the bit, rtol and atol 1e-4 (the context) and 2e-2 (the
+    pool, as phase 3); each timed by device time beside its bound (h read
+    once over the valid frames), which is also the least time
+    ``ctx_pool_roofline.embed_ecapa`` counts, and its plain version. Fills
+    ``report["ctx"]`` and ``report["pool_rows"]``."""
+    import torch
+
+    from titanet_torch.ops.kernels.pool import (
+        attentive_pool_fwd,
+        attentive_pool_fwd_plain,
+        context_stats,
+        context_stats_plain,
+    )
+
+    b, t, ch, hid = ECAPA_ROUTE_B, ECAPA_ROUTE_T, 1536, 128
+    n = rng.integers(1, t + 1, b)
+    n[0], n[-1] = 1, t
+    lengths = torch.as_tensor(n, dtype=torch.int32, device=dev)
+    valid = int(n.sum())
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    h = torch.relu(torch.randn(b, t, ch, generator=g, device=dev)).to(torch.bfloat16)
+
+    def uniform(shape, fan_in):
+        return (torch.rand(*shape, generator=g, device=dev) * 2 - 1) / fan_in ** 0.5
+
+    zeros = torch.zeros(ch, device=dev)
+    args = (h, zeros, zeros, uniform((ch, hid), ch).to(torch.bfloat16), uniform((b, hid), ch),
+            uniform((hid, ch), hid).to(torch.bfloat16), uniform((ch,), hid))
+    runs = {"ctx": (lambda: context_stats(h, lengths), lambda: context_stats_plain(h, lengths), context_stats,
+                    1e-4, CTX_KERNELS),
+            "pool_rows": (lambda: attentive_pool_fwd(*args, 1e-6, False, lengths),
+                          lambda: attentive_pool_fwd_plain(*args, 1e-6, False, lengths), attentive_pool_fwd,
+                          2e-2, ("pool_onepass_kernel", "pool_merge_kernel"))}
+    parts = []
+    for key, (run, plain, fn, tol, names) in runs.items():
+        before = fn.launches
+        out, again, ref = run(), run(), plain()
+        torch.cuda.synchronize()
+        if fn.launches - before != 2 or not torch.equal(out, again):
+            raise AssertionError(f"ECAPA route {key}: two calls count {fn.launches - before} launches or differ")
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        err = (out.float() - ref.float()).abs().max().item()
+        del ref
+        ms, timed_by = device_ms(run, names=names, iters=20)
+        pms = cuda_ms(plain, iters=3, warmup=1)
+        # h once over the valid frames and the output; the pool also reads
+        # its weights and biases and does its two products
+        nbytes = valid * ch * 2 + out.numel() * out.element_size() + 4 * b
+        ops = 3 * valid * ch
+        if key == "pool_rows":
+            nbytes += 2 * 2 * ch * hid + 4 * (b * hid + ch)
+            ops = 4 * valid * ch * hid
+        bms, by = bound_ms(nbytes, ops, "bfloat16" if key == "pool_rows" else "float32")
+        report[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, timed_by=timed_by)
+        parts.append(f"{'context_stats' if key == 'ctx' else 'attentive_pool_fwd (a bias a row, lengths)'}: "
+                     f"max_abs_err {err:.3e} (rtol {tol}), two calls equal bits; kernels {ms:.4f} ms (device time, "
+                     f"{timed_by}), bound {bms:.4f} ms ({by}, {bms / ms * 100:.1f}%), plain {pms:.4f} ms")
+    print(f"ECAPA context route at B={b}, T={t}, C={ch}, H={hid}, {valid} valid frames (lengths 1-{t}): "
+          + "; ".join(parts) + f" {tag}")
+
+
 def pool_phase(rng, t_frames: int, dev, report: dict, tag: str):
     """Phase 3: the attentive-pool forward kernel vs its plain version at
     B=128, T=``t_frames``, C=1536, H=128 (see the module docstring). Draws
@@ -4185,8 +4384,9 @@ def main() -> int:
               f"ms (device time, {timed_by}; FP32-core design: {PREV_MS['logmel', 'bf16']} ms by events), plain "
               f"{pms:.4f} ms, bound {bms:.4f} ms ({by}; {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) {tag}")
 
-    # 3. attentive-pool kernel vs plain
+    # 3. attentive-pool kernel vs plain; 3b. ECAPA's context route
     a, c, wa32, ba, wb32, bb = pool_phase(rng, n_frames, dev, report, tag)
+    ecapa_route_phase(rng, dev, report, tag)
     t_frames, ch, hid = n_frames, 1536, 128
     del buf32
 
@@ -4654,12 +4854,26 @@ def main() -> int:
             "ddp_graph_launches": ddp_graph_launches.get(zoo_key),
             **extra,
         })
+    kernels += ecapa_route_records(report, zoo_launches)
     print(json.dumps({"kernels": kernels}))
     print(name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def ecapa_route_records(report: dict, zoo_launches: dict) -> list:
+    """The ``kernels`` line's records of ECAPA's context route (phase 3b's
+    errors and times; ``launches``: ECAPA-1024's ``embed_step`` call in
+    phase 15; each ECAPA family's launches in its phase-15 trainer run)."""
+    ecapa = {fam: n for fam, n in zoo_launches.items() if fam.startswith("ecapa")}
+    return [{
+        "name": name_, "route": "cuda", "source": "titanet_torch/csrc/attn_pool.cu",
+        "replaces": "titanet_tpu/models/ecapa.py::ChannelContextAttentivePooling (plain jnp)",
+        "launches": ecapa["ecapa1024"]["embed_step_ctx"], **report[key],
+        "zoo_trainer_launches": {fam: n["ctx"] for fam, n in ecapa.items()},
+    } for key, name_ in (("ctx", "context_stats"), ("pool_rows", "attentive_pool_fwd_rows"))]
 
 
 def megablock_l_record(report: dict, launches: dict) -> dict:

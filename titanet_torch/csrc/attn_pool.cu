@@ -937,21 +937,29 @@ __device__ __forceinline__ void pair_sync(int pair) {  // the 256 threads of war
 
 // Writes the pooled output `out` [B, 2C] and/or the backward's `stats`
 // [4][B][C] (softmax max, sum, mean, E[y^2]); u32 / ub ([B*T, 128]) when
-// not null.
-template <bool kFold>
+// not null. kRows (ECAPA's context-dependent pooling): utterance b's
+// first-product bias is ba + b * ba_ld (ba_ld 0: one [128] for every row),
+// and where `lengths` is not null only its first min(max(lengths[b], 1), T)
+// frames take part: the tiles past them are not loaded, the frames past them
+// in the last tile are masked out of the softmax and the statistics. Without
+// kRows neither is read (the TitaNet routes and the backward's first stage).
+template <bool kFold, bool kRows>
 __global__ void __launch_bounds__(kOpThreads, 1) pool_onepass_kernel(
     const bf16* __restrict__ h, const float* __restrict__ a, const float* __restrict__ c,
     const bf16* __restrict__ wa, const float* __restrict__ ba, const bf16* __restrict__ wb,
     const float* __restrict__ bb, float* __restrict__ part, bf16* __restrict__ out,
     float* __restrict__ stats, float* __restrict__ u32, bf16* __restrict__ ub, int n_t, int C,
     float eps, const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_wa,
-    const __grid_constant__ CUtensorMap tm_wb) {
+    const __grid_constant__ CUtensorMap tm_wb, const int* __restrict__ lengths, int ba_ld) {
   extern __shared__ __align__(1024) unsigned char op_smem[];  // wgmma tiles: 1 KB aligned
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pair = warp >> 3, f = (warp >> 2) & 1, wq = warp & 3;  // pair, frame half, warp of the warpgroup
   const int ptid = tid & 255;  // thread of the pair
   const int s = blockIdx.x, S = gridDim.x, b = blockIdx.y, B = gridDim.y;
-  const int tiles = (n_t + kOpRows - 1) / kOpRows;
+  // the frames that take part (all of T but under kRows with lengths)
+  const int n_valid = kRows && lengths ? min(max(lengths[b], 1), n_t) : n_t;
+  const float* __restrict__ ba_row = kRows ? ba + (long long)b * ba_ld : ba;
+  const int tiles = (n_valid + kOpRows - 1) / kOpRows;
   const int my_tiles = s < tiles ? (tiles - s + S - 1) / S : 0;
   const int NC = C / kOpChunk, NH = NC / 2;  // a pair's stages a step: channel chunks pair, pair + 2, ...
   const int total = my_tiles * NC;           // this pair's stages (NH of step U, then NH of step E, a tile)
@@ -1027,7 +1035,7 @@ __global__ void __launch_bounds__(kOpThreads, 1) pool_onepass_kernel(
   const int qc = 2 * (lane & 3);  // this thread's first accumulator column of an 8-column tile
   for (int i = 0; i < my_tiles; ++i) {
     const int t0 = (s + i * S) * kOpRows;
-    const int fvalid = n_t - t0 - 64 * f;  // frames of this warpgroup's 64 that exist
+    const int fvalid = n_valid - t0 - 64 * f;  // frames of this warpgroup's 64 that take part
 
     // ---- U: this pair's half of K of u = y @ Wa, 64 frames x 128 a warpgroup
     float acc_u[64];
@@ -1103,7 +1111,7 @@ __global__ void __launch_bounds__(kOpThreads, 1) pool_onepass_kernel(
 #pragma unroll
       for (int jn = 0; jn < 16; ++jn) {
         const int col = 8 * jn + qc;
-        const float2 bav = __ldg(reinterpret_cast<const float2*>(ba + col));
+        const float2 bav = __ldg(reinterpret_cast<const float2*>(ba_row + col));
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int r = 16 * wq + (lane >> 2) + 8 * hr;
@@ -1189,6 +1197,94 @@ __global__ void __launch_bounds__(256) pool_merge_kernel(const float* __restrict
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= (long long)B * C) return;
   merge_slots(part, nslots, (long long)B * C, i, C, (int)(i / C), (int)(i % C), out, stats, eps);
+}
+
+// ------------------------------------------------ bf16: the context statistics
+//
+// ECAPA-TDNN's pooling (models/ecapa.py::ChannelContextAttentivePooling) lets
+// every frame's attention see the utterance's mean and std over its valid
+// frames. They are one more read of h: ctx_stats_kernel sums h and h^2 in f32
+// over the valid frames of (utterance b, 128 channels) for split s of S
+// (frames s*16 + .., every 16 S-th row of 16), and ctx_finish_kernel adds the
+// S partial sums of each (b, c) in split order and writes [mean | std], f32
+// [B][2C]: mean = sum / n, std = sqrt(max(sum h^2 / n - mean^2, eps)), n the
+// valid frames (min(max(lengths[b], 1), T); T without lengths). A reduction
+// of its own rather than the one-pass kernel with the attention off: it has
+// no products to feed, so it reads h at the memory's rate with no tensor
+// map, ring or barrier, and the one-pass kernel keeps its code. What bounds
+// it: bytes (a [64, 3845, 1536] bf16 batch is 756 MB, 0.23 ms at 3.35 TB/s).
+// A thread reads 8 channels (16 bytes) of a frame, 16 threads a frame; a
+// block of 256 threads 16 frames at a time. Fixed orders throughout: the
+// same bits every call.
+constexpr int kCtxThreads = 256;
+constexpr int kCtxChan = 128;                     // channels a block
+constexpr int kCtxRows = kCtxThreads / (kCtxChan / 8);  // frames a block reads at once
+constexpr int kCtxBlockTarget = 8 * 132;          // eight blocks an SM of an H100
+constexpr int kCtxMaxSplits = 64;
+// splits of T: enough blocks to fill the card, at most one a row of frames
+inline int ctx_splits(int B, int n_t, int C) {
+  const int per = B * (C / kCtxChan);
+  int s = (kCtxBlockTarget + per - 1) / per;
+  const int rows = (n_t + kCtxRows - 1) / kCtxRows;
+  s = s < rows ? s : rows;
+  return s < 1 ? 1 : (s > kCtxMaxSplits ? kCtxMaxSplits : s);
+}
+// bytes of the partial sums: [S][2][B][C] f32
+inline size_t ctx_part_bytes(int B, int n_t, int C) {
+  return (size_t)ctx_splits(B, n_t, C) * 2 * B * C * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kCtxThreads) ctx_stats_kernel(const bf16* __restrict__ h,
+                                                                const int* __restrict__ lengths,
+                                                                float* __restrict__ part, int n_t, int C) {
+  __shared__ float red[2][kCtxRows][kCtxChan];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int ch0 = blockIdx.x * kCtxChan, s = blockIdx.y, S = gridDim.y, b = blockIdx.z, B = gridDim.z;
+  const int n_valid = lengths ? min(max(lengths[b], 1), n_t) : n_t;
+  float sum[8] = {}, sq[8] = {};
+  const bf16* row = h + (long long)b * n_t * C + ch0 + 8 * tx;
+#pragma unroll 4
+  for (int t = s * kCtxRows + ty; t < n_valid; t += S * kCtxRows) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row + (long long)t * C));
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 v = __bfloat1622float2(p[q]);
+      sum[2 * q] += v.x;
+      sum[2 * q + 1] += v.y;
+      sq[2 * q] = fmaf(v.x, v.x, sq[2 * q]);
+      sq[2 * q + 1] = fmaf(v.y, v.y, sq[2 * q + 1]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    red[0][ty][8 * tx + j] = sum[j];
+    red[1][ty][8 * tx + j] = sq[j];
+  }
+  __syncthreads();
+  const int k = tid & 127, which = tid >> 7;  // channel k of the block; 0: sum, 1: sum of squares
+  float v = 0.f;
+#pragma unroll
+  for (int r = 0; r < kCtxRows; ++r) v += red[which][r][k];
+  part[(((long long)s * 2 + which) * B + b) * C + ch0 + k] = v;
+}
+
+__global__ void __launch_bounds__(256) ctx_finish_kernel(const float* __restrict__ part,
+                                                         const int* __restrict__ lengths, int S, int B,
+                                                         int n_t, int C, float eps, float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)B * C) return;
+  const int b = (int)(i / C), ch = (int)(i % C);
+  const long long n = (long long)B * C;
+  float sum = 0.f, sq = 0.f;
+  for (int s = 0; s < S; ++s) {
+    sum += part[2 * s * n + i];
+    sq += part[(2 * s + 1) * n + i];
+  }
+  const float count = (float)(lengths ? min(max(lengths[b], 1), n_t) : n_t);
+  const float mean = sum / count;
+  out[(long long)b * 2 * C + ch] = mean;
+  out[(long long)b * 2 * C + C + ch] = sqrtf(fmaxf(sq / count - mean * mean, eps));
 }
 
 // Per-column constants of the backward for 128 channels, written by threads
@@ -1686,7 +1782,8 @@ bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* di
 
 int launch_onepass(const bf16* h, const float* a, const float* c, const bf16* wa, const float* ba,
                    const bf16* wb, const float* bb, float* part, bf16* out, float* stats, float* u32,
-                   bf16* ub, int B, int n_t, int C, float eps, int fold, cudaStream_t st) {
+                   bf16* ub, int B, int n_t, int C, float eps, int fold, cudaStream_t st,
+                   const int* lengths = nullptr, int ba_ld = 0) {
   if (B < 1 || B > 65535 || n_t < 1 || C % 128) return (int)cudaErrorInvalidValue;
   // h [B][T][C]: boxes of 64 channels x 128 frames of one utterance; Wa
   // [C][128]: 64 x 64; Wb [128][C]: 64 channels x 128
@@ -1702,11 +1799,14 @@ int launch_onepass(const bf16* h, const float* a, const float* c, const bf16* wa
       !bf16_map(&tm_wb, wb, 2, wb_dims, wb_strides, wb_box))
     return (int)cudaErrorNotSupported;
   cudaError_t err;
-  const auto kernel = fold ? pool_onepass_kernel<true> : pool_onepass_kernel<false>;
+  // kRows only where a row has a bias or a length of its own
+  const bool rows = lengths != nullptr || ba_ld != 0;
+  const auto kernel = rows ? (fold ? pool_onepass_kernel<true, true> : pool_onepass_kernel<false, true>)
+                           : (fold ? pool_onepass_kernel<true, false> : pool_onepass_kernel<false, false>);
   if ((err = allow_smem(kernel, kOpSmem)) != cudaSuccess) return (int)err;
   const int S = onepass_splits(B);
   kernel<<<dim3(S, B), kOpThreads, kOpSmem, st>>>(h, a, c, wa, ba, wb, bb, part, out, stats, u32, ub, n_t,
-                                                  C, eps, tm_h, tm_wa, tm_wb);
+                                                  C, eps, tm_h, tm_wa, tm_wb, lengths, ba_ld);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (S == 1) return 0;
   const long long bc = (long long)B * C;
@@ -1721,6 +1821,18 @@ int launch_tc_fwd(const void* h, const void* a, const void* c, const void* wa, c
   return launch_onepass((const bf16*)h, (const float*)a, (const float*)c, (const bf16*)wa,
                         (const float*)ba, (const bf16*)wb, (const float*)bb, (float*)scratch,
                         (bf16*)out, nullptr, nullptr, nullptr, B, n_t, C, eps, fold, st);
+}
+
+int launch_ctx_stats(const bf16* h, const int* lengths, float* part, float* out, int B, int n_t, int C,
+                     float eps, cudaStream_t st) {
+  if (B < 1 || B > 65535 || n_t < 1 || C % kCtxChan) return (int)cudaErrorInvalidValue;
+  const int S = ctx_splits(B, n_t, C);
+  ctx_stats_kernel<<<dim3(C / kCtxChan, S, B), kCtxThreads, 0, st>>>(h, lengths, part, n_t, C);
+  cudaError_t err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long bc = (long long)B * C;
+  ctx_finish_kernel<<<(unsigned)((bc + 255) / 256), 256, 0, st>>>(part, lengths, S, B, n_t, C, eps, out);
+  return (int)cudaGetLastError();
 }
 
 size_t fwd_scratch_bytes(int B, int n_t, int C, int H, int elem) {
@@ -1815,6 +1927,29 @@ int titanet_attn_pool_fwd_bf16(const void* h, const void* a, const void* c, cons
   return launch<__nv_bfloat16>(h, a, c, wa, ba, wb, bb, u_scratch, out, B, n_t, C, H, eps,
                                fold, stream);
 }
+
+// the bf16 one-pass forward at H == 128 with a first-product bias a row
+// (ba [B][128], ba_ld = 128; ba_ld = 0: ba [128]) and, where lengths is not
+// null, each row's valid frames (int32 [B])
+int titanet_attn_pool_fwd_rows_bf16(const void* h, const void* a, const void* c, const void* wa,
+                                    const void* ba, int ba_ld, const void* wb, const void* bb,
+                                    const void* lengths, void* scratch, void* out, int B, int n_t, int C,
+                                    float eps, int fold, void* stream) {
+  return launch_onepass((const bf16*)h, (const float*)a, (const float*)c, (const bf16*)wa, (const float*)ba,
+                        (const bf16*)wb, (const float*)bb, (float*)scratch, (bf16*)out, nullptr, nullptr,
+                        nullptr, B, n_t, C, eps, fold, (cudaStream_t)stream, (const int*)lengths, ba_ld);
+}
+
+// [mean | std] (f32 [B][2C]) of bf16 h [B][T][C] over each row's valid
+// frames (int32 lengths [B], or all T where null); scratch of
+// titanet_ctx_stats_scratch_bytes
+int titanet_ctx_stats_bf16(const void* h, const void* lengths, void* scratch, void* out, int B, int n_t, int C,
+                           float eps, void* stream) {
+  return launch_ctx_stats((const bf16*)h, (const int*)lengths, (float*)scratch, (float*)out, B, n_t, C, eps,
+                          (cudaStream_t)stream);
+}
+
+long long titanet_ctx_stats_scratch_bytes(int B, int n_t, int C) { return (long long)ctx_part_bytes(B, n_t, C); }
 
 int titanet_attn_pool_bwd_f32(const void* h, const void* a, const void* c, const void* wa,
                               const void* ba, const void* wb, const void* bb, const void* g,

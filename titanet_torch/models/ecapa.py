@@ -19,8 +19,9 @@ frames, and activations are zeroed at padded frames after each conv, so a
 padded row's embedding equals the utterance's solo embedding. In training
 (``model.train()``) the BatchNorm sites take ``mask`` where the JAX sites
 do. There is no dropout. The pooling computes its context in f32 and then
-the plain attentive statistics: no site of this family reaches the pool
-kernel (nor, in the JAX package, its Pallas kernel).
+the attentive statistics; a bf16 model on the card, outside autograd, takes
+the kernel route (:class:`ChannelContextAttentivePooling`), every other
+call the plain one (the JAX package has no kernel for this pooling).
 
 Parameter counts: C=512 -> ~6.2M, C=1024 -> ~14.7M.
 """
@@ -36,9 +37,11 @@ from torch import nn
 from titanet_torch.models import common
 from titanet_torch.ops.conv import SamePadConv1d
 from titanet_torch.ops.dense import Dense
+from titanet_torch.ops.kernels.pool import attentive_pool_fwd, context_stats, kernel_supports
 from titanet_torch.ops.norm import BatchNorm
 from titanet_torch.ops.pooling import attentive_stats
 from titanet_torch.ops.se import SqueezeExcitation
+from titanet_torch.utils.profiling import span
 
 
 def _zero_padded(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -146,7 +149,17 @@ class ChannelContextAttentivePooling(nn.Module):
     As in the JAX module the ``[B, T, 3C]`` context is never built:
     ``W1 context + b1 = x @ W1x + (mean @ W1m + std @ W1s + b1)``, the second
     term a ``[B, 1, H]`` bias. The mean and the variance (masked when
-    ``mask`` is given) are computed in f32."""
+    ``mask`` is given) are computed in f32.
+
+    The kernel route (a bf16 CUDA ``x`` outside autograd and export, H =
+    128, the pool kernel's widths and ``T <= 4096``): the context in one
+    read of ``x`` (:func:`~titanet_torch.ops.kernels.pool.context_stats`),
+    the ``[B, 2C] -> [B, H]`` bias in f32 from bf16 operands, then the
+    one-pass pool kernel with that bias a row and the rows' lengths (the
+    sums of ``mask``, a prefix as the frontend's frame mask is): two reads
+    of ``x`` in all. Its f32 energies and softmax round less than the plain
+    route's bf16 linears. Training and every other call run the plain
+    route. Both run under the span ``pool.context``."""
 
     def __init__(
         self,
@@ -161,6 +174,36 @@ class ChannelContextAttentivePooling(nn.Module):
         self.out_linear = Dense(hidden_size, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, t, ch = x.shape
+        dt = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        hidden = self.out_linear.weight.shape[1]
+        kernel = (
+            x.is_cuda
+            and x.dtype == dt
+            and hidden == 128  # the one-pass kernel's width
+            and kernel_supports(ch, hidden, t, dt)
+            and not torch.is_grad_enabled()
+            and not torch.compiler.is_exporting()
+        )
+        with span("pool.context", rows=b, frames=t, route="kernel" if kernel else "plain"):
+            if kernel:
+                return self._kernel_route(x, mask, dt)
+            return self._plain_route(x, mask, dt)
+
+    def _kernel_route(self, x: torch.Tensor, mask: Optional[torch.Tensor], dt: torch.dtype) -> torch.Tensor:
+        ch = x.shape[-1]
+        x = x.contiguous()
+        lengths = None if mask is None else mask.sum(dim=1).to(torch.int32)
+        ctx = context_stats(x, lengths, self.eps)  # [B, 2C] f32: mean | std
+        w1, wb = self.in_linear.weight, self.out_linear.weight
+        bias = F.linear(ctx.to(dt).float(), w1[:, ch:].to(dt).float(), self.in_linear.bias.float())
+        zeros = torch.zeros(ch, device=x.device, dtype=torch.float32)
+        return attentive_pool_fwd(
+            x, zeros, zeros, w1[:, :ch].to(dt).t().contiguous(), bias.contiguous(),
+            wb.to(dt).t().contiguous(), self.out_linear.bias.float().contiguous(), self.eps, False, lengths,
+        )
+
+    def _plain_route(self, x: torch.Tensor, mask: Optional[torch.Tensor], dt: torch.dtype) -> torch.Tensor:
         ch = x.shape[-1]
         xf = x.float()
         if mask is not None:
@@ -172,7 +215,6 @@ class ChannelContextAttentivePooling(nn.Module):
             mean = xf.mean(dim=1, keepdim=True)
             var = xf.var(dim=1, unbiased=False, keepdim=True)
         std = torch.sqrt(torch.clamp(var, min=self.eps))
-        dt = self.dtype or torch.promote_types(x.dtype, torch.float32)
         w1 = self.in_linear.weight.to(dt)  # [H, 3C]
         # frame-independent context contribution: a [B, 1, H] bias
         ctx_bias = (

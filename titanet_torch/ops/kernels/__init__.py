@@ -5,7 +5,8 @@
 - :mod:`.megablock` — a mega-block's fused sub-block chain for inference
   (``csrc/megablock.cu``).
 - :mod:`.pool` — attentive-statistics pooling with the BN fold, forward
-  and backward (``csrc/attn_pool.cu``), and its autograd Function.
+  and backward (``csrc/attn_pool.cu``), and its autograd Function; ECAPA's
+  context statistics and its per-row, length-aware forward.
 - :mod:`.dwconv` — depthwise-conv backward in one pass (``csrc/dw_bwd.cu``),
   and its autograd Function.
 
@@ -34,5 +35,6 @@ def launch_counters() -> tuple:
         (melspec.log_mel_fused, "dmma_launches"), (melspec.log_mel_frames, "launches"),
         (melspec.log_mel_frames, "dmma_launches"), (megablock.fused_sub_blocks, "launches"),
         (pool.attentive_pool_fwd, "launches"), (pool.attentive_pool_bwd, "launches"),
+        (pool.context_stats, "launches"),
         (dwconv.dw_bwd, "launches"),
     )

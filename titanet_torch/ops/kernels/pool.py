@@ -113,20 +113,31 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.titanet_attn_pool_bwd_workspace_bytes, lib.titanet_attn_pool_fwd_scratch_bytes):
         fn.argtypes = [ctypes.c_int] * 5
         fn.restype = ctypes.c_longlong
+    lib.titanet_attn_pool_fwd_rows_bf16.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.titanet_attn_pool_fwd_rows_bf16.restype = ctypes.c_int
+    lib.titanet_ctx_stats_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                                                        ctypes.c_void_p]
+    lib.titanet_ctx_stats_bf16.restype = ctypes.c_int
+    lib.titanet_ctx_stats_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.titanet_ctx_stats_scratch_bytes.restype = ctypes.c_longlong
     lib.titanet_attn_pool_error_string.argtypes = [ctypes.c_int]
     lib.titanet_attn_pool_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(h, a, c, wa, ba, wb, bb):
+def _check(h, a, c, wa, ba, wb, bb, lengths=None):
     if h.dim() != 3:
         raise ValueError(f"h must be [B, T, C], got {tuple(h.shape)}")
     if h.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"h must be float32 or bfloat16, got {h.dtype}")
-    _, t, ch = h.shape
+    b, t, ch = h.shape
     hid = wa.shape[1]
     shapes = {"a": (a, (ch,)), "c": (c, (ch,)), "wa": (wa, (ch, hid)),
-              "ba": (ba, (hid,)), "wb": (wb, (hid, ch)), "bb": (bb, (ch,))}
+              "ba": (ba, (b, hid) if ba.dim() == 2 else (hid,)), "wb": (wb, (hid, ch)), "bb": (bb, (ch,))}
+    if lengths is not None:
+        _check_lengths(h, lengths)
     for name, (x, shape) in shapes.items():
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
@@ -143,16 +154,33 @@ def _check(h, a, c, wa, ba, wb, bb):
         raise ValueError("T must be >= 1")
 
 
-def attentive_pool_fwd_plain(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = False):
+def _check_lengths(h, lengths):
+    if tuple(lengths.shape) != (h.shape[0],) or lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be int32 [{h.shape[0]}], got {lengths.dtype} {tuple(lengths.shape)}")
+    if lengths.device != h.device or not lengths.is_contiguous():
+        raise ValueError("lengths must be contiguous and on h's device")
+
+
+def valid_frames(lengths, t: int, device) -> torch.Tensor:
+    """``[B, T, 1]`` f32: 1 for the frames a row's length keeps
+    (``min(max(length, 1), T)`` of them, as the kernels count them)."""
+    n = lengths.to(device=device, dtype=torch.int64).clamp(1, t)
+    return (torch.arange(t, device=device)[None, :] < n[:, None]).float()[..., None]
+
+
+def attentive_pool_fwd_plain(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = False, lengths=None):
     """Plain torch version of the kernel: the TPU kernel's arithmetic (the
     matmul operands in h's dtype, widened exactly to f32, f32 accumulation,
-    f32 softmax and moments)."""
+    f32 softmax and moments). ``ba`` ``[H]`` or a row's own ``[B, H]``;
+    with ``lengths`` a row's frames past its length take no part."""
     dt = h.dtype
     hf = h.float()
     yf = torch.relu(hf * a + c) if fold else hf
     y = yf.to(dt).float()
-    u = torch.tanh(y @ wa.float() + ba)
+    u = torch.tanh(y @ wa.float() + (ba[:, None, :] if ba.dim() == 2 else ba))
     e = u.to(dt).float() @ wb.float() + bb
+    if lengths is not None:
+        e = e.masked_fill(valid_frames(lengths, h.shape[1], h.device) == 0, float("-inf"))
     alpha = torch.softmax(e, dim=1)
     wy = alpha * yf
     mean = wy.sum(dim=1)
@@ -214,34 +242,49 @@ def attentive_pool_fwd_split(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: b
     return torch.cat([mean, std], dim=-1).to(dt)
 
 
-def attentive_pool_fwd(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = False):
+def attentive_pool_fwd(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = False, lengths=None):
     """``h [B, T, C]`` (f32 or bf16) -> ``[B, 2C]`` in h's dtype.
 
     ``a``, ``c`` ``[C]`` f32 fold vectors (ignored unless ``fold``);
     ``wa [C, H]`` and ``wb [H, C]`` in h's dtype; ``ba [H]``, ``bb [C]``
-    f32. All contiguous and on one device."""
-    _check(h, a, c, wa, ba, wb, bb)
+    f32. All contiguous and on one device. ECAPA's context-dependent
+    pooling gives each row a first-product bias of its own (``ba [B, H]``)
+    and, in ``lengths`` (int32 ``[B]``), its valid frames: only the first
+    ``min(max(length, 1), T)`` take part. On the card those two run the
+    bf16 one-pass kernel at H = 128 only."""
+    _check(h, a, c, wa, ba, wb, bb, lengths)
     if h.device.type == "cpu":
-        return attentive_pool_fwd_plain(h, a, c, wa, ba, wb, bb, eps, fold)
+        return attentive_pool_fwd_plain(h, a, c, wa, ba, wb, bb, eps, fold, lengths)
     if h.device.type != "cuda":
         raise RuntimeError(f"no attentive-pool kernel for device {h.device}")
     b, t, ch = h.shape
     hid = wa.shape[1]
     if ch % 128 or hid % 128 or smem_bytes(hid) > MAX_SMEM:
         raise ValueError(f"kernel takes C % 128 == 0 and H in {{128, 256}}; got C={ch}, H={hid}")
+    rows = ba.dim() == 2 or lengths is not None
+    if rows and (h.dtype != torch.bfloat16 or hid != 128):
+        raise ValueError(f"a bias or lengths a row take the bf16 one-pass kernel at H = 128; got {h.dtype}, H={hid}")
     lib = _lib()
     # u [B*T, H] f32 (FP32-core route) or the running states (one-pass route)
     nbytes = lib.titanet_attn_pool_fwd_scratch_bytes(b, t, ch, hid, h.element_size())
     scratch = torch.empty(nbytes, device=h.device, dtype=torch.uint8)
     out = torch.empty(b, 2 * ch, device=h.device, dtype=h.dtype)
-    fn = lib.titanet_attn_pool_fwd_f32 if h.dtype == torch.float32 else lib.titanet_attn_pool_fwd_bf16
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        code = fn(
-            h.data_ptr(), a.data_ptr(), c.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-            wb.data_ptr(), bb.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            b, t, ch, hid, float(eps), int(bool(fold)), stream,
-        )
+        if rows:
+            code = lib.titanet_attn_pool_fwd_rows_bf16(
+                h.data_ptr(), a.data_ptr(), c.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+                hid if ba.dim() == 2 else 0, wb.data_ptr(), bb.data_ptr(),
+                lengths.data_ptr() if lengths is not None else None, scratch.data_ptr(), out.data_ptr(),
+                b, t, ch, float(eps), int(bool(fold)), stream,
+            )
+        else:
+            fn = lib.titanet_attn_pool_fwd_f32 if h.dtype == torch.float32 else lib.titanet_attn_pool_fwd_bf16
+            code = fn(
+                h.data_ptr(), a.data_ptr(), c.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+                wb.data_ptr(), bb.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                b, t, ch, hid, float(eps), int(bool(fold)), stream,
+            )
     if code != 0:
         raise RuntimeError(
             f"attentive-pool kernel launch failed: "
@@ -252,6 +295,60 @@ def attentive_pool_fwd(h, a, c, wa, ba, wb, bb, eps: float = 1e-6, fold: bool = 
 
 
 attentive_pool_fwd.launches = 0
+
+
+def context_stats_plain(h, lengths=None, eps: float = 1e-6):
+    """Plain torch version of the context-statistics kernels: f32 sums of
+    h and h^2 over each row's valid frames (all T without ``lengths``),
+    ``mean = sum / n`` and ``std = sqrt(max(sum h^2 / n - mean^2, eps))``."""
+    b, t, _ = h.shape
+    hf = h.float()
+    if lengths is None:
+        n = hf.new_full((b, 1), float(t))
+        s1, s2 = hf.sum(dim=1), (hf * hf).sum(dim=1)
+    else:
+        m = valid_frames(lengths, t, h.device)
+        n = m.sum(dim=1)
+        s1, s2 = (hf * m).sum(dim=1), (hf * hf * m).sum(dim=1)
+    mean = s1 / n
+    std = torch.sqrt(torch.clamp(s2 / n - mean * mean, min=eps))
+    return torch.cat([mean, std], dim=-1)
+
+
+def context_stats(h, lengths=None, eps: float = 1e-6):
+    """``[mean | std]`` (f32 ``[B, 2C]``) of ``h [B, T, C]`` over each
+    row's valid frames: ECAPA-TDNN's context (``lengths`` int32 ``[B]`` as
+    :func:`attentive_pool_fwd` takes them; None: all T). On a CUDA tensor
+    bf16 h, C % 128 == 0, runs ``ctx_stats_kernel`` and
+    ``ctx_finish_kernel`` (``csrc/attn_pool.cu``); on a CPU tensor the
+    plain version."""
+    if h.dim() != 3:
+        raise ValueError(f"h must be [B, T, C], got {tuple(h.shape)}")
+    if lengths is not None:
+        _check_lengths(h, lengths)
+    if h.device.type == "cpu":
+        return context_stats_plain(h, lengths, eps)
+    if h.device.type != "cuda":
+        raise RuntimeError(f"no context-statistics kernel for device {h.device}")
+    b, t, ch = h.shape
+    if h.dtype != torch.bfloat16 or ch % 128 or not h.is_contiguous() or h.data_ptr() % 16:
+        raise ValueError(f"the kernel takes contiguous bf16 h with C % 128 == 0; got {h.dtype}, C={ch}")
+    lib = _lib()
+    scratch = torch.empty(lib.titanet_ctx_stats_scratch_bytes(b, t, ch), device=h.device, dtype=torch.uint8)
+    out = torch.empty(b, 2 * ch, device=h.device, dtype=torch.float32)
+    with torch.cuda.device(h.device):
+        code = lib.titanet_ctx_stats_bf16(
+            h.data_ptr(), lengths.data_ptr() if lengths is not None else None, scratch.data_ptr(),
+            out.data_ptr(), b, t, ch, float(eps), torch.cuda.current_stream(h.device).cuda_stream,
+        )
+    if code != 0:
+        raise RuntimeError(f"context-statistics kernel launch failed: "
+                           f"{lib.titanet_attn_pool_error_string(code).decode()}")
+    context_stats.launches += 1
+    return out
+
+
+context_stats.launches = 0
 
 
 def attentive_pool_bwd_plain(h, a, c, wa, ba, wb, bb, g, eps: float = 1e-6, fold: bool = False):
