@@ -137,9 +137,10 @@ Phases (any failure exits non-zero and prints no result):
      bf16 tensor-core kernel under ``--fast-frontend``; the default
      service's frontend is plain torch), and the kernel matches its plain
      version on every launch's own operands (bucket widths, lengths,
-     filler rows of length 1; phase 2's tolerances); ``infer --split``'s
-     one (``loop.infer`` pools unmasked) also runs the pool forward
-     kernel, held as in phase 13, and no other command does. Printed: the
+     filler rows of length 1 up to each batch's row class; phase 2's
+     tolerances); ``infer --split``'s one (``loop.infer`` pools unmasked)
+     also runs the pool forward kernel, held as in phase 13, and no other
+     command does. Printed: the
      median ms of an /embed of a 3 s WAV per variant, ``trials`` files/s
      and ``diarize``'s real-time factor.
 
@@ -232,9 +233,10 @@ Phases (any failure exits non-zero and prints no result):
      calls of each route in turns, device ms, idle share, kernels and host
      launch calls a call, the capture's ms and the graph pool's MiB; (b)
      ``SpeakerEmbedder`` at the service's 4 buckets (batch 8) and the
-     default 10 (batch 32): ``warmup()``'s seconds, each bucket's capture
-     and the pool after it, phase 5's requests equal to an eager embedder's
-     to the bit with no capture at a request; (c) ``eval_step`` on phase
+     default 10 (batch 32, row classes 32, 16, 8): ``warmup()``'s
+     seconds, each (bucket, row class) capture and the pool after it,
+     phase 5's requests equal to an eager embedder's to the bit with no
+     capture at a request; (c) ``eval_step`` on phase
      13's validation batches with run A: loss, preds and embeddings equal to
      eager's to the bit, one graph a batch shape; (d) in (a)-(c) every
      log-mel and pool-forward launch inside each graph replayed on the
@@ -1164,14 +1166,14 @@ def replay_mel(records, what: str, dtype=None):
     them): the replay gives the path's output bit for bit and matches
     ``log_mel_fused_plain`` within phase 2's tolerance (f32 atol 1e-4, bf16
     2e-3); ``dtype``, when given, is the operands' required dtype. Raises on
-    a miss; returns ``(max abs err, filler rows of length 1, buffer
-    shapes)``."""
+    a miss; returns ``(max abs err, (rows, filler rows of length 1) of
+    each launch, buffer shapes)``."""
     import torch
 
     from titanet_torch.ops import frontend as tf
     from titanet_torch.ops.kernels.melspec import log_mel_fused, log_mel_fused_plain
 
-    err, n_fillers, widths = 0.0, 0, set()
+    err, rows, widths = 0.0, [], set()
     for rec in records:
         args, kw = tf.log_mel_fused_operands(rec["waveform"], rec["cfg"], rec["lengths"])
         if dtype is not None and args[0].dtype != dtype:
@@ -1188,9 +1190,9 @@ def replay_mel(records, what: str, dtype=None):
             raise AssertionError(f"{what}: log-mel kernel vs plain on {tuple(args[0].shape)} "
                                  f"{args[0].dtype}: max abs err {e} > {atol}")
         err = max(err, e)
-        n_fillers += int((args[1] == 1).sum().item()) if args[1] is not None else 0
+        rows.append((args[0].shape[0], int((args[1] == 1).sum().item()) if args[1] is not None else 0))
         widths.add(tuple(args[0].shape))
-    return err, n_fillers, widths
+    return err, rows, widths
 
 
 def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel: str = "f32",
@@ -1203,8 +1205,10 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
     log-mel kernel once (bf16: the bf16 tensor-core one, f32: the f64
     tensor-core one), and each launch,
     replayed on its own operands (the bucket width, the lengths, the filler
-    rows of length 1 that ``SpeakerEmbedder`` pads a group with, which
-    ``fillers`` requires to be among them), gives the command's output bit
+    rows of length 1 that ``SpeakerEmbedder`` pads a group with: ``fillers``
+    requires each launch's rows to be the smallest row class that holds its
+    real rows, ``batch_size`` halved down to 8, so a group that fills its
+    class has none), gives the command's output bit
     for bit and matches ``log_mel_fused_plain``: f32 atol 1e-4, bf16 2e-3,
     as phase 2. ``mel`` None: no launch (a plain torch frontend).
 
@@ -1235,9 +1239,13 @@ def check_command_kernels(calls: "embedding_calls", what: str, tag: str, *, mel:
     line = f"  {what}: {calls.calls} embedding calls"
     if mel:
         atol = 2e-3 if mel == "bf16" else 1e-4
-        err, n_fillers, widths = replay_mel(calls.mel, what, torch.bfloat16 if mel == "bf16" else torch.float32)
-        if fillers and n_fillers == 0:
-            raise AssertionError(f"{what}: no launch held filler rows")
+        err, rows, widths = replay_mel(calls.mel, what, torch.bfloat16 if mel == "bf16" else torch.float32)
+        n_fillers = sum(f for _, f in rows)
+        # a smaller class (half the rows, 8 at least) would have held the real rows
+        wasted = [(r, r - f) for r, f in rows if r - f <= r // 2 and r // 2 >= 8]
+        if fillers and wasted:
+            raise AssertionError(f"{what}: launches (rows, real rows) {wasted} not at the smallest row class "
+                                 "that holds their real rows")
         summary["max_abs_err"] = err
         route = "logmel_tc_kernel, bf16" if mel == "bf16" else "logmel_dmma_kernel, f32"
         line += (f", all through the log-mel kernel ({route});"
@@ -2834,7 +2842,7 @@ def capture_phase(root: str, n_speakers: int, tag: str) -> dict:
     from titanet_torch.ops.kernels.pool import attentive_pool_fwd
     from titanet_torch.train import capture, loop
     from titanet_torch.train import state as ts
-    from titanet_torch.train.extractor import SpeakerEmbedder, geometric_buckets
+    from titanet_torch.train.extractor import SpeakerEmbedder, geometric_buckets, row_classes, rows_for
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
@@ -2940,7 +2948,7 @@ def capture_phase(root: str, n_speakers: int, tag: str) -> dict:
             def timed(group, bucket, _padded=padded):
                 t1 = time.perf_counter()
                 out = _padded(group, bucket)
-                marks.append((bucket, time.perf_counter() - t1, graphs.pool_bytes()))
+                marks.append((bucket, rows_for(len(group), bs), time.perf_counter() - t1, graphs.pool_bytes()))
                 return out
 
             embedder._embed_padded = timed
@@ -2948,20 +2956,22 @@ def capture_phase(root: str, n_speakers: int, tag: str) -> dict:
             embedder.warmup()
             warm_s = time.perf_counter() - t0
             del embedder._embed_padded
-            if graphs.captures != len(buckets):
+            shapes = len(buckets) * len(row_classes(bs))
+            if graphs.captures != shapes:
                 raise AssertionError(f"SpeakerEmbedder {what}: warmup captured {graphs.captures} graphs for "
-                                     f"{len(buckets)} buckets")
+                                     f"{len(buckets)} buckets x row classes {row_classes(bs)}")
             got = [embedder.embed(reqs), embedder.embed(reqs[::-1])]
             want = [eager.embed(reqs), eager.embed(reqs[::-1])]
-            if graphs.captures != len(buckets) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            if graphs.captures != shapes or not all(np.array_equal(a, b) for a, b in zip(got, want)):
                 raise AssertionError(f"SpeakerEmbedder {what}: graph vs eager bits differ or a request captured "
                                      f"({graphs.captures} captures)")
             log_mel_fused.launches = 0
             embedder.embed(reqs)
             graph_launches["logmel"][f"SpeakerEmbedder {what}"] = log_mel_fused.launches
-            steps = [f"{b}: {s * 1e3:.1f} ms, pool {p / 2**20:.1f} MiB" for b, s, p in marks]
+            steps = [f"{b} x {r}: {s * 1e3:.1f} ms, pool {p / 2**20:.1f} MiB" for b, r, s, p in marks]
             print(f"capture SpeakerEmbedder {what} buckets ({len(buckets)}, batch {bs}, bf16 fused log-mel): "
-                  f"warmup() {warm_s:.3f} s, one graph a bucket ({'; '.join(steps)}); pool after warmup "
+                  f"warmup() {warm_s:.3f} s, one graph a bucket and row class ({'; '.join(steps)}); pool after "
+                  f"warmup "
                   f"{graphs.pool_bytes() / 2**20:.1f} MiB; phase 5's requests (1.2/3/7/40 s, both orders) equal "
                   f"to an eager embedder's to the bit, no capture at a request; {log_mel_fused.launches} log-mel "
                   f"launches a request set (replay-aware counters) {tag}")

@@ -1,8 +1,9 @@
 """The embedder's batch staging (``titanet_torch/train/extractor.py``: two
-reused slots, batch k + 1 launched before batch k is read back) against
-the serial path it replaced, a fresh zeros batch a step: on the CPU at toy
-widths, and on the card at the mixed lengths of ``test_torch_cuda.py``'s
-embedder tests.
+reused slots, batch k + 1 launched before batch k is read back, each batch
+at the smallest row class that holds it) against the serial path it
+replaced, a fresh zeros batch a step: on the CPU at toy widths, and on the
+card at the mixed lengths of ``test_torch_cuda.py``'s embedder tests and
+at TitaNet-L's widths.
 
 Imports neither JAX nor the JAX package, so the card's cases also run
 where only the port is installed:
@@ -32,15 +33,28 @@ BUCKETS = [4000, 8000]
 BATCH = 2
 
 
+def _class_rows(n, batch_size):
+    """The rows a batch of ``n`` real rows is handed to the step with: the
+    smallest of ``batch_size``, ``batch_size / 2``, ... (none under 8 rows)
+    that holds them."""
+    rows = batch_size
+    while rows // 2 >= max(n, 8):
+        rows //= 2
+    return rows
+
+
 class SerialEmbedder(SpeakerEmbedder):
-    """The same plan, each batch padded into a fresh zeros array and
-    embedded and read back before the next is padded."""
+    """The same plan, each batch padded into a fresh zeros array of its
+    row class and embedded and read back before the next is padded."""
+
+    fixed_rows = False  # pad every batch to batch_size rows instead (FixedEmbedder)
 
     def _embed_batches(self, batches):
         out = []
         for bucket, group in batches:
-            batch = np.zeros((self.batch_size, bucket), np.float32)
-            lengths = np.ones(self.batch_size, np.int32)
+            rows = self.batch_size if self.fixed_rows else _class_rows(len(group), self.batch_size)
+            batch = np.zeros((rows, bucket), np.float32)
+            lengths = np.ones(rows, np.int32)
             for j, w in enumerate(group):
                 batch[j, : len(w)] = w
                 lengths[j] = len(w)
@@ -48,6 +62,13 @@ class SerialEmbedder(SpeakerEmbedder):
                                 device=self.device, capture=self.capture)
             out.append(emb.float().cpu().numpy()[: len(group)])
         return out
+
+
+class FixedEmbedder(SerialEmbedder):
+    """The serial path at ``batch_size`` rows a batch, the JAX package's
+    extractor's shapes."""
+
+    fixed_rows = True
 
 
 def _waves(lengths, seed):
@@ -114,6 +135,64 @@ def test_staged_answers_equal_fresh_zeros_batches(model, monkeypatch, case):
     for request in requests:
         np.testing.assert_array_equal(staged.embed(request), serial.embed(request))
     assert calls  # the staged embedder's batches, checked as handed over
+
+
+# (batch_size, real rows of one bucket): one under, at and over each row class
+ROW_CASES = [(bs, n) for bs in (16, 32) for n in sorted({1, 7, 8, 9, 17, bs - 1, bs, bs + 1})]
+
+
+def _rows_request(n, seed):
+    """``n`` waveforms of the 8000 bucket and 3 of the 4000 one."""
+    rng = np.random.default_rng(seed)
+    return _waves(list(rng.integers(4001, 8001, n)) + [3000, 3500, 2000], seed)
+
+
+@pytest.mark.parametrize("batch_size,n", ROW_CASES)
+def test_partial_batches_run_at_their_row_class(model, monkeypatch, batch_size, n):
+    """Each batch reaches the step as ``[class, bucket]``, the class the
+    smallest of ``batch_size``, ``batch_size / 2``, ... (down to 8) that
+    holds its rows; the answers equal a serial embedder's that pads to the
+    same class, bit for bit, and one's that pads to ``batch_size``, within
+    1e-5. Between two such requests a full batch of shorter rows, whose
+    tails the next fill must zero at another row count; after them a full
+    batch of the other bucket on the slot that last held 8 of its rows,
+    past which the old width's rows must have been zeroed."""
+    kw = dict(buckets=BUCKETS, batch_size=batch_size, device="cpu")
+    staged, serial, fixed = SpeakerEmbedder(model, FE, **kw), SerialEmbedder(model, FE, **kw), FixedEmbedder(
+        model, FE, **kw)
+    requests = [_rows_request(n, seed=n), _waves([4100 + 13 * i for i in range(batch_size)], seed=1),
+                _rows_request(n, seed=n + 1), _waves([2500 + 17 * i for i in range(batch_size)], seed=2)]
+    calls = _checked_steps(monkeypatch)
+    got = [staged.embed(r) for r in requests]
+    want = []
+    for long_rows, short_rows in ((n, 3), (batch_size, 0), (n, 3), (0, batch_size)):
+        want += [(_class_rows(short_rows, batch_size), 4000)] if short_rows else []
+        want += [(_class_rows(min(batch_size, long_rows - i), batch_size), 8000)
+                 for i in range(0, long_rows, batch_size)]
+    assert [tuple(c) for c in calls] == want
+    for request, answer in zip(requests, got):
+        np.testing.assert_array_equal(answer, serial.embed(request))
+        np.testing.assert_allclose(answer, fixed.embed(request), rtol=0, atol=1e-5)
+
+
+def test_warmup_hands_the_step_every_bucket_and_row_class_largest_first(model, monkeypatch):
+    calls = _checked_steps(monkeypatch)
+    SpeakerEmbedder(model, FE, buckets=BUCKETS, batch_size=32, device="cpu").warmup()
+    assert [tuple(c) for c in calls] == [(rows, bucket) for bucket in (8000, 4000) for rows in (32, 16, 8)]
+
+
+def test_pad_spans_count_the_rows_handed_to_the_step(model, monkeypatch, tmp_path):
+    """``embed.pad``'s rows and computed samples are those of the batch the
+    step received (``filler_share.embed`` reads them)."""
+    embedder = SpeakerEmbedder(model, FE, buckets=BUCKETS, batch_size=16, device="cpu")
+    calls = _checked_steps(monkeypatch)
+    with profiling.trace(str(tmp_path)):
+        embedder.embed(_rows_request(19, seed=3))
+    (root,) = [s["root"] for s in profiling.spans() if s["name"] == "embed.request"][-1:]
+    pads = [s["counts"] for s in profiling.spans() if s["root"] == root and s["name"] == "embed.pad"]
+    assert [tuple(c) for c in calls] == [(8, 4000), (16, 8000), (8, 8000)]
+    assert [(p["rows"], p["real_rows"], p["computed_samples"]) for p in pads] == [
+        (8, 3, 8 * 4000), (16, 16, 16 * 8000), (8, 3, 8 * 8000)]
 
 
 def test_concurrent_calls_on_one_embedder_keep_their_answers(model):
@@ -214,3 +293,31 @@ def test_staged_uploads_are_pinned_and_the_batch_loop_never_syncs(cuda_device, t
     finally:
         torch.cuda.set_sync_debug_mode(0)
     np.testing.assert_array_equal(got, serial.embed(request))
+
+
+@pytest.mark.cuda
+def test_row_classes_on_the_card_at_titanet_l_widths(cuda_device):
+    """bf16 at C = 1024, k = 11, batch 64: after ``warmup()``, which
+    captures every (bucket, row class) shape, a request captures nothing,
+    and each row embedded at its class (a bucket's tail of 6 rows at 8, a
+    group of 21 at 32) agrees with the same row in a 64-row batch (cosine
+    > 0.9999)."""
+    from titanet_torch.models import get_titanet
+    from titanet_torch.train.capture import GRAPHS
+
+    model = get_titanet(model_size="l", n_mega_blocks=2, dtype=torch.bfloat16, device=cuda_device,
+                        generator=torch.Generator().manual_seed(3)).eval()
+    fe = FrontendConfig.from_ms(precision="default", use_pallas_fused=True)
+    kw = dict(buckets=[24000, 48000], batch_size=64, device=cuda_device)
+    staged, fixed = SpeakerEmbedder(model, fe, **kw), FixedEmbedder(model, fe, **kw)
+    rng = np.random.default_rng(7)
+    lengths = list(rng.integers(24001, 48001, 70)) + list(rng.integers(8000, 24001, 21))
+    request = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in lengths]
+    before = GRAPHS.captures
+    staged.warmup()
+    assert GRAPHS.captures - before == 2 * 4  # two buckets, rows 64, 32, 16 and 8
+    before = GRAPHS.captures
+    got = staged.embed(request)
+    assert GRAPHS.captures == before
+    cosines = (got * fixed.embed(request)).sum(-1)  # unit rows
+    assert got.shape == (91, 192) and np.isfinite(got).all() and cosines.min() > 0.9999, cosines.min()

@@ -8,7 +8,14 @@ cut into overlapping windows whose unit-norm embeddings are averaged and
 re-normalized. ``quantized=True`` embeds through the int8 tree
 (:mod:`titanet_torch.models.quantized`), built once from the model.
 
-On the card every (bucket, ``batch_size``) shape is one CUDA graph
+A batch of ``n`` real rows is handed to the step at the smallest row
+class that holds it (:func:`row_classes`: ``batch_size``, ``batch_size //
+2``, ... down to 8 rows; ``batch_size`` alone under 16), so a bucket's
+last, partial batch computes few filler rows; full batches keep
+``batch_size`` rows. The JAX package's extractor pads every batch to
+``batch_size``: the two differ in batch shapes, not in answers.
+
+On the card every (bucket, row class) shape is one CUDA graph
 (:mod:`titanet_torch.train.capture`), captured by :meth:`SpeakerEmbedder.warmup`
 or by the first batch of that shape and replayed by every later one;
 ``capture=False`` embeds eagerly, ``capture`` as
@@ -44,6 +51,20 @@ from titanet_torch.utils.profiling import span
 _REQUESTS = itertools.count()  # the process's embedding requests, the id of each one's spans
 
 
+def row_classes(batch_size: int) -> List[int]:
+    """The row counts a batch is handed to the step with, largest first:
+    ``batch_size`` halved while the half holds at least 8 rows."""
+    classes = [batch_size]
+    while classes[-1] // 2 >= 8:
+        classes.append(classes[-1] // 2)
+    return classes
+
+
+def rows_for(n: int, batch_size: int) -> int:
+    """The smallest row class (:func:`row_classes`) that holds ``n`` rows."""
+    return min(c for c in row_classes(batch_size) if c >= n)
+
+
 def geometric_buckets(
     min_samples: int = 16000, max_samples: int = 480000, growth: float = 1.5
 ) -> List[int]:
@@ -60,7 +81,8 @@ class _Slot:
     ``[rows, E]`` float32 embeddings read back into, in pinned memory on the
     card; ``done``, the event recorded after the readback copy on the card.
     ``bucket`` is the width ``wav`` was last filled at and ``held[j]`` the
-    samples row ``j`` may hold past zero, so a fill zeros only those."""
+    samples row ``j`` (at offset ``j * bucket``) may hold past zero, so a
+    fill zeros only those; a batch uses the slot's first rows."""
 
     def __init__(self, rows: int, samples: int, emb: int, pin: bool):
         self.wav = torch.zeros(samples, dtype=torch.float32, pin_memory=pin)
@@ -72,16 +94,18 @@ class _Slot:
         self.rows = 0  # the real rows of the batch last launched
 
     def fill(self, group: List[np.ndarray], bucket: int):
-        """``group`` padded to ``[rows, bucket]`` with zeros, the rows past
-        it zeros of length 1 (harmless filler rows) -> (waveform, lengths)
-        tensors over the slot's memory."""
+        """``group`` padded to ``[rows, bucket]`` with zeros, ``rows`` the
+        smallest row class that holds it (:func:`rows_for` of the slot's
+        rows), the rows past it zeros of length 1 (harmless filler rows) ->
+        (waveform ``[rows, bucket]``, lengths ``[rows]``) tensors over the
+        slot's memory. Rows past ``rows`` keep what they hold."""
         flat = self.wav.numpy()
         if bucket != self.bucket:  # the rows move: zero what the last width's rows held
             for j in np.flatnonzero(self.held):
                 flat[j * self.bucket : j * self.bucket + self.held[j]] = 0
             self.held[:] = 0
             self.bucket = bucket
-        rows = len(self.held)
+        rows = rows_for(len(group), len(self.held))
         batch = flat[: rows * bucket].reshape(rows, bucket)
         lengths = self.lengths.numpy()
         for j in range(rows):
@@ -93,13 +117,13 @@ class _Slot:
                 batch[j, n : self.held[j]] = 0
             self.held[j] = n
             lengths[j] = n if real else 1
-        return self.wav[: rows * bucket].view(rows, bucket), self.lengths
+        return self.wav[: rows * bucket].view(rows, bucket), self.lengths[:rows]
 
     def launch_readback(self, emb: torch.Tensor, rows: int) -> None:
-        """Queue the copy of ``emb``, whose first ``rows`` are real, into
+        """Queue the copy of ``emb``'s first ``rows``, the real ones, into
         ``out`` (no wait on the card)."""
         self.rows = rows
-        self.out.copy_(emb.float(), non_blocking=self.done is not None)
+        self.out[:rows].copy_(emb[:rows].float(), non_blocking=self.done is not None)
         if self.done is not None:
             self.done.record(torch.cuda.current_stream(emb.device))
 
@@ -173,11 +197,12 @@ class SpeakerEmbedder:
             try:
                 for k, (bucket, group) in enumerate(batches):
                     slot = slots[k % 2]
-                    with span("embed.pad", bucket=bucket, rows=self.batch_size, real_rows=len(group),
-                              computed_samples=self.batch_size * bucket, in_flight=int(pending is not None)) as sp:
+                    with span("embed.pad", bucket=bucket, real_rows=len(group),
+                              in_flight=int(pending is not None)) as sp:
                         wav, lengths = slot.fill(group, bucket)
-                        if sp:
-                            sp.count(real_samples=sum(len(w) for w in group))
+                        if sp:  # the rows handed to the step
+                            sp.count(rows=len(lengths), computed_samples=wav.numel(),
+                                     real_samples=sum(len(w) for w in group))
                     if self.qtree is not None:
                         emb = embed_step_quantized(
                             self.qtree, wav, lengths,
@@ -219,14 +244,18 @@ class SpeakerEmbedder:
         return wins
 
     def warmup(self) -> None:
-        """Run every (bucket, batch_size) shape once: on the card this
+        """Run every (bucket, row class) shape once: on the card this
         captures each shape's graph, so that no request pays for a
         capture (the JAX package compiles each executable here). Largest
-        bucket first: the graphs share one memory pool, and a smaller
-        graph's capture reuses the blocks a larger one freed, where in
-        rising order each needs blocks larger than any freed before it."""
+        bucket first, and largest class first within a bucket: the graphs
+        share one memory pool, and a smaller graph's capture reuses the
+        blocks a larger one freed, where in rising order each needs blocks
+        larger than any freed before it."""
+        classes = row_classes(self.batch_size)
         for bucket in reversed(self.buckets):
-            self._embed_padded([np.zeros(bucket, np.float32)], bucket)
+            zeros = np.zeros(bucket, np.float32)
+            for smaller in classes[1:] + [0]:  # the fewest rows that take each class
+                self._embed_padded([zeros] * (smaller + 1), bucket)
 
     def embed(self, waveforms: Sequence[np.ndarray]) -> np.ndarray:
         """-> unit-norm embeddings [len(waveforms), E], original order."""
